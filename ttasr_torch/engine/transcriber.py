@@ -9,6 +9,13 @@ are the shared, jax-free ``ttasr.audio`` modules).  Only the device calls
 differ: mel + encoder and the decodes run eagerly in PyTorch on an explicit
 device, and each decode draws its random numbers from a
 ``torch.Generator`` seeded with the engine's decode counter.
+
+``compute_type="int8"`` quantizes the weights on the device
+(``quantize_params`` + ``fuse_qkv``) and decodes through the fused int8
+kernels with the reference's defaults: int8 self-KV, int4 lane-packed
+self-KV, int4 cross-KV and beam search through the ancestry map.  Its
+encoder runs in bf16 on the int8 weights (``encoder_act_int8=False``);
+the s8 x s8 encoder is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -51,11 +58,12 @@ from ttasr_torch.ops.mel import (
     SAMPLE_RATE,
     log_mel_spectrogram,
 )
+from ttasr_torch.ops.quant import fuse_qkv, quantize_params
 
 TIME_PRECISION = 0.02
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.bfloat16}
+           "float16": torch.bfloat16, "int8": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -82,7 +90,7 @@ class TranscribeOptions:
     vad_filter: bool = True
     vad_parameters: Optional[VadOptions] = None
     max_new_tokens: int = SAMPLE_LEN
-    kv_cache_int8: Optional[bool] = None  # int8 cache: not ported, raises
+    kv_cache_int8: Optional[bool] = None  # None -> engine default
 
 
 def _host_f32(audio: np.ndarray) -> np.ndarray:
@@ -126,20 +134,31 @@ def _parse_transcribe_kwargs(kwargs: dict) -> TranscribeOptions:
 
 class WhisperEngine:
     """PyTorch Whisper inference engine with a faster-whisper-compatible
-    API, on an explicit device (default ``"cuda"``; raises when absent)."""
+    API, on an explicit device (default ``"cuda"``; raises when absent).
+
+    The keyword arguments after ``device`` are the reference's: the int4
+    sub-modes of the int8 caches (default on), and the s8 x s8 encoder
+    switches; ``encoder_fused_quant`` acts only on the s8 x s8 encoder,
+    which is not ported, so it is accepted and has no effect."""
 
     def __init__(self, model_path_or_name: str = "tiny", *,
                  compute_type: str = "float32",
                  tokenizer: Optional[WhisperTokenizer] = None,
                  params: Optional[Any] = None,
                  config: Optional[WhisperConfig] = None,
-                 device="cuda"):
-        if compute_type == "int8":
-            raise NotImplementedError(
-                "compute_type='int8' is not ported to ttasr_torch yet: it "
-                "needs the int8 weights and kernels of ROADMAP A4 and B1-B9")
+                 device="cuda",
+                 cross_kv_int4: bool = True,
+                 kv_int4: bool = True,
+                 encoder_act_int8: bool = True,
+                 encoder_fused_quant: bool = True):
         if compute_type not in _DTYPES:
             raise ValueError(f"unknown compute_type {compute_type!r}")
+        if compute_type == "int8" and encoder_act_int8:
+            raise NotImplementedError(
+                "compute_type='int8' with encoder_act_int8=True needs the "
+                "s8 x s8 encoder (B5-B9 and the s8xs8 GEMM), not ported to "
+                "ttasr_torch yet (ROADMAP B); pass encoder_act_int8=False for "
+                "a bf16 encoder on the int8 weights")
         self.compute_type = compute_type
         self.device = resolve_device(device)
         self.model_size = model_path_or_name
@@ -149,6 +168,12 @@ class WhisperEngine:
             self.params, self.cfg = load_whisper(
                 model_path_or_name, dtype=_DTYPES[compute_type],
                 device=self.device)
+        # int8: quantized weights, int8 self-KV with the int4 sub-modes
+        self.kv_cache_int8 = compute_type == "int8"
+        self.cross_kv_int4 = cross_kv_int4 and self.kv_cache_int8
+        self.kv_int4 = kv_int4 and self.kv_cache_int8
+        if compute_type == "int8":
+            self.params = fuse_qkv(quantize_params(self.params))
         self.tokenizer = tokenizer or load_tokenizer(
             model_path_or_name if isinstance(model_path_or_name, str) else None)
         self.ti = TokenizerInfo.from_tokenizer(
@@ -157,7 +182,7 @@ class WhisperEngine:
         # what the decodes did: counts, steps, and any non-finite logits
         self.decode_stats = {"beam_decodes": 0, "greedy_decodes": 0,
                              "beam_steps": 0, "greedy_steps": 0,
-                             "nonfinite_logits": 0}
+                             "nonfinite_logits": 0, "encoder_passes": 0}
 
     @torch.inference_mode()
     def encode_windows(self, audio: np.ndarray, *,
@@ -179,6 +204,7 @@ class WhisperEngine:
         mel = log_mel_spectrogram(a, n_mels=self.cfg.num_mel_bins,
                                   pad_to_chunk=False, device=self.device)
         out = encode(self.params, self.cfg, mel)
+        self.decode_stats["encoder_passes"] += 1
         return out[0] if squeeze else out
 
     # -- low-level window decode ------------------------------------------
@@ -208,6 +234,9 @@ class WhisperEngine:
         self._rng_counter += 1
         rng = torch.Generator(device=self.device).manual_seed(self._rng_counter)
         prompt, pad = pad_prompts([prompt_ids], self.ti.eot)
+        kv_int8 = opts.kv_cache_int8
+        if kv_int8 is None:
+            kv_int8 = self.kv_cache_int8
         dec_opts = DecodingOptions(
             beam_size=opts.beam_size,
             length_penalty=opts.length_penalty,
@@ -215,7 +244,10 @@ class WhisperEngine:
             without_timestamps=opts.without_timestamps,
             max_initial_timestamp=opts.max_initial_timestamp,
             sample_len=min(opts.max_new_tokens, SAMPLE_LEN),
-            kv_int8=bool(opts.kv_cache_int8),  # True raises: not ported
+            kv_int8=kv_int8,
+            cross_kv_int8=kv_int8 and self.compute_type == "int8",
+            cross_kv_int4=self.cross_kv_int4 and kv_int8,
+            kv_int4=self.kv_int4 and kv_int8,
         )
         if temperature == 0.0 and opts.beam_size > 1:
             out = self.run_beam_decode(enc_out, prompt, pad, rng, opts=dec_opts)

@@ -1,5 +1,6 @@
 """Whisper decoding: greedy and beam search with CT2-parity logit rules
-(port of ``ttasr/models/whisper/decode.py``, unquantized cache path).
+(port of ``ttasr/models/whisper/decode.py``: the float cache path and the
+fused int8 path of one chip).
 
 Same rule set and semantics as the reference: static suppress list,
 SuppressBlank, the timestamp rules (pairing, monotonicity,
@@ -12,6 +13,17 @@ runs on the host (one device step per token); the JAX version's
 Ties break as in JAX: top-k and the survivor sort are stable sorts
 (lower index first, as ``lax.top_k`` and ``jnp.argsort``), argmax takes
 the first maximum.
+
+With fused int8 weights (``quantize_params`` + ``fuse_qkv``) and
+``kv_int8`` the decode runs the reference's flat fused path
+(``scan_block_fused``): per token and layer B1 ``qkv_int8_fused`` -> B2
+``self_attn_step_indirect_int8`` (beam, through the ancestry map) or B10
+``self_attn_step_int8`` (greedy) -> B3 ``attnout_ln_q_cross_int8`` -> B4
+``mlp_with_crossout_int8``, over an int8 or int4 lane-packed flat self-KV
+cache and an int8 or int4 cross-KV cache.  Beam search permutes a
+(rows, len) ancestry map instead of the caches.  Options off this path
+(the unfused int8 graph, bf16 cross-KV beside int8 self-KV, more than 8
+beams, ``beam_indirect=False``, tensor parallelism) raise.
 
 The host-side pieces (``DecodingOptions``, ``TokenizerInfo``,
 ``build_prompt``, ``pad_prompts``, ``compression_ratio`` and the
@@ -33,14 +45,28 @@ from ttasr_torch.models.whisper.model import (
     DecodeCache,
     _attention,
     _cross_attention,
+    _embed_lookup,
     _ln,
     _merge_heads,
     _mlp,
     _model_dtype,
     _proj,
+    _quant_self_attention,
     _split_heads,
     _unembed,
     init_cache,
+    quantize_kv,
+)
+from ttasr_torch.ops.decoder_blocks import (
+    MAX_BEAMS,
+    attnout_ln_q_cross_int8,
+    qkv_int8_fused,
+)
+from ttasr_torch.ops.decoder_mlp import mlp_with_crossout_int8
+from ttasr_torch.ops.int4 import pack_int4_lanes, quantize_kv4, unpack_int4
+from ttasr_torch.ops.self_attention import (
+    self_attn_step_indirect_int8,
+    self_attn_step_int8,
 )
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -53,8 +79,9 @@ SAMPLE_LEN = 224   # max new tokens per window (n_ctx // 2)
 @dataclasses.dataclass(frozen=True)
 class DecodingOptions:
     """Decode configuration.  Same fields and defaults as the reference;
-    the int8/int4 cache modes, tensor parallelism and the unfused-rules
-    A/B path are not ported yet and raise in the decode functions."""
+    the flat fused int8 path is ported, tensor parallelism, the
+    unfused-rules A/B path and the unfused int8 graph raise in the decode
+    functions (:func:`_check_supported`)."""
 
     beam_size: int = 5
     temperature: float = 0.0  # 0 = deterministic; >0 enables sampling
@@ -113,17 +140,69 @@ class TokenizerInfo:
         )
 
 
-def _check_supported(opts: DecodingOptions) -> None:
-    missing = [name for name in ("kv_int8", "cross_kv_int8", "kv_int4",
-                                 "cross_kv_int4", "unfused_rules",
-                                 "tp_row_parallel")
+def _use_flat_kv(params, cfg: WhisperConfig, opts: DecodingOptions) -> bool:
+    """Flat int8 self-KV: only with the fused int8 weights and 64-wide
+    heads, where the fused decode kernels run."""
+    return (opts.kv_int8 and "wqkv" in params["decoder"]["blocks"][0]
+            and cfg.d_model // cfg.decoder_heads == 64)
+
+
+def _use_cross_int4(params, cfg: WhisperConfig, opts: DecodingOptions) -> bool:
+    """int4 cross-KV: a sub-mode of ``cross_kv_int8`` on the flat path."""
+    return (opts.cross_kv_int4 and opts.cross_kv_int8
+            and _use_flat_kv(params, cfg, opts) and cfg.decoder_heads % 2 == 0)
+
+
+def _use_self_int4(params, cfg: WhisperConfig, opts: DecodingOptions) -> bool:
+    """int4 lane-packed self-KV: a sub-mode of ``kv_int8`` on the flat
+    path, with an even head count (the D/2 split lands on a head)."""
+    return (opts.kv_int4 and opts.kv_int8
+            and _use_flat_kv(params, cfg, opts) and cfg.decoder_heads % 2 == 0)
+
+
+def _f32_decoder_vectors(params):
+    """The decoder layers' LayerNorm scales and biases in f32: the fused
+    kernels take them in f32 (the TPU kernels upcast them), so this runs
+    once per decode instead of per kernel call.  Model-type values are
+    exact in f32 and the prefill casts them back, so no result changes."""
+    dec = params["decoder"]
+    blocks = [{k: (v.float() if torch.is_tensor(v) and v.dim() == 1 else v)
+               for k, v in blk.items()} for blk in dec["blocks"]]
+    return dict(params, decoder=dict(dec, blocks=blocks))
+
+
+def _check_supported(params, cfg: WhisperConfig, opts: DecodingOptions,
+                     beams: int = 1) -> None:
+    """Raise for every option that leaves the ported paths: the float
+    cache path and the flat fused int8 path with B1-B4/B10."""
+    missing = [name for name in ("unfused_rules", "tp_row_parallel")
                if getattr(opts, name)]
     if opts.tp_axis is not None:
         missing.append("tp_axis")
     if missing:
         raise NotImplementedError(
             f"DecodingOptions {missing} are not ported to ttasr_torch yet "
-            f"(ROADMAP A4, A12)")
+            f"(ROADMAP A5, A12)")
+    flat = _use_flat_kv(params, cfg, opts)
+    if opts.kv_int8 and not flat:
+        raise NotImplementedError(
+            "kv_int8 without fused int8 weights (or with heads other than "
+            "64 wide) needs the 5-D int8 cache of the unfused int8 graph, "
+            "not ported to ttasr_torch (ROADMAP C)")
+    if opts.cross_kv_int8 and not flat:
+        raise NotImplementedError(
+            "cross_kv_int8 off the flat fused path needs B13 "
+            "(cross_attention_int8), not ported yet (ROADMAP B)")
+    if flat and (not opts.cross_kv_int8 or cfg.decoder_heads % 2
+                 or beams > MAX_BEAMS):
+        raise NotImplementedError(
+            "the flat int8 path with a bf16 cross-KV, an odd head count or "
+            f"more than {MAX_BEAMS} beams needs B12 and B13, not ported yet "
+            "(ROADMAP B)")
+    if flat and beams > 1 and not opts.beam_indirect:
+        raise NotImplementedError(
+            "beam_indirect=False on the flat int8 path needs B17 "
+            "(gather_cache_rows), not ported yet (ROADMAP B)")
 
 
 # ---------------------------------------------------------------------------
@@ -131,38 +210,94 @@ def _check_supported(opts: DecodingOptions) -> None:
 # ---------------------------------------------------------------------------
 
 def _qkv_proj(h, blk, cfg: WhisperConfig):
+    """Self-attention q/k/v, through the fused ``wqkv`` leaf when present."""
     n = cfg.decoder_heads
+    if "wqkv" in blk:
+        qkv = _proj(h, blk["wqkv"], blk["bqkv"])
+        return tuple(_split_heads(t, n) for t in qkv.chunk(3, dim=-1))
     return (_split_heads(_proj(h, blk["wq"], blk["bq"]), n),
             _split_heads(_proj(h, blk["wk"]), n),
             _split_heads(_proj(h, blk["wv"], blk["bv"]), n))
 
 
-def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache):
+def _cross_attn_quantized(qc, ck8, cks_t, cv8, cvs_t, s_real: int):
+    """Cross-attention over one layer's quantized cross-KV outside the
+    fused kernel: the prompt prefill (the reference's XLA branch), with
+    the int4 cache unpacked once per window and slots >= ``s_real``
+    masked.  qc: (rows, T, H, Dh); ck8/cv8: (B, S, D) int8 or (B, S/2, D)
+    uint8; cks_t/cvs_t: (B, H, S)."""
+    bk, t, h, dh = qc.shape
+    b = ck8.shape[0]
+    group = bk // b
+    if t == 1 and group <= MAX_BEAMS and dh == 64 and h % 2 == 0:
+        raise NotImplementedError(
+            "a single-token quantized cross-attention outside the fused "
+            "kernel needs B13 (cross_attention_int8), not ported yet "
+            "(ROADMAP B)")
+    if ck8.dtype == torch.uint8:
+        ck8, cv8 = unpack_int4(ck8), unpack_int4(cv8)
+    s = ck8.shape[1]
+    mask = (torch.arange(s, device=qc.device) < s_real)[None, None, None, :]
+    out = _quant_self_attention(
+        qc.reshape(b, group * t, h, dh), ck8.reshape(b, s, h, dh),
+        cks_t.transpose(1, 2), cv8.reshape(b, s, h, dh),
+        cvs_t.transpose(1, 2), mask)
+    return out.reshape(bk, t, h, dh)
+
+
+def _write_prefill_kv(cache: DecodeCache, i: int, k_new, v_new, t: int):
+    """Store the prompt's K/V (B, T, H, Dh) in slots 0..T-1 of layer i:
+    as they are, or quantized into the flat int8/int4 layout with the
+    scales transposed to (rows, H, T)."""
+    if not cache.quantized:
+        cache.k[i, :, :t] = k_new
+        cache.v[i, :, :t] = v_new
+        return
+    int4 = cache.self_int4
+    h = k_new.shape[2]
+    for codes, scales, new in ((cache.k, cache.ks, k_new),
+                               (cache.v, cache.vs, v_new)):
+        q, sc = (quantize_kv4 if int4 else quantize_kv)(new)
+        q = _merge_heads(q)
+        codes[i, :, :t] = pack_int4_lanes(q) if int4 else q
+        scales[i, :, :h, :t] = sc.transpose(1, 2)
+
+
+def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
+             s_real: Optional[int] = None):
     """Teacher-forced pass over the left-padded prompt buffer.
 
     tokens: (B, W) long, real tokens at positions ``pad_len..W-1`` with
     positional indices ``0..real-1``; pad_len: (B,) long.  Writes slots
-    ``0..W-1`` of the self cache in place.
+    ``0..W-1`` of the self cache in place (quantized on the flat int8
+    path).  ``s_real``: valid cross-attention slots of a quantized
+    cross-KV (the encoder length; default ``cfg.max_source_positions``).
     Returns (final-LN hidden states (B, W, d), cache).
     """
+    if s_real is None:
+        s_real = cfg.max_source_positions
     dec = params["decoder"]
     b, t = tokens.shape
     ar = torch.arange(t, device=tokens.device)
     pos_ids = torch.clamp(ar[None, :] - pad_len[:, None], min=0)
-    x = (dec["embed"][tokens] + dec["pos"][pos_ids]).to(_model_dtype(dec))
+    x = (_embed_lookup(dec, tokens) + dec["pos"][pos_ids]).to(_model_dtype(dec))
     valid = ar[None, None, :] >= pad_len[:, None, None]   # pad slots never attend
     causal = ar[None, None, :] <= ar[None, :, None]
     mask = (causal & valid)[:, None]                       # (B, 1, T, T)
     for i, blk in enumerate(dec["blocks"]):
         h = _ln(x, blk["ln1_s"], blk["ln1_b"])
         q, k_new, v_new = _qkv_proj(h, blk, cfg)
-        cache.k[i, :, :t] = k_new
-        cache.v[i, :, :t] = v_new
+        _write_prefill_kv(cache, i, k_new, v_new, t)
         attn = _attention(q, k_new, v_new, mask)  # its own exact K/V block
         x = x + _proj(_merge_heads(attn), blk["wo"], blk["bo"])
         hc = _ln(x, blk["lnc_s"], blk["lnc_b"])
         qc = _split_heads(_proj(hc, blk["wq_c"], blk["bq_c"]), cfg.decoder_heads)
-        cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
+        if cache.cross_quantized:
+            cross = _cross_attn_quantized(qc, cache.cross_k[i], cache.cks[i],
+                                          cache.cross_v[i], cache.cvs[i],
+                                          s_real)
+        else:
+            cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
         x = x + _proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"])
         x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
     return _ln(x, dec["ln_s"], dec["ln_b"]), cache
@@ -173,17 +308,80 @@ def _logits_at(params, hidden):
     return _unembed(hidden, params["decoder"])
 
 
+def _step_fused(params, cfg: WhisperConfig, x, slot: int, pad_len,
+                cache: DecodeCache, anc, s_real: int):
+    """The flat fused int8 step (the reference's ``scan_block_fused``
+    without the TP branches): per layer B1 -> B2 (``anc`` given) or B10
+    -> B3 -> B4.  Each layer's new K/V codes and scales are written at
+    ``slot`` after the loop (the kernels read only positions < slot)."""
+    dec = params["decoder"]
+    bk = x.shape[0]
+    b_audio = cache.cross_k.shape[1]
+    group = bk // b_audio
+    h, d = cfg.decoder_heads, cfg.d_model
+    cache_len, d_store = cache.k.shape[2:]
+    hp = cache.ks.shape[2]
+    pad_g = pad_len.to(torch.int32).reshape(b_audio, group)  # once per step
+    anc_g = None if anc is None else anc.reshape(b_audio, group, cache_len)
+    new_rows = []
+    for i, blk in enumerate(dec["blocks"]):
+        x2 = x[:, 0].float()
+        qkv = qkv_int8_fused(x2, blk["ln1_s"], blk["ln1_b"],
+                             blk["wqkv"]["q"], blk["wqkv"]["s"], blk["bqkv"])
+        caches = (qkv.reshape(b_audio, group, 3 * d),
+                  cache.k[i].reshape(b_audio, group, cache_len, d_store),
+                  cache.ks[i].reshape(b_audio, group, hp, cache_len),
+                  cache.v[i].reshape(b_audio, group, cache_len, d_store),
+                  cache.vs[i].reshape(b_audio, group, hp, cache_len))
+        if anc_g is not None:
+            attn, *rows = self_attn_step_indirect_int8(
+                *caches, anc_g, pad_g, slot, n_heads=h, int4=cache.self_int4)
+        else:
+            attn, *rows = self_attn_step_int8(
+                *caches, pad_g, slot, n_heads=h, int4=cache.self_int4)
+        new_rows.append(rows)
+        xo, cross = attnout_ln_q_cross_int8(
+            x2.reshape(b_audio, group, d), attn,
+            blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
+            blk["lnc_s"], blk["lnc_b"],
+            blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"],
+            cache.cross_k[i], cache.cks[i], cache.cross_v[i], cache.cvs[i],
+            s_real)
+        x_new = mlp_with_crossout_int8(
+            xo.reshape(bk, d), cross.reshape(bk, d),
+            blk["wo_c"]["q"], blk["wo_c"]["s"], blk["bo_c"],
+            blk["ln2_s"], blk["ln2_b"],
+            blk["w1"]["q"], blk["w1"]["s"], blk["b1"],
+            blk["w2"]["q"], blk["w2"]["s"], blk["b2"])
+        x = x_new[:, None, :].to(x.dtype)
+    k_rows, ks_rows, v_rows, vs_rows = (torch.stack(t) for t in zip(*new_rows))
+    cache.k[:, :, slot] = k_rows.reshape(-1, bk, d_store)
+    cache.v[:, :, slot] = v_rows.reshape(-1, bk, d_store)
+    cache.ks[:, :, :h, slot] = ks_rows.reshape(-1, bk, h)
+    cache.vs[:, :, :h, slot] = vs_rows.reshape(-1, bk, h)
+    x = _ln(x, dec["ln_s"], dec["ln_b"])
+    return _unembed(x[:, 0], dec), cache
+
+
 def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
-          cache: DecodeCache):
+          cache: DecodeCache, anc=None, s_real: Optional[int] = None):
     """Single-token decode at cache slot ``slot``; writes the slot in place.
 
     token: (B, 1) long.  pad_len: (B,) long — pad slots stay masked.
+    anc: optional (rows, len) ancestry map (beam search on the flat int8
+    path): the physical row, within the audio's beam group, that holds
+    each row's entry at each cache position.
     Returns (logits (B, V) f32, cache).
     """
+    if s_real is None:
+        s_real = cfg.max_source_positions
     dec = params["decoder"]
     max_len = cache.k.shape[2]
     pos = torch.clamp(slot - pad_len, min=0)              # (B,)
-    x = (dec["embed"][token] + dec["pos"][pos][:, None, :]).to(_model_dtype(dec))
+    x = (_embed_lookup(dec, token)
+         + dec["pos"][pos][:, None, :]).to(_model_dtype(dec))
+    if cache.quantized:
+        return _step_fused(params, cfg, x, slot, pad_len, cache, anc, s_real)
     k_ids = torch.arange(max_len, device=token.device)[None, :]
     mask = ((k_ids <= slot) & (k_ids >= pad_len[:, None]))[:, None, None]
     for i, blk in enumerate(dec["blocks"]):
@@ -284,32 +482,40 @@ def _growth_buckets(max_prompt: int, sample_len: int, min_cap: int = 32):
 
 
 def _tile_cache_rows(cache: DecodeCache, k: int) -> DecodeCache:
-    """Repeat the self caches K x along the row axis (beam expansion after
-    a B-row prefill).  Cross K/V stay at B."""
+    """Repeat the self caches (and their scales) K x along the row axis
+    (beam expansion after a B-row prefill).  Cross K/V stay at B."""
     if k == 1:
         return cache
-    return dataclasses.replace(
-        cache, k=cache.k.repeat_interleave(k, dim=1),
-        v=cache.v.repeat_interleave(k, dim=1))
+
+    def rep(x):
+        return None if x is None else x.repeat_interleave(k, dim=1)
+
+    return dataclasses.replace(cache, k=rep(cache.k), v=rep(cache.v),
+                               ks=rep(cache.ks), vs=rep(cache.vs))
 
 
 def _pad_cache_to(cache: DecodeCache, new_len: int) -> DecodeCache:
-    """Grow the self-KV caches (len axis) to ``new_len`` slots."""
+    """Grow the self-KV caches (len axis) to ``new_len`` slots; flat
+    scales (L, rows, HP, len) grow on their last axis."""
     cur = cache.k.shape[2]
     if cur >= new_len:
         return cache
 
-    def grow(x):
+    def grow(x, axis=2):
         shape = list(x.shape)
-        shape[2] = new_len - cur
-        return torch.cat([x, x.new_zeros(shape)], dim=2)
+        shape[axis] = new_len - cur
+        return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
+    if cache.quantized:
+        return dataclasses.replace(cache, k=grow(cache.k), v=grow(cache.v),
+                                   ks=grow(cache.ks, 3), vs=grow(cache.vs, 3))
     return dataclasses.replace(cache, k=grow(cache.k), v=grow(cache.v))
 
 
 def _gather_cache(cache: DecodeCache, idx) -> DecodeCache:
-    """Reorder the self caches' row axis by ``idx``.  Cross K/V are shared
-    by the beams of an audio and are not gathered."""
+    """Reorder the float self caches' row axis by ``idx``.  Cross K/V are
+    shared by the beams of an audio and are not gathered; the flat int8
+    caches never reorder (the ancestry map does)."""
     return dataclasses.replace(cache, k=cache.k.index_select(1, idx),
                                v=cache.v.index_select(1, idx))
 
@@ -340,6 +546,13 @@ def _no_speech_prob(params, hidden, prompt, ti: TokenizerInfo):
 # Greedy / sampling decode
 # ---------------------------------------------------------------------------
 
+def _cache_flags(params, cfg: WhisperConfig, opts: DecodingOptions) -> dict:
+    return dict(kv_int8=opts.kv_int8, cross_kv_int8=opts.cross_kv_int8,
+                cross_kv_int4=_use_cross_int4(params, cfg, opts),
+                flat_kv=_use_flat_kv(params, cfg, opts),
+                kv_int4=_use_self_int4(params, cfg, opts))
+
+
 def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
                   rng: Optional[torch.Generator] = None, temperature=None, *,
                   opts: DecodingOptions, ti: TokenizerInfo):
@@ -356,9 +569,12 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     no_speech_prob, plus ``steps`` (decode steps run) and
     ``logits_finite`` (every step's logits were finite).
     """
-    _check_supported(opts)
+    _check_supported(params, cfg, opts)
+    if _use_flat_kv(params, cfg, opts):
+        params = _f32_decoder_vectors(params)
     dev = enc_out.device
     b = enc_out.shape[0]
+    s_real = enc_out.shape[1]
     prompt, pad_len = _prompt_tensors(prompt, pad_len, dev)
     temps = np.broadcast_to(np.asarray(
         opts.temperature if temperature is None else temperature,
@@ -369,8 +585,10 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     temp_t = torch.as_tensor(np.array(temps), device=dev)
     max_prompt = prompt.shape[1]
     buckets = _growth_buckets(max_prompt, opts.sample_len, opts.growth_min_cap)
-    cache = init_cache(params, cfg, enc_out, max_len=buckets[0])
-    hidden, cache = _prefill(params, cfg, prompt, pad_len, cache)
+    cache = init_cache(params, cfg, enc_out, max_len=buckets[0],
+                       **_cache_flags(params, cfg, opts))
+    hidden, cache = _prefill(params, cfg, prompt, pad_len, cache,
+                             s_real=s_real)
     no_speech_prob = _no_speech_prob(params, hidden, prompt, ti)
 
     static_mask = torch.from_numpy(_static_suppress_mask(ti)).to(dev)
@@ -414,7 +632,8 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
             n = n + sampled.long()
             finished = finished | newly_finished
             logits, cache = _step(params, cfg, write_tok[:, None],
-                                  max_prompt + step, pad_len, cache)
+                                  max_prompt + step, pad_len, cache,
+                                  s_real=s_real)
             finite = finite & torch.isfinite(logits).all()
             step += 1
     return {
@@ -445,10 +664,13 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     no_speech_prob — the best sequence per audio — plus ``steps`` and
     ``logits_finite`` as :func:`greedy_decode`.
     """
-    _check_supported(opts)
+    k = opts.beam_size
+    _check_supported(params, cfg, opts, beams=k)
+    if _use_flat_kv(params, cfg, opts):
+        params = _f32_decoder_vectors(params)
     dev = enc_out.device
     b = enc_out.shape[0]
-    k = opts.beam_size
+    s_real = enc_out.shape[1]
     bk = b * k
     v = ti.n_vocab
     L = opts.sample_len
@@ -457,9 +679,18 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     max_prompt = prompt.shape[1]
     buckets = _growth_buckets(max_prompt, L, opts.growth_min_cap)
     # prefill once per audio (all K beams share the prompt), then tile
-    cache = init_cache(params, cfg, enc_out, max_len=buckets[0])
-    hidden_b, cache = _prefill(params, cfg, prompt, pad_len, cache)
+    cache = init_cache(params, cfg, enc_out, max_len=buckets[0],
+                       **_cache_flags(params, cfg, opts))
+    hidden_b, cache = _prefill(params, cfg, prompt, pad_len, cache,
+                               s_real=s_real)
     cache = _tile_cache_rows(cache, k)
+    # the flat int8 caches never reorder: a (rows, len) map of each row's
+    # source row within its beam group is permuted instead, starting at
+    # the identity (each row holds its own prompt)
+    own_row = (torch.arange(bk, device=dev) % k).to(torch.int32)
+    anc = None
+    if cache.quantized:
+        anc = own_row[:, None].expand(bk, buckets[0]).contiguous()
     no_speech_prob = _no_speech_prob(params, hidden_b, prompt, ti)
 
     static_mask = torch.from_numpy(_static_suppress_mask(ti)).to(dev)
@@ -484,6 +715,9 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     step = 0
     for bucket_len in buckets:
         cache = _pad_cache_to(cache, bucket_len)
+        if anc is not None and anc.shape[1] < bucket_len:
+            anc = torch.cat([anc, own_row[:, None].expand(
+                bk, bucket_len - anc.shape[1])], dim=1)
         cap = bucket_len - max_prompt
         while (step < cap and step < L
                and not bool((fin_count >= max_finished).all())):
@@ -535,7 +769,12 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
             n = n[sel_flat_src]
             last = last[sel_flat_src]
             max_ts = max_ts[sel_flat_src]
-            cache = _gather_cache(cache, sel_flat_src)
+            if anc is not None:
+                # the new entry lands in each row's own physical row
+                anc = anc[sel_flat_src]
+                anc[:, max_prompt + step] = own_row
+            else:
+                cache = _gather_cache(cache, sel_flat_src)
 
             new_tok = sel_tok.reshape(-1)
             tokens[:, step] = new_tok
@@ -546,7 +785,8 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
             n = n + 1
             cum_logprob = sel_score.reshape(-1)
             logits, cache = _step(params, cfg, new_tok[:, None],
-                                  max_prompt + step, pad_rep, cache)
+                                  max_prompt + step, pad_rep, cache, anc,
+                                  s_real=s_real)
             finite = finite & torch.isfinite(logits).all()
             step += 1
 

@@ -5,7 +5,9 @@ leaf names and layouts: torch ``Linear.weight`` (out, in) is transposed to
 (in, out), conv1d weight (out, in, k) becomes (k, in, out), and the
 decoder/encoder layers become a list of per-layer dicts.
 :func:`params_from_jax` takes the JAX package's stacked parameter tree (as
-numpy arrays) so that both packages can compute the same function.
+numpy arrays) so that both packages can compute the same function; its
+quantized ``{"q", "s"}`` leaves (``ttasr/ops/quant.py``) stay int8 codes
+and f32 scales, unstacked per layer like every other leaf.
 """
 
 from __future__ import annotations
@@ -56,11 +58,20 @@ def _to_tensor(x, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _quantized_leaf(val, device) -> Dict[str, torch.Tensor]:
+    return {"q": torch.from_numpy(np.array(val["q"], np.int8)).to(device),
+            "s": torch.from_numpy(np.array(val["s"], np.float32)).to(device)}
+
+
 def _convert_tree(tree, dtype, device):
-    """Nested dict of numpy arrays (stacked layers) -> port params."""
+    """Nested dict of numpy arrays (stacked layers) -> port params; float
+    leaves take ``dtype``, quantized leaves keep int8 codes and f32
+    scales."""
     out = {}
     for key, val in tree.items():
-        if isinstance(val, dict):
+        if isinstance(val, dict) and set(val) == {"q", "s"}:
+            out[key] = _quantized_leaf(val, device)
+        elif isinstance(val, dict):
             sub = _convert_tree(val, dtype, device)
             out[key] = unstack_blocks(sub) if key == "blocks" else sub
         else:
@@ -70,7 +81,8 @@ def _convert_tree(tree, dtype, device):
 
 def params_from_jax(tree, dtype=torch.float32, device="cpu") -> Dict[str, Any]:
     """The JAX package's parameter pytree (numpy or jax arrays, stacked
-    layer axes, float weights) -> the port's parameter dict."""
+    layer axes; float or ``quantize_params``/``fuse_qkv`` int8 weights)
+    -> the port's parameter dict."""
     return _convert_tree(tree, dtype, device)
 
 

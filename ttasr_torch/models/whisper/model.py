@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from ttasr_torch.models.whisper.config import WhisperConfig
 from ttasr_torch.ops.encoder_attention import encoder_attention_merged
+from ttasr_torch.ops.int4 import pack_int4, pack_int4_lanes, quantize_kv4
+from ttasr_torch.ops.quant import is_quantized, quant_matmul, quantize_kv_sym
 
 Params = Dict[str, Any]
 NEG_MASK = torch.finfo(torch.float32).min  # as the reference: never -inf
@@ -72,10 +74,18 @@ def _block_init(gen, n_layers, d, ffn, cross: bool, dtype, device) -> List[dict]
     return unstack_blocks(blk)
 
 
-def unstack_blocks(stacked: Dict[str, torch.Tensor]) -> List[dict]:
-    """Stacked ``(L, ...)`` leaves -> one dict of views per layer."""
-    n = len(next(iter(stacked.values())))
-    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+def _layer(leaf, i):
+    if isinstance(leaf, dict):  # a quantized {"q", "s"} leaf
+        return {k: v[i] for k, v in leaf.items()}
+    return leaf[i]
+
+
+def unstack_blocks(stacked: Dict[str, Any]) -> List[dict]:
+    """Stacked ``(L, ...)`` leaves (tensors, or quantized ``{"q", "s"}``
+    dicts of stacked tensors) -> one dict of views per layer."""
+    first = next(iter(stacked.values()))
+    n = len(first["q"] if isinstance(first, dict) else first)
+    return [{k: _layer(v, i) for k, v in stacked.items()} for i in range(n)]
 
 
 def init_params(cfg: WhisperConfig, seed: int = 0, dtype=torch.float32,
@@ -124,7 +134,14 @@ def _ln(x, scale, bias, eps=1e-5):
 
 
 def _proj(x, w, b=None):
-    """x @ w (+ b): f32 accumulation, output in x's type."""
+    """x @ w (+ b): f32 accumulation, output in x's type.  A quantized
+    leaf runs :func:`quant_matmul` (f32 out) and adds the bias in f32
+    before the one cast, as the reference does."""
+    if is_quantized(w):
+        out = quant_matmul(x, w)
+        if b is not None:
+            out = out + b.float()
+        return out.to(x.dtype)
     w = w.to(x.dtype)
     if b is None:
         return torch.matmul(x, w)
@@ -136,11 +153,23 @@ def _model_dtype(dec) -> torch.dtype:
     return dec["pos"].dtype
 
 
+def _embed_lookup(dec, tokens):
+    """Token embedding gather, quantization-aware (codes x row scale)."""
+    e = dec["embed"]
+    if is_quantized(e):
+        return (e["q"][tokens].float() * e["s"][tokens]).to(_model_dtype(dec))
+    return e[tokens]
+
+
 def _unembed(x, dec):
     """Hidden states -> f32 vocab logits via the tied embedding (bf16
-    values multiply exactly in f32, as the reference's f32-accumulated
-    bf16 matmul does)."""
-    return torch.matmul(x.float(), dec["embed"].float().t())
+    values and int8 codes multiply exactly in f32, as the reference's
+    f32-accumulated matmul does); a quantized embed applies its per-row
+    scale to the logits."""
+    e = dec["embed"]
+    if is_quantized(e):
+        return torch.matmul(x.float(), e["q"].float().t()) * e["s"][:, 0]
+    return torch.matmul(x.float(), e.float().t())
 
 
 def _split_heads(x, n_heads):
@@ -167,6 +196,11 @@ def _attention(q, k, v, mask=None):
 
 
 def _enc_qkv(x, blk):
+    """q/k/v projections, through the fused (D, 3D) leaf when present."""
+    if "wqkv" in blk:
+        qkv = _proj(x, blk["wqkv"], blk["bqkv"])
+        d = x.shape[-1]
+        return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     return (_proj(x, blk["wq"], blk["bq"]), _proj(x, blk["wk"]),
             _proj(x, blk["wv"], blk["bv"]))
 
@@ -179,8 +213,11 @@ def _self_attn(x, blk, n_heads, mask=None, fused: bool = False,
         # output is already in the layout the out-projection consumes
         qm, km, vm = _enc_qkv(x, blk)
         qm = qm * (dh ** -0.5)
+        # the fused wqkv leaf yields column slices; the kernel reads
+        # contiguous (B, T, D) operands
         out_m = encoder_attention_merged(
-            qm, km, vm, t_real if t_real is not None else x.shape[1])
+            qm, km.contiguous(), vm.contiguous(),
+            t_real if t_real is not None else x.shape[1])
         return _proj(out_m, blk["wo"], blk["bo"])
     q, k, v = _enc_qkv(x, blk)
     out = _attention(_split_heads(q, n_heads), _split_heads(k, n_heads),
@@ -234,7 +271,8 @@ def decode_train(params: Params, cfg: WhisperConfig, tokens, enc_out, *,
     """Full-sequence decoder pass. tokens: (B, T) int -> logits (B, T, V)."""
     dec = params["decoder"]
     b, t = tokens.shape
-    x = dec["embed"][tokens] + dec["pos"][positions_offset: positions_offset + t]
+    x = (_embed_lookup(dec, tokens)
+         + dec["pos"][positions_offset: positions_offset + t])
     x = x.to(_model_dtype(dec))
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                    device=x.device))[None, None]
@@ -257,30 +295,142 @@ def decode_train(params: Params, cfg: WhisperConfig, tokens, enc_out, *,
 
 @dataclasses.dataclass
 class DecodeCache:
-    """Self-attention K/V (L, rows, max_len, H, Dh) and cross-attention
-    K/V (L, B, src_len, H, Dh), in the model type.  Beams of one audio
-    share the cross K/V (rows = B * beams)."""
+    """Self- and cross-attention K/V caches.  Beams of one audio share
+    the cross K/V (rows = B * beams for the self caches, B for cross).
+
+    Float mode: k/v (L, rows, max_len, H, Dh) and cross_k/cross_v
+    (L, B, S, H, Dh) in the model type; the scale fields are None.
+
+    Flat int8 mode (the fused int8 decode kernels): k/v (L, rows, len, D)
+    int8, or (L, rows, len, D/2) uint8 lane-packed int4, with f32 scales
+    ks/vs (L, rows, HP, len), HP = ceil(H/8)*8 and rows >= H zero.
+    Quantized cross-KV: cross_k/cross_v (L, B, S, D) int8 or (L, B, S/2, D)
+    uint8 packed along S (S padded to a multiple of 16), with scales
+    cks/cvs (L, B, H, S).
+    """
     k: torch.Tensor
     v: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
+    cks: Optional[torch.Tensor] = None
+    cvs: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype in (torch.int8, torch.uint8)
+
+    @property
+    def flat(self) -> bool:
+        """Flat (L, rows, len, D) self-KV layout (fused kernels)."""
+        return self.k.dim() == 4
+
+    @property
+    def self_int4(self) -> bool:
+        return self.k.dtype == torch.uint8
+
+    @property
+    def cross_quantized(self) -> bool:
+        return self.cross_k.dtype in (torch.int8, torch.uint8)
+
+
+def quantize_kv(x):
+    """Per (row, slot, head) symmetric int8 quantization of K/V entries:
+    x (B, T, H, Dh) -> (int8 codes, f32 scales (B, T, H))."""
+    return quantize_kv_sym(x, levels=127)
+
+
+def _quantized_cross_kv(enc_out, blk, h: int, int4: bool):
+    """One layer's cross K/V, quantized in the kernels' layout: codes
+    (B, S_pad, D) int8 or (B, S_pad/2, D) uint8 packed along S, scales
+    (B, H, S_pad).  S pads to a multiple of 16 (int4) or 8."""
+    b, s = enc_out.shape[:2]
+    s_pad = (-s) % (16 if int4 else 8)
+    out = []
+    for w, bias in ((blk["wk_c"], None), (blk["wv_c"], blk["bv_c"])):
+        kv = _split_heads(_proj(enc_out, w, bias), h)
+        if s_pad:
+            kv = F.pad(kv, (0, 0, 0, 0, 0, s_pad))
+        codes, scales = (quantize_kv4 if int4 else quantize_kv)(kv)
+        codes = codes.reshape(b, s + s_pad, -1)
+        out += [pack_int4(codes) if int4 else codes,
+                scales.transpose(1, 2).contiguous()]
+    return out
 
 
 def init_cache(params: Params, cfg: WhisperConfig, enc_out, max_len: int,
-               beam_expand: int = 1) -> DecodeCache:
-    """Allocate the self-attn cache and compute cross-attn K/V per layer."""
+               beam_expand: int = 1, kv_int8: bool = False,
+               cross_kv_int8: bool = False, cross_kv_int4: bool = False,
+               flat_kv: bool = False, kv_int4: bool = False) -> DecodeCache:
+    """Allocate the self-attn cache and compute the cross-attn K/V per
+    layer (quantized per layer when ``cross_kv_int8``/``cross_kv_int4``,
+    so only one layer's float K/V is ever live).
+
+    ``kv_int8`` takes the flat layout of the fused kernels (``flat_kv``
+    must be set: the 5-D int8 cache of the unfused int8 graph is not
+    ported); ``kv_int4`` lane-packs it when the head count is even.
+    """
     dec = params["decoder"]
     b = enc_out.shape[0]
     h = cfg.decoder_heads
     dh = cfg.d_model // h
-    shape = (cfg.decoder_layers, b * beam_expand, max_len, h, dh)
-    ck = torch.stack([_split_heads(_proj(enc_out, blk["wk_c"]), h)
-                      for blk in dec["blocks"]])
-    cv = torch.stack([_split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), h)
-                      for blk in dec["blocks"]])
+    dev = enc_out.device
+    if cross_kv_int8 or cross_kv_int4:
+        per_layer = [_quantized_cross_kv(enc_out, blk, h, cross_kv_int4)
+                     for blk in dec["blocks"]]
+        ck, cks, cv, cvs = (torch.stack(t) for t in zip(*per_layer))
+    else:
+        ck = torch.stack([_split_heads(_proj(enc_out, blk["wk_c"]), h)
+                          for blk in dec["blocks"]])
+        cv = torch.stack([_split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), h)
+                          for blk in dec["blocks"]])
+        cks = cvs = None
+    rows = b * beam_expand
+    if kv_int8:
+        if not flat_kv:
+            raise NotImplementedError(
+                "the 5-D int8 self-KV cache of the unfused int8 graph is not "
+                "ported to ttasr_torch (ROADMAP C); the flat layout needs "
+                "fused int8 weights and 64-wide heads")
+        hp = ((h + 7) // 8) * 8
+        d_store, kv_dtype = h * dh, torch.int8
+        if kv_int4 and h % 2 == 0:
+            d_store, kv_dtype = d_store // 2, torch.uint8
+        kv_shape = (cfg.decoder_layers, rows, max_len, d_store)
+        sc_shape = (cfg.decoder_layers, rows, hp, max_len)
+        return DecodeCache(
+            k=torch.zeros(kv_shape, dtype=kv_dtype, device=dev),
+            v=torch.zeros(kv_shape, dtype=kv_dtype, device=dev),
+            cross_k=ck, cross_v=cv,
+            ks=torch.zeros(sc_shape, dtype=torch.float32, device=dev),
+            vs=torch.zeros(sc_shape, dtype=torch.float32, device=dev),
+            cks=cks, cvs=cvs)
+    shape = (cfg.decoder_layers, rows, max_len, h, dh)
     zeros = lambda: torch.zeros(shape, dtype=enc_out.dtype,  # noqa: E731
-                                device=enc_out.device)
-    return DecodeCache(k=zeros(), v=zeros(), cross_k=ck, cross_v=cv)
+                                device=dev)
+    return DecodeCache(k=zeros(), v=zeros(), cross_k=ck, cross_v=cv,
+                       cks=cks, cvs=cvs)
+
+
+def _quant_self_attention(q, k8, ks, v8, vs, mask):
+    """Attention over int8/int4 codes with per-entry scales folded into
+    the scores and the probabilities (the reference's bf16 operands,
+    f32 products and sums).
+
+    q: (B, T, H, Dh); k8/v8: (B, S, H, Dh) codes; ks/vs: (B, S, H) f32.
+    """
+    scale = q.shape[-1] ** -0.5
+    qb = (q * scale).to(torch.bfloat16).float().transpose(1, 2)  # (B,H,T,Dh)
+    raw = torch.matmul(qb, k8.float().permute(0, 2, 3, 1))        # (B,H,T,S)
+    scores = raw * ks.transpose(1, 2)[:, :, None, :]
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_MASK)
+    probs = torch.softmax(scores, dim=-1)
+    probs_scaled = (probs * vs.transpose(1, 2)[:, :, None, :]).to(
+        torch.bfloat16).float()
+    out = torch.matmul(probs_scaled, v8.float().transpose(1, 2))  # (B,H,T,Dh)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _cross_attention(q, ck, cv):
@@ -310,7 +460,7 @@ def decode_step(params: Params, cfg: WhisperConfig, tokens, pos: int,
     dec = params["decoder"]
     b, t_new = tokens.shape
     max_len = cache.k.shape[2]
-    x = dec["embed"][tokens] + dec["pos"][pos: pos + t_new]
+    x = _embed_lookup(dec, tokens) + dec["pos"][pos: pos + t_new]
     x = x.to(_model_dtype(dec))
     q_ids = pos + torch.arange(t_new, device=x.device)[:, None]
     k_ids = torch.arange(max_len, device=x.device)[None, :]

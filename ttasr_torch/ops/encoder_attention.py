@@ -69,18 +69,11 @@ def encoder_attention_merged(q, k, v, t_real: int):
     b, t, d = q.shape
     if b * t * d >= 2 ** 31:
         raise ValueError("tensor too large for the kernel's int indexing")
-    from ttasr_torch.ops._build import load_library
+    from ttasr_torch.ops._build import launch
 
-    lib = load_library()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ttasr_encoder_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, d, t_real, _DTYPE_CODE[q.dtype], stream)
-    if err:
-        raise RuntimeError(f"encoder attention kernel launch failed: "
-                           f"cudaError {err}")
+    launch("ttasr_encoder_attention", q.device, q, k, v, out,
+           b, t, d, t_real, _DTYPE_CODE[q.dtype])
     encoder_attention_merged.launches += 1
     return out
 
