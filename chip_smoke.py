@@ -32,7 +32,15 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    codes) equal to the exact int32 product at the encoder's four shapes;
    timed as in phase 4, with the library call beside B6 and B11
    (``scaled_dot_product_attention``) and the GEMM (a bf16 matmul);
-6. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
+6. holds the kernels of the decode's other branches against their plain
+   versions at large-v3 shapes: B12 ``attnout_ln_q_fused`` at 5 and 10
+   rows and B13 ``cross_attention_int8`` at (B, K) = (1, 5), (5, 1) and
+   (1, 8) over int8 and int4 cross-KV, within the bound of B1-B4; B17
+   ``gather_cache_rows`` (32 layers, 5 rows, len 480, int4 and int8 codes,
+   a top-k's index and a permutation) byte for byte; timed as in phase 4,
+   B17 on the permutation beside its library call (four ``index_select``
+   into the spare buffers);
+7. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
    compute_type="bfloat16")`` with random weights from a seeded generator,
    on two synthesized speech-like WAVs (20 s and 45 s, so the seek loop
    crosses a window with prompt carry), through
@@ -40,7 +48,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    B11 ran 32 times per encoder pass, that beam decodes ran with finite
    logits, and that the encoder output agrees with the plain-attention
    encoder on one window;
-7. drives the main path, the int8 engine with all its defaults:
+8. drives the main path, the int8 engine with all its defaults:
    ``WhisperEngine("large-v3", compute_type="int8")`` (weights quantized
    on the card, the s8 x s8 encoder with B5-B9, int8 and int4 self-KV,
    int4 cross-KV, beam 5 through the ancestry map, best-of-5 fallback);
@@ -49,14 +57,29 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    per decode step, B2 32 times per beam step and B10 32 times per greedy
    step; and that one window through the s8 x s8 encoder agrees with the
    same encoder on the plain versions of B5-B9;
-8. drives the int8 engine with ``encoder_act_int8=False`` (the bf16
+9. drives the decode's other branches on one encoder window of the main
+   path's engine, ``BRANCH_STEPS`` tokens each, beside a main-path beam
+   decode of the same window: ``beam_decode`` with a bf16 cross-KV (B12),
+   ``beam_decode`` with ``beam_indirect=False`` (B17 and B10; its tokens
+   must equal the main-path leg's and its step logits stay within 1.4 %
+   of them with every argmax equal), ``beam_decode`` and
+   ``greedy_decode`` on the weights
+   ``quantize_params`` gives without ``fuse_qkv`` (the 5-D int8 self-KV,
+   B13), and one 20 s file through the engine's ``transcribe`` with
+   ``beam_size=10`` (B12 and the quantized cross-attention's XLA branch);
+   each with exact launch counts, finite logits and its ms per step; the
+   unfused beam leg once more over ``PROFILE_STEPS`` tokens under
+   ``torch.profiler`` (device ms, kernels and busy share per step);
+10. drives the int8 engine with ``encoder_act_int8=False`` (the bf16
    encoder on int8 weights, B11) on one file, with its launch counts.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
 profiled (``torch.profiler``: device time, kernel count).  Prints one
 JSON line with each kernel's launches (from the main path's run; B11's
-from the bf16 path's), worst error, times, bound and library time, then
+from the bf16 path's, B12's from the bf16 cross-KV leg's, B13's from the
+unfused beam leg's, B17's from the ``beam_indirect=False`` leg's), worst
+error, times, bound and library time, then
 the card line, then the contract line ``{"ok": true, "device": {...}}``
 last.
 Imports nothing of jax and nothing of the JAX package.  Exits non-zero,
@@ -637,6 +660,101 @@ def check_encoder_kernels(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the kernels of the decode's other branches at large-v3 shapes
+# ---------------------------------------------------------------------------
+
+BEAM_ROWS, CACHE_LEN = 5, 480  # B17: beam 5 of one audio, the last bucket
+
+
+def check_branch_kernels(card: str) -> dict:
+    """B12, B13 and B17 against their plain versions; returns per-kernel
+    measurements keyed by wrapper name."""
+    import torch
+
+    from ttasr_torch.ops import beam_gather as bg
+    from ttasr_torch.ops import cross_attention as ca
+    from ttasr_torch.ops import decoder_blocks as blk
+
+    inp = Inputs(3)
+    lay = inp.layer()
+    res = {}
+
+    # B12: 5 rows (a bf16 cross-KV at beam 5) and 10 (beam 10 of one audio)
+    worst = 0.0
+    for r in (5, 10):
+        b12 = (inp.randn(r, D, scale=0.5), inp.randn(r, D, scale=0.5),
+               lay["wo"], lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"],
+               lay["wqc"], lay["wqc_s"], lay["bqc"])
+        got, want = blk.attnout_ln_q_fused(*b12), blk.attnout_ln_q_fused_ref(*b12)
+        worst = _hold("attnout_ln_q_fused", f"R={r} x'", got[0], want[0], worst)
+        worst = _hold("attnout_ln_q_fused", f"R={r} qc", got[1], want[1], worst)
+    ms, plain_ms = in_turns(lambda: blk.attnout_ln_q_fused(*b12),
+                            lambda: blk.attnout_ln_q_fused_ref(*b12))
+    res["attnout_ln_q_fused"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(_tensors(b12, blk.attnout_ln_q_fused(*b12)), 2.0 * 2 * 10 * D * D, "bf16"))
+
+    # B13: bf16 queries (the served dtype) over int8 and int4 cross-KV
+    worst, main = 0.0, None
+    for b, k in ((1, 5), (5, 1), (1, 8)):
+        for int4 in (False, True):
+            ck, cks, cv, cvs = inp.cross_kv(b, int4)
+            b13 = (inp.randn(b, k, H, 64, scale=0.5).to(torch.bfloat16),
+                   ck, cks, cv, cvs, S_REAL)
+            case = f"B={b} K={k} {'int4' if int4 else 'int8'} cross-KV"
+            worst = _hold("cross_attention_int8", case, ca.cross_attention_int8(*b13),
+                          ca.cross_attention_int8_ref(*b13), worst)
+            if (b, k, int4) == (1, 5, False):  # the unfused beam leg's shape
+                main = b13
+    ms, plain_ms = in_turns(lambda: ca.cross_attention_int8(*main),
+                            lambda: ca.cross_attention_int8_ref(*main))
+    # scores and values of 5 rows over the S_REAL valid slots
+    res["cross_attention_int8"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(_tensors(main, ca.cross_attention_int8(*main)),
+                2.0 * 2 * 5 * S_REAL * D, "bf16"))
+
+    # B17: every layer's rows of a beam-5 cache, held byte for byte on a
+    # top-k's index (a repeat, a drop and a move) and on a permutation;
+    # timed and bounded on the permutation, which reads every row once
+    top_k_idx, perm = (torch.tensor(i, dtype=torch.int32, device="cuda")
+                       for i in ([3, 3, 0, 4, 1], [3, 0, 4, 1, 2]))
+    for int4 in (False, True):
+        width, dtype, lo, hi = ((D // 2, torch.uint8, 0, 256) if int4
+                                else (D, torch.int8, -128, 128))
+        codes = [torch.randint(lo, hi, (N_LAYERS, BEAM_ROWS, CACHE_LEN, width),
+                               generator=inp.gen, device="cuda", dtype=dtype)
+                 for _ in range(2)]
+        scales = [inp.randn(N_LAYERS, BEAM_ROWS, HP, CACHE_LEN) for _ in range(2)]
+        b17 = (*codes, *scales)
+        spare = tuple(torch.empty_like(t) for t in b17)
+        for idx in (top_k_idx, perm):
+            got = bg.gather_cache_rows(*b17, idx, out=spare)
+            want = bg.gather_cache_rows_ref(*b17, idx)
+            for g, w in zip(got, want):
+                check(torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
+                      f"gather_cache_rows {'int4' if int4 else 'int8'} "
+                      f"idx {idx.tolist()}: bytes differ from index_select")
+        print(f"gather_cache_rows L={N_LAYERS} BK={BEAM_ROWS} T={CACHE_LEN} "
+              f"{'int4' if int4 else 'int8'}: equal to index_select byte for byte")
+    ms, plain_ms = in_turns(lambda: bg.gather_cache_rows(*b17, perm, out=spare),
+                            lambda: bg.gather_cache_rows_ref(*b17, perm))
+    long_perm = perm.long()
+    library_ms = time_ms(lambda: [torch.index_select(t, 1, long_perm, out=o)
+                                  for t, o in zip(b17, spare)])
+    res["gather_cache_rows"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(_tensors((*b17, perm), spare), 0.0, "f32"))
+
+    for name, r in res.items():
+        r.setdefault("library_ms", None)  # no single PyTorch call for B12, B13
+        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) ({card})")
+    return res
+
+
 @contextlib.contextmanager
 def plain_encoder_kernels():
     """The s8 x s8 encoder on the plain versions of B5-B9 (the int8 GEMM
@@ -876,19 +994,25 @@ def _int8_counters():
     from ttasr_torch.ops import quant
     from ttasr_torch.ops import self_attention as sa
 
+    from ttasr_torch.ops import beam_gather as bg
+    from ttasr_torch.ops import cross_attention as ca
+
     return [blk.qkv_int8_fused, sa.self_attn_step_indirect_int8,
             blk.attnout_ln_q_cross_int8, mlp.mlp_with_crossout_int8,
             sa.self_attn_step_int8, model.encoder_attention_merged,
             model.encoder_attention_merged_qkv, ef.ln_quant, ef.quant_only,
-            ef.add_ln_quant, ef.gelu_quant, quant.quant_matmul_act8]
+            ef.add_ln_quant, ef.gelu_quant, quant.quant_matmul_act8,
+            blk.attnout_ln_q_fused, ca.cross_attention_int8,
+            bg.gather_cache_rows]
 
 
 def run_int8_path(card: str, act8: bool) -> dict:
     """The batch CLI on the int8 engine: with all its defaults (``act8``,
-    the main path: the s8 x s8 encoder, both files) or with
+    the main path: the s8 x s8 encoder, both files; then the decode's
+    other branches on the same engine, :func:`run_branch_paths`) or with
     ``encoder_act_int8=False`` (the bf16 encoder on int8 weights, one
-    file).  Returns each kernel's launches in that run and the encoder's
-    ms per window."""
+    file).  Returns each kernel's launches in that run, the encoder's ms
+    per window and, for the main path, the branch paths' results."""
     import torch
 
     from ttasr_torch.engine.transcriber import WhisperEngine
@@ -915,8 +1039,10 @@ def run_int8_path(card: str, act8: bool) -> dict:
         want[name] = enc if act8 else 0
     want["quant_matmul_act8"] = 4 * enc if act8 else 0
     want["encoder_attention_merged"] = 0 if act8 else enc
+    off_path = ("attnout_ln_q_fused", "cross_attention_int8", "gather_cache_rows")
+    want.update(dict.fromkeys(off_path, 0))
     for name, n in want.items():
-        check(c[name] == n and (n > 0 or name in encoder_kernels + (
+        check(c[name] == n and (n > 0 or name in encoder_kernels + off_path + (
             "quant_matmul_act8", "encoder_attention_merged")),
               f"{label}: {name} launched {c[name]} times, expected {n}")
     check(st["encoder_passes"] > 0 and steps > 0, f"{label}: no encoder pass or step")
@@ -926,9 +1052,248 @@ def run_int8_path(card: str, act8: bool) -> dict:
     if act8:
         _encoder_agrees(engine, run["first"], label, plain=plain_encoder_kernels)
     ms = encoder_ms(engine, run["first"], label, card)
+    branches = run_branch_paths(engine, run["first"], card) if act8 else None
     del engine
     torch.cuda.empty_cache()
-    return dict(counts=c, encoder_ms=ms)
+    return dict(counts=c, encoder_ms=ms, branches=branches)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the decode's other branches on the main path's engine
+# ---------------------------------------------------------------------------
+
+BRANCH_STEPS = 96  # tokens per branch decode: three growth buckets
+STEP_LOGIT_REL = 1.4e-2  # ROADMAP C: step logits within 1.4 % relative
+
+
+def _unfused_decoder(params):
+    """The decoder's fused q/k/v leaves split back into wq/wk/wv and bq/bv:
+    the weights ``quantize_params`` gives without ``fuse_qkv`` (the scales
+    are per output column, so the split is exact)."""
+    dec = params["decoder"]
+    blocks = []
+    for blk in dec["blocks"]:
+        out = {k: v for k, v in blk.items() if k not in ("wqkv", "bqkv")}
+        d = blk["wqkv"]["q"].shape[0]
+        for j, name in enumerate(("wq", "wk", "wv")):
+            cols = slice(j * d, (j + 1) * d)
+            out[name] = {"q": blk["wqkv"]["q"][:, cols].contiguous(),
+                         "s": blk["wqkv"]["s"][..., cols].contiguous()}
+        out["bq"], out["bv"] = blk["bqkv"][:d].contiguous(), blk["bqkv"][2 * d:].contiguous()
+        blocks.append(out)
+    return dict(params, decoder=dict(dec, blocks=blocks))
+
+
+PROFILE_STEPS = 16  # tokens of the profiled decode of PROFILED_LEG
+# the one leg decoded once more under torch.profiler: the slice's heaviest
+# step, with B13 in it
+PROFILED_LEG = "unfused int8 graph beam 5 (B13, 5-D cache)"
+
+
+def _profile_decode(run) -> dict:
+    """One decode ``run()`` (prefill included) under ``torch.profiler``:
+    device ms and kernels per step, the busy share of its wall, and the
+    four kernels with the most device time per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = run()["steps"]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in kernels}
+    device_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
+    return dict(device_ms_per_step=device_ms / steps,
+                kernels_per_step=sum(e.count for e in kernels) / steps,
+                busy=device_ms / wall_ms,
+                top=[(name[:90], us / 1e3 / steps) for name, us in top])
+
+
+def _expect(label, counts, want):
+    """Every counter equals ``want`` (0 where not named), each named > 0."""
+    for name, n in counts.items():
+        w = want.get(name, 0)
+        check(n == w and (w > 0 or name not in want),
+              f"{label}: {name} launched {n} times, expected {w}")
+
+
+@contextlib.contextmanager
+def _step_logits():
+    """Collects the logits of every decode step (``decode._step``'s
+    output, kept by reference: nothing more runs on the card)."""
+    from ttasr_torch.models.whisper import decode as dm
+
+    step, seen = dm._step, []
+
+    def recorded(*args, **kwargs):
+        logits, cache = step(*args, **kwargs)
+        seen.append(logits)
+        return logits, cache
+
+    dm._step = recorded
+    try:
+        yield seen
+    finally:
+        dm._step = step
+
+
+def _logit_gaps(a, b):
+    """Per step of two decodes: (max |a - b| / max |a|, every row's argmax
+    equal)."""
+    return [(float((x - y).abs().max() / x.abs().max()),
+             bool((x.argmax(-1) == y.argmax(-1)).all())) for x, y in zip(a, b)]
+
+
+def _first_difference(a, b):
+    """(row, step) of the first differing token of two decodes, or None."""
+    for row in range(a["tokens"].shape[0]):
+        n_a, n_b = int(a["lengths"][row]), int(b["lengths"][row])
+        ta, tb = a["tokens"][row].tolist(), b["tokens"][row].tolist()
+        for step in range(max(n_a, n_b)):
+            if step >= min(n_a, n_b) or ta[step] != tb[step]:
+                return row, step
+    return None
+
+
+def run_branch_paths(engine, audio, card: str) -> dict:
+    """Each branch decode on one encoder window of ``audio``, its counts set
+    to 0 just before and read just after; returns {leg: {steps, ms_per_step,
+    counts}}."""
+    import torch
+
+    from ttasr_torch.models.whisper.decode import (
+        DecodingOptions,
+        beam_decode,
+        build_prompt,
+        greedy_decode,
+        pad_prompts,
+    )
+
+    counters = _int8_counters()
+    enc = engine.encode_windows(audio[None])
+    prompt, pad = pad_prompts([build_prompt(engine.tokenizer, language="zh")],
+                              engine.ti.eot)
+    base = dict(beam_size=5, sample_len=BRANCH_STEPS, kv_int8=True,
+                cross_kv_int8=True, cross_kv_int4=True, kv_int4=True)
+    unfused = _unfused_decoder(engine.params)
+    legs = {}
+
+    def decode(fn, params, rows, kw):
+        with torch.inference_mode():
+            return fn(params, engine.cfg, enc.expand(rows, -1, -1),
+                      np.repeat(prompt, rows, 0), np.repeat(pad, rows, 0),
+                      opts=DecodingOptions(**dict(base, **kw)), ti=engine.ti)
+
+    def leg(label, fn, params, rows=1, **kw):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(fn, params, rows, kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        steps = out["steps"]
+        check(steps > 0 and out["logits_finite"], f"{label}: {steps} steps, "
+              f"finite logits {out['logits_finite']}")
+        legs[label] = dict(steps=steps, ms_per_step=1e3 * wall / steps, counts=counts)
+        print(f"{label}: {steps} steps, {1e3 * wall / steps:.2f} ms per step "
+              f"(decode wall {wall:.2f} s, prefill included) ({card})")
+        print(f"{label} launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+        if label == PROFILED_LEG:
+            prof = _profile_decode(lambda: decode(fn, params, rows, dict(
+                kw, sample_len=PROFILE_STEPS)))
+            legs[label]["profile"] = prof
+            print(f"{label}: profiled {PROFILE_STEPS}-step decode: "
+                  f"{prof['device_ms_per_step']:.3f} ms of device time and "
+                  f"{prof['kernels_per_step']:.0f} kernels per step, busy "
+                  f"{prof['busy']:.0%} ({card})")
+            for name, ms in prof["top"]:
+                print(f"    {ms:8.3f} ms per step  {name}")
+        return out, steps
+
+    L = N_LAYERS
+    with _step_logits() as main_logits:
+        main, s = leg("main path beam 5 (B3, ancestry map)", beam_decode,
+                      engine.params)
+    _expect("main path leg", legs["main path beam 5 (B3, ancestry map)"]["counts"], {
+        "qkv_int8_fused": L * s, "self_attn_step_indirect_int8": L * s,
+        "attnout_ln_q_cross_int8": L * s, "mlp_with_crossout_int8": L * s})
+
+    label = "beam_indirect=False (B17, B10)"
+    with _step_logits() as copied_logits:
+        copied, s = leg(label, beam_decode, engine.params, beam_indirect=False)
+    _expect(label, legs[label]["counts"], {
+        "qkv_int8_fused": L * s, "self_attn_step_int8": L * s,
+        "attnout_ln_q_cross_int8": L * s, "mlp_with_crossout_int8": L * s,
+        "gather_cache_rows": s})
+    # B17 copies bytes and B10 sums the rows B2 reads through the map in the
+    # same order: the legs do the same arithmetic, so no near-tie may flip
+    gaps = _logit_gaps(main_logits, copied_logits)
+    diff = _first_difference(main, copied)
+    if diff is not None:
+        row, step = diff
+        gap = "the prefill's" if step == 0 else f"{gaps[step - 1][0]:.3e}"
+        check(False, f"{label}: tokens differ from the main path leg's at row "
+              f"{row} step {step}; relative logit gap of the step that chose "
+              f"it {gap}")
+    worst = max(g for g, _ in gaps)
+    print(f"{label}: tokens equal to the main path leg's ({s} steps); step "
+          f"logits within {worst:.3e} relative, argmax equal on "
+          f"{sum(a for _, a in gaps)} of {len(gaps)} steps")
+    check(len(gaps) == s and worst <= STEP_LOGIT_REL and all(a for _, a in gaps),
+          f"{label}: step logits not within {STEP_LOGIT_REL} of the main path "
+          f"leg's with every argmax equal")
+
+    label = "bf16 cross-KV (B12)"
+    _, s = leg(label, beam_decode, engine.params, cross_kv_int8=False,
+               cross_kv_int4=False)
+    _expect(label, legs[label]["counts"], {
+        "qkv_int8_fused": L * s, "self_attn_step_indirect_int8": L * s,
+        "attnout_ln_q_fused": L * s, "mlp_with_crossout_int8": L * s})
+
+    for label, fn, rows in (("unfused int8 graph beam 5 (B13, 5-D cache)", beam_decode, 1),
+                            ("unfused int8 graph greedy 5 rows (B13, 5-D cache)",
+                             greedy_decode, 5)):
+        _, s = leg(label, fn, unfused, rows=rows, beam_size=5 if rows == 1 else 1)
+        _expect(label, legs[label]["counts"], {"cross_attention_int8": L * s})
+
+    label = "engine transcribe beam_size=10 (B12, XLA cross)"
+    for c in counters:
+        c.launches = 0
+    before = dict(engine.decode_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segments, _ = engine.transcribe(audio, beam_size=10, temperature=(0.0,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    st = {k: engine.decode_stats[k] - before[k] for k in before}
+    s, passes = st["beam_steps"], st["encoder_passes"]
+    check(st["nonfinite_logits"] == 0 and s > 0 and st["greedy_steps"] == 0,
+          f"{label}: decode stats {st}")
+    _expect(label, counts, {
+        "qkv_int8_fused": L * s, "self_attn_step_indirect_int8": L * s,
+        "attnout_ln_q_fused": L * s, "mlp_with_crossout_int8": L * s,
+        "encoder_attention_merged_qkv": L * passes, "ln_quant": L * passes,
+        "quant_only": L * passes, "add_ln_quant": L * passes,
+        "gelu_quant": L * passes, "quant_matmul_act8": 4 * L * passes})
+    legs[label] = dict(steps=s, ms_per_step=1e3 * wall / s, counts=counts)
+    print(f"{label}: {len(segments)} segments, {s} beam steps, {passes} encoder "
+          f"passes, wall {wall:.2f} s = {1e3 * wall / s:.2f} ms per beam step "
+          f"(encoder included) ({card})")
+    print(f"{label} launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+    print("branch paths, ms per step: " + json.dumps(
+        {k: round(v["ms_per_step"], 3) for k, v in legs.items()}) + f" ({card})")
+    print("branch paths, profiled device ms per step: " + json.dumps(
+        {k: round(v["profile"]["device_ms_per_step"], 3) for k, v in legs.items()
+         if "profile" in v}) + f" ({card})")
+    return legs
 
 
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces
@@ -954,7 +1319,19 @@ KERNELS = [  # wrapper name, source, the TPU kernel it replaces
      "ttasr/ops/encoder_fused_pallas.py:141"),
     ("gelu_quant", "ttasr_torch/csrc/encoder_fused.cu",
      "ttasr/ops/encoder_fused_pallas.py:177"),
+    ("attnout_ln_q_fused", "ttasr_torch/csrc/decoder_blocks.cu",
+     "ttasr/ops/decoder_blocks_pallas.py:75"),
+    ("cross_attention_int8", "ttasr_torch/csrc/cross_attention.cu",
+     "ttasr/ops/cross_attention_pallas.py:47"),
+    ("gather_cache_rows", "ttasr_torch/csrc/beam_gather.cu",
+     "ttasr/ops/beam_gather_pallas.py:23"),
 ]
+# the branch leg whose run gives each new kernel's launches
+BRANCH_LAUNCHES = {
+    "attnout_ln_q_fused": "bf16 cross-KV (B12)",
+    "cross_attention_int8": "unfused int8 graph beam 5 (B13, 5-D cache)",
+    "gather_cache_rows": "beam_indirect=False (B17, B10)",
+}
 
 
 def main() -> int:
@@ -984,11 +1361,14 @@ def main() -> int:
     measured = {"encoder_attention_merged": check_encoder_attention(card)}
     measured.update(check_decode_kernels(card))
     measured.update(check_encoder_kernels(card))
+    measured.update(check_branch_kernels(card))
     gemm = measured.pop("int8_gemm")
     bf16 = run_bf16_path(card)
     main_path = run_int8_path(card, act8=True)
     int8_bf16_encoder = run_int8_path(card, act8=False)
     launches = dict(main_path["counts"], encoder_attention_merged=bf16["launches"])
+    for name, leg in BRANCH_LAUNCHES.items():
+        launches[name] = main_path["branches"][leg]["counts"][name]
     print(f"B11 launches: bf16 path {bf16['launches']}, int8 main path "
           f"{main_path['counts']['encoder_attention_merged']}, encoder_act_int8=False "
           f"path {int8_bf16_encoder['counts']['encoder_attention_merged']}")

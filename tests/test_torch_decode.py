@@ -190,8 +190,9 @@ def test_sampling_is_seeded_and_in_vocab(setup):
 
 def test_unported_options_raise(setup):
     _, _, tp, tcfg, enc, _, tti, prompt, pad = setup
-    for flag in ("kv_int8", "cross_kv_int8", "unfused_rules"):
-        opts = td.DecodingOptions(sample_len=4, **{flag: True})
+    for flag, value in (("unfused_rules", True), ("tp_row_parallel", True),
+                        ("tp_axis", "model")):
+        opts = td.DecodingOptions(sample_len=4, **{flag: value})
         with pytest.raises(NotImplementedError):
             td.beam_decode(tp, tcfg, torch.from_numpy(enc), prompt, pad,
                            opts=opts, ti=tti)

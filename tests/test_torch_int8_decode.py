@@ -114,14 +114,17 @@ def test_int8_greedy_decode_matches_jax(setup, monkeypatch):
 
 
 def test_int8_decode_paths_off_the_slice_raise(setup):
+    """Only tensor parallelism and the unfused-rules A/B path are left
+    unported; the other branches run (tests/test_torch_decode_branches.py)."""
     s = setup
     args = (s["tp"], s["tcfg"], torch.from_numpy(s["enc"]), s["prompt"], s["pad"])
-    for kw, what in ((dict(beam_indirect=False), "B17"),
-                     (dict(cross_kv_int8=False), "B12"),
-                     (dict(beam_size=9), "B12")):
+    for kw, what in ((dict(tp_axis="model"), "tp_axis"),
+                     (dict(tp_row_parallel=True), "tp_row_parallel"),
+                     (dict(unfused_rules=True), "unfused_rules")):
         opts = td.DecodingOptions(**{**dict(sample_len=4, **INT8), **kw})
-        with pytest.raises(NotImplementedError, match=what):
-            td.beam_decode(*args, opts=opts, ti=s["tti"])
+        for fn in (td.beam_decode, td.greedy_decode):
+            with pytest.raises(NotImplementedError, match=what):
+                fn(*args, opts=opts, ti=s["tti"])
 
 
 def test_int8_engine_transcribe_matches_jax():

@@ -18,7 +18,10 @@ with the fused producer + quantize kernels (``encoder_act_int8=True``,
 self-KV, int4 lane-packed self-KV, int4 cross-KV and beam search through
 the ancestry map.  ``encoder_act_int8=False`` runs the encoder in bf16 on
 the int8 weights; ``encoder_fused_quant=False`` keeps the s8 x s8 GEMMs
-with plain quantize chains.
+with plain quantize chains.  ``transcribe(..., beam_size=10)`` (more than
+8 beams) takes the fused path's B12 branch, and ``kv_cache_int8=True`` on
+a float engine the 5-D int8 self-KV of the unfused graph
+(:mod:`ttasr_torch.models.whisper.decode`).
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
 """Whisper decoding: greedy and beam search with CT2-parity logit rules
-(port of ``ttasr/models/whisper/decode.py``: the float cache path and the
-fused int8 path of one chip).
+(port of ``ttasr/models/whisper/decode.py``: every single-card path).
 
 Same rule set and semantics as the reference: static suppress list,
 SuppressBlank, the timestamp rules (pairing, monotonicity,
@@ -18,12 +17,18 @@ With fused int8 weights (``quantize_params`` + ``fuse_qkv``) and
 ``kv_int8`` the decode runs the reference's flat fused path
 (``scan_block_fused``): per token and layer B1 ``qkv_int8_fused`` -> B2
 ``self_attn_step_indirect_int8`` (beam, through the ancestry map) or B10
-``self_attn_step_int8`` (greedy) -> B3 ``attnout_ln_q_cross_int8`` -> B4
-``mlp_with_crossout_int8``, over an int8 or int4 lane-packed flat self-KV
-cache and an int8 or int4 cross-KV cache.  Beam search permutes a
-(rows, len) ancestry map instead of the caches.  Options off this path
-(the unfused int8 graph, bf16 cross-KV beside int8 self-KV, more than 8
-beams, ``beam_indirect=False``, tensor parallelism) raise.
+``self_attn_step_int8`` (greedy, or beam with ``beam_indirect=False``) ->
+B3 ``attnout_ln_q_cross_int8`` -> B4 ``mlp_with_crossout_int8``, over an
+int8 or int4 lane-packed flat self-KV cache and an int8 or int4 cross-KV
+cache.  Where B3's condition fails (a bf16 cross-KV, more than 8 beams per
+audio, an odd head count) B12 ``attnout_ln_q_fused`` takes its place and
+the cross-attention runs outside the kernel.  Beam search permutes a
+(rows, len) ancestry map instead of the caches, or with
+``beam_indirect=False`` copies the cache rows with B17
+``gather_cache_rows`` after each top-k.  Without fused weights ``kv_int8``
+runs the unfused int8 graph (``scan_block``): a 5-D int8 self-KV and the
+plain quantized attention, with B13 ``cross_attention_int8`` over an int8
+cross-KV.  Tensor parallelism and the unfused-rules A/B path raise.
 
 The host-side pieces (``DecodingOptions``, ``TokenizerInfo``,
 ``build_prompt``, ``pad_prompts``, ``compression_ratio`` and the
@@ -57,9 +62,13 @@ from ttasr_torch.models.whisper.model import (
     init_cache,
     quantize_kv,
 )
+from ttasr_torch.ops.beam_gather import gather_cache_rows
+from ttasr_torch.ops.cross_attention import cross_attention_int8
 from ttasr_torch.ops.decoder_blocks import (
+    DH,
     MAX_BEAMS,
     attnout_ln_q_cross_int8,
+    attnout_ln_q_fused,
     qkv_int8_fused,
 )
 from ttasr_torch.ops.decoder_mlp import mlp_with_crossout_int8
@@ -79,8 +88,7 @@ SAMPLE_LEN = 224   # max new tokens per window (n_ctx // 2)
 @dataclasses.dataclass(frozen=True)
 class DecodingOptions:
     """Decode configuration.  Same fields and defaults as the reference;
-    the flat fused int8 path is ported, tensor parallelism, the
-    unfused-rules A/B path and the unfused int8 graph raise in the decode
+    tensor parallelism and the unfused-rules A/B path raise in the decode
     functions (:func:`_check_supported`)."""
 
     beam_size: int = 5
@@ -142,7 +150,8 @@ class TokenizerInfo:
 
 def _use_flat_kv(params, cfg: WhisperConfig, opts: DecodingOptions) -> bool:
     """Flat int8 self-KV: only with the fused int8 weights and 64-wide
-    heads, where the fused decode kernels run."""
+    heads.  The one test of the fused decode kernels: a flat cache is
+    what sends a step to ``_step_fused``."""
     return (opts.kv_int8 and "wqkv" in params["decoder"]["blocks"][0]
             and cfg.d_model // cfg.decoder_heads == 64)
 
@@ -171,10 +180,9 @@ def _f32_decoder_vectors(params):
     return dict(params, decoder=dict(dec, blocks=blocks))
 
 
-def _check_supported(params, cfg: WhisperConfig, opts: DecodingOptions,
-                     beams: int = 1) -> None:
-    """Raise for every option that leaves the ported paths: the float
-    cache path and the flat fused int8 path with B1-B4/B10."""
+def _check_supported(opts: DecodingOptions) -> None:
+    """Raise for the options whose paths are not ported: tensor
+    parallelism and the unfused-rules A/B control."""
     missing = [name for name in ("unfused_rules", "tp_row_parallel")
                if getattr(opts, name)]
     if opts.tp_axis is not None:
@@ -183,26 +191,6 @@ def _check_supported(params, cfg: WhisperConfig, opts: DecodingOptions,
         raise NotImplementedError(
             f"DecodingOptions {missing} are not ported to ttasr_torch yet "
             f"(ROADMAP A5, A12)")
-    flat = _use_flat_kv(params, cfg, opts)
-    if opts.kv_int8 and not flat:
-        raise NotImplementedError(
-            "kv_int8 without fused int8 weights (or with heads other than "
-            "64 wide) needs the 5-D int8 cache of the unfused int8 graph, "
-            "not ported to ttasr_torch (ROADMAP C)")
-    if opts.cross_kv_int8 and not flat:
-        raise NotImplementedError(
-            "cross_kv_int8 off the flat fused path needs B13 "
-            "(cross_attention_int8), not ported yet (ROADMAP B)")
-    if flat and (not opts.cross_kv_int8 or cfg.decoder_heads % 2
-                 or beams > MAX_BEAMS):
-        raise NotImplementedError(
-            "the flat int8 path with a bf16 cross-KV, an odd head count or "
-            f"more than {MAX_BEAMS} beams needs B12 and B13, not ported yet "
-            "(ROADMAP B)")
-    if flat and beams > 1 and not opts.beam_indirect:
-        raise NotImplementedError(
-            "beam_indirect=False on the flat int8 path needs B17 "
-            "(gather_cache_rows), not ported yet (ROADMAP B)")
 
 
 # ---------------------------------------------------------------------------
@@ -222,18 +210,20 @@ def _qkv_proj(h, blk, cfg: WhisperConfig):
 
 def _cross_attn_quantized(qc, ck8, cks_t, cv8, cvs_t, s_real: int):
     """Cross-attention over one layer's quantized cross-KV outside the
-    fused kernel: the prompt prefill (the reference's XLA branch), with
-    the int4 cache unpacked once per window and slots >= ``s_real``
-    masked.  qc: (rows, T, H, Dh); ck8/cv8: (B, S, D) int8 or (B, S/2, D)
-    uint8; cks_t/cvs_t: (B, H, S)."""
+    fused B3 kernel.  One token with at most 8 beam rows per audio,
+    64-wide heads and an even head count runs B13
+    (``cross_attention_int8``); other shapes (the prompt prefill, more
+    than 8 beams) take the reference's XLA branch, with the int4 cache
+    unpacked and slots >= ``s_real`` masked.  qc: (rows, T, H, Dh);
+    ck8/cv8: (B, S, D) int8 or (B, S/2, D) uint8; cks_t/cvs_t: (B, H, S).
+    Returns qc's dtype."""
     bk, t, h, dh = qc.shape
     b = ck8.shape[0]
     group = bk // b
     if t == 1 and group <= MAX_BEAMS and dh == 64 and h % 2 == 0:
-        raise NotImplementedError(
-            "a single-token quantized cross-attention outside the fused "
-            "kernel needs B13 (cross_attention_int8), not ported yet "
-            "(ROADMAP B)")
+        out = cross_attention_int8(qc.reshape(b, group, h, dh), ck8, cks_t,
+                                   cv8, cvs_t, s_real)
+        return out.reshape(bk, t, h, dh).to(qc.dtype)
     if ck8.dtype == torch.uint8:
         ck8, cv8 = unpack_int4(ck8), unpack_int4(cv8)
     s = ck8.shape[1]
@@ -245,13 +235,27 @@ def _cross_attn_quantized(qc, ck8, cks_t, cv8, cvs_t, s_real: int):
     return out.reshape(bk, t, h, dh)
 
 
+def _write_kv5(cache: DecodeCache, i: int, k_new, v_new, start: int):
+    """Quantize K/V (B, T, H, Dh) into slots ``start..start+T-1`` of layer
+    i of the 5-D int8 cache (codes (B, T, H, Dh), scales (B, T, H))."""
+    t = k_new.shape[1]
+    for codes, scales, new in ((cache.k, cache.ks, k_new),
+                               (cache.v, cache.vs, v_new)):
+        q, sc = quantize_kv(new)
+        codes[i, :, start:start + t] = q
+        scales[i, :, start:start + t] = sc
+
+
 def _write_prefill_kv(cache: DecodeCache, i: int, k_new, v_new, t: int):
     """Store the prompt's K/V (B, T, H, Dh) in slots 0..T-1 of layer i:
-    as they are, or quantized into the flat int8/int4 layout with the
-    scales transposed to (rows, H, T)."""
+    as they are, quantized into the 5-D int8 layout, or quantized into the
+    flat int8/int4 layout with the scales transposed to (rows, H, T)."""
     if not cache.quantized:
         cache.k[i, :, :t] = k_new
         cache.v[i, :, :t] = v_new
+        return
+    if not cache.flat:
+        _write_kv5(cache, i, k_new, v_new, 0)
         return
     int4 = cache.self_int4
     h = k_new.shape[2]
@@ -308,17 +312,28 @@ def _logits_at(params, hidden):
     return _unembed(hidden, params["decoder"])
 
 
+def _self_mask(max_len: int, slot: int, pad_len):
+    """(B, 1, 1, len) bool: the step's query sees slots pad..slot."""
+    k_ids = torch.arange(max_len, device=pad_len.device)[None, :]
+    return ((k_ids <= slot) & (k_ids >= pad_len[:, None]))[:, None, None]
+
+
 def _step_fused(params, cfg: WhisperConfig, x, slot: int, pad_len,
                 cache: DecodeCache, anc, s_real: int):
-    """The flat fused int8 step (the reference's ``scan_block_fused``
-    without the TP branches): per layer B1 -> B2 (``anc`` given) or B10
-    -> B3 -> B4.  Each layer's new K/V codes and scales are written at
-    ``slot`` after the loop (the kernels read only positions < slot)."""
+    """The fused int8 step over the flat cache (the reference's
+    ``scan_block_fused`` without the TP branches): per layer B1 -> B2
+    (``anc`` given) or B10 -> B3, or, where B3's condition fails (a bf16
+    cross-KV, more than 8 beam rows per audio, an odd head count), B12 and
+    the cross-attention outside the kernel -> B4.  Each layer's new K/V
+    codes and scales are written at ``slot`` after the loop (the kernels
+    read only positions < slot)."""
     dec = params["decoder"]
     bk = x.shape[0]
     b_audio = cache.cross_k.shape[1]
     group = bk // b_audio
     h, d = cfg.decoder_heads, cfg.d_model
+    fused_cross = (cache.cross_quantized and d == h * DH and h % 2 == 0
+                   and group <= MAX_BEAMS)
     cache_len, d_store = cache.k.shape[2:]
     hp = cache.ks.shape[2]
     pad_g = pad_len.to(torch.int32).reshape(b_audio, group)  # once per step
@@ -340,13 +355,28 @@ def _step_fused(params, cfg: WhisperConfig, x, slot: int, pad_len,
             attn, *rows = self_attn_step_int8(
                 *caches, pad_g, slot, n_heads=h, int4=cache.self_int4)
         new_rows.append(rows)
-        xo, cross = attnout_ln_q_cross_int8(
-            x2.reshape(b_audio, group, d), attn,
-            blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
-            blk["lnc_s"], blk["lnc_b"],
-            blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"],
-            cache.cross_k[i], cache.cks[i], cache.cross_v[i], cache.cvs[i],
-            s_real)
+        if fused_cross:
+            xo, cross = attnout_ln_q_cross_int8(
+                x2.reshape(b_audio, group, d), attn.reshape(b_audio, group, d),
+                blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
+                blk["lnc_s"], blk["lnc_b"],
+                blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"],
+                cache.cross_k[i], cache.cks[i], cache.cross_v[i], cache.cvs[i],
+                s_real)
+        else:
+            xo, qc = attnout_ln_q_fused(
+                x2, attn.reshape(bk, d).contiguous(),
+                blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
+                blk["lnc_s"], blk["lnc_b"],
+                blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"])
+            qc = _split_heads(qc[:, None, :].to(x.dtype), h)  # the model dtype
+            if cache.cross_quantized:
+                cross = _cross_attn_quantized(qc, cache.cross_k[i], cache.cks[i],
+                                              cache.cross_v[i], cache.cvs[i],
+                                              s_real)
+            else:
+                cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
+            cross = _merge_heads(cross).float().contiguous()
         x_new = mlp_with_crossout_int8(
             xo.reshape(bk, d), cross.reshape(bk, d),
             blk["wo_c"]["q"], blk["wo_c"]["s"], blk["bo_c"],
@@ -376,24 +406,32 @@ def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
     if s_real is None:
         s_real = cfg.max_source_positions
     dec = params["decoder"]
-    max_len = cache.k.shape[2]
     pos = torch.clamp(slot - pad_len, min=0)              # (B,)
     x = (_embed_lookup(dec, token)
          + dec["pos"][pos][:, None, :]).to(_model_dtype(dec))
-    if cache.quantized:
+    if cache.flat:
         return _step_fused(params, cfg, x, slot, pad_len, cache, anc, s_real)
-    k_ids = torch.arange(max_len, device=token.device)[None, :]
-    mask = ((k_ids <= slot) & (k_ids >= pad_len[:, None]))[:, None, None]
+    mask = _self_mask(cache.k.shape[2], slot, pad_len)
     for i, blk in enumerate(dec["blocks"]):
         h = _ln(x, blk["ln1_s"], blk["ln1_b"])
         q, k_new, v_new = _qkv_proj(h, blk, cfg)
-        cache.k[i, :, slot] = k_new[:, 0]
-        cache.v[i, :, slot] = v_new[:, 0]
-        attn = _attention(q, cache.k[i], cache.v[i], mask)
+        if cache.quantized:
+            _write_kv5(cache, i, k_new, v_new, slot)
+            attn = _quant_self_attention(q, cache.k[i], cache.ks[i],
+                                         cache.v[i], cache.vs[i], mask)
+        else:
+            cache.k[i, :, slot] = k_new[:, 0]
+            cache.v[i, :, slot] = v_new[:, 0]
+            attn = _attention(q, cache.k[i], cache.v[i], mask)
         x = x + _proj(_merge_heads(attn), blk["wo"], blk["bo"])
         hc = _ln(x, blk["lnc_s"], blk["lnc_b"])
         qc = _split_heads(_proj(hc, blk["wq_c"], blk["bq_c"]), cfg.decoder_heads)
-        cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
+        if cache.cross_quantized:
+            cross = _cross_attn_quantized(qc, cache.cross_k[i], cache.cks[i],
+                                          cache.cross_v[i], cache.cvs[i],
+                                          s_real)
+        else:
+            cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
         x = x + _proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"])
         x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
@@ -496,7 +534,8 @@ def _tile_cache_rows(cache: DecodeCache, k: int) -> DecodeCache:
 
 def _pad_cache_to(cache: DecodeCache, new_len: int) -> DecodeCache:
     """Grow the self-KV caches (len axis) to ``new_len`` slots; flat
-    scales (L, rows, HP, len) grow on their last axis."""
+    scales (L, rows, HP, len) grow on their last axis, 5-D ones (L, rows,
+    len, H) on axis 2."""
     cur = cache.k.shape[2]
     if cur >= new_len:
         return cache
@@ -507,17 +546,30 @@ def _pad_cache_to(cache: DecodeCache, new_len: int) -> DecodeCache:
         return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
     if cache.quantized:
+        sc_axis = 3 if cache.flat else 2
         return dataclasses.replace(cache, k=grow(cache.k), v=grow(cache.v),
-                                   ks=grow(cache.ks, 3), vs=grow(cache.vs, 3))
+                                   ks=grow(cache.ks, sc_axis),
+                                   vs=grow(cache.vs, sc_axis))
     return dataclasses.replace(cache, k=grow(cache.k), v=grow(cache.v))
 
 
-def _gather_cache(cache: DecodeCache, idx) -> DecodeCache:
-    """Reorder the float self caches' row axis by ``idx``.  Cross K/V are
-    shared by the beams of an audio and are not gathered; the flat int8
-    caches never reorder (the ancestry map does)."""
-    return dataclasses.replace(cache, k=cache.k.index_select(1, idx),
-                               v=cache.v.index_select(1, idx))
+def _gather_cache(cache: DecodeCache, idx, spare=None):
+    """Reorder the self caches' row axis by ``idx``; returns (the new
+    cache, the buffers it leaves free).  Cross K/V are shared by the beams
+    of an audio and are not gathered.  The flat int8 caches go through B17
+    (``gather_cache_rows``, all four tensors in one launch) out of place
+    into ``spare``, the buffers an earlier gather left free (when their
+    shapes still match), so two sets of buffers swap each step."""
+    old = (cache.k, cache.v, cache.ks, cache.vs)
+    if cache.quantized and cache.flat:
+        if spare is not None and any(a.shape != b.shape
+                                     for a, b in zip(spare, old)):
+            spare = None
+        k, v, ks, vs = gather_cache_rows(*old, idx, spare)
+        return dataclasses.replace(cache, k=k, v=v, ks=ks, vs=vs), old
+    k, v, ks, vs = (None if t is None else t.index_select(1, idx)
+                    for t in old)
+    return dataclasses.replace(cache, k=k, v=v, ks=ks, vs=vs), None
 
 
 def _top_k(x, k: int):
@@ -569,7 +621,7 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     no_speech_prob, plus ``steps`` (decode steps run) and
     ``logits_finite`` (every step's logits were finite).
     """
-    _check_supported(params, cfg, opts)
+    _check_supported(opts)
     if _use_flat_kv(params, cfg, opts):
         params = _f32_decoder_vectors(params)
     dev = enc_out.device
@@ -665,7 +717,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     ``logits_finite`` as :func:`greedy_decode`.
     """
     k = opts.beam_size
-    _check_supported(params, cfg, opts, beams=k)
+    _check_supported(opts)
     if _use_flat_kv(params, cfg, opts):
         params = _f32_decoder_vectors(params)
     dev = enc_out.device
@@ -684,12 +736,12 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     hidden_b, cache = _prefill(params, cfg, prompt, pad_len, cache,
                                s_real=s_real)
     cache = _tile_cache_rows(cache, k)
-    # the flat int8 caches never reorder: a (rows, len) map of each row's
-    # source row within its beam group is permuted instead, starting at
-    # the identity (each row holds its own prompt)
+    # with beam_indirect the flat int8 caches never reorder: a (rows, len)
+    # map of each row's source row within its beam group is permuted
+    # instead, starting at the identity (each row holds its own prompt)
     own_row = (torch.arange(bk, device=dev) % k).to(torch.int32)
-    anc = None
-    if cache.quantized:
+    anc = spare = None
+    if cache.quantized and cache.flat and opts.beam_indirect:
         anc = own_row[:, None].expand(bk, buckets[0]).contiguous()
     no_speech_prob = _no_speech_prob(params, hidden_b, prompt, ti)
 
@@ -774,7 +826,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
                 anc = anc[sel_flat_src]
                 anc[:, max_prompt + step] = own_row
             else:
-                cache = _gather_cache(cache, sel_flat_src)
+                cache, spare = _gather_cache(cache, sel_flat_src, spare)
 
             new_tok = sel_tok.reshape(-1)
             tokens[:, step] = new_tok

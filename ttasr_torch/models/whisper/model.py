@@ -417,6 +417,8 @@ class DecodeCache:
     Flat int8 mode (the fused int8 decode kernels): k/v (L, rows, len, D)
     int8, or (L, rows, len, D/2) uint8 lane-packed int4, with f32 scales
     ks/vs (L, rows, HP, len), HP = ceil(H/8)*8 and rows >= H zero.
+    5-D int8 mode (the unfused int8 graph): k/v (L, rows, len, H, Dh) int8
+    with f32 scales ks/vs (L, rows, len, H).
     Quantized cross-KV: cross_k/cross_v (L, B, S, D) int8 or (L, B, S/2, D)
     uint8 packed along S (S padded to a multiple of 16), with scales
     cks/cvs (L, B, H, S).
@@ -480,9 +482,9 @@ def init_cache(params: Params, cfg: WhisperConfig, enc_out, max_len: int,
     layer (quantized per layer when ``cross_kv_int8``/``cross_kv_int4``,
     so only one layer's float K/V is ever live).
 
-    ``kv_int8`` takes the flat layout of the fused kernels (``flat_kv``
-    must be set: the 5-D int8 cache of the unfused int8 graph is not
-    ported); ``kv_int4`` lane-packs it when the head count is even.
+    ``kv_int8`` quantizes the self cache: in the flat layout of the fused
+    kernels with ``flat_kv`` (``kv_int4`` lane-packs it when the head count
+    is even), else in the 5-D layout of the unfused int8 graph.
     """
     dec = params["decoder"]
     b = enc_out.shape[0]
@@ -500,12 +502,18 @@ def init_cache(params: Params, cfg: WhisperConfig, enc_out, max_len: int,
                           for blk in dec["blocks"]])
         cks = cvs = None
     rows = b * beam_expand
+    shape = (cfg.decoder_layers, rows, max_len, h, dh)
+    if kv_int8 and not flat_kv:
+        def int8_zeros(shape):
+            return torch.zeros(shape, dtype=torch.int8, device=dev)
+
+        def f32_zeros(shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        return DecodeCache(k=int8_zeros(shape), v=int8_zeros(shape),
+                           cross_k=ck, cross_v=cv, ks=f32_zeros(shape[:-1]),
+                           vs=f32_zeros(shape[:-1]), cks=cks, cvs=cvs)
     if kv_int8:
-        if not flat_kv:
-            raise NotImplementedError(
-                "the 5-D int8 self-KV cache of the unfused int8 graph is not "
-                "ported to ttasr_torch (ROADMAP C); the flat layout needs "
-                "fused int8 weights and 64-wide heads")
         hp = ((h + 7) // 8) * 8
         d_store, kv_dtype = h * dh, torch.int8
         if kv_int4 and h % 2 == 0:
@@ -519,7 +527,6 @@ def init_cache(params: Params, cfg: WhisperConfig, enc_out, max_len: int,
             ks=torch.zeros(sc_shape, dtype=torch.float32, device=dev),
             vs=torch.zeros(sc_shape, dtype=torch.float32, device=dev),
             cks=cks, cvs=cvs)
-    shape = (cfg.decoder_layers, rows, max_len, h, dh)
     zeros = lambda: torch.zeros(shape, dtype=enc_out.dtype,  # noqa: E731
                                 device=dev)
     return DecodeCache(k=zeros(), v=zeros(), cross_k=ck, cross_v=cv,

@@ -52,6 +52,14 @@ ARGTYPES = {
     "ttasr_quant_only": [_P] * 3 + [_I] * 2 + [_P],
     # x, ln_s, ln_b, w, w_scale, bias, out; R, D, M; stream
     "ttasr_qkv_int8": [_P] * 7 + [_I] * 3 + [_P],
+    # x, attn, wo, wo_s, bo, lnc_s, lnc_b, wqc, wqc_s, bqc, xo, qc; R, D, DC;
+    # stream
+    "ttasr_attnout_ln_q": [_P] * 12 + [_I] * 3 + [_P],
+    # q, ck, cks, cv, cvs, out; B, K, D, S, s_real, packed; stream
+    "ttasr_cross_attention_int8": [_P] * 6 + [_I] * 6 + [_P],
+    # k, v, ks, vs, idx, out_k, out_v, out_ks, out_vs; L, BK, kv_row_bytes,
+    # sc_row_bytes; stream
+    "ttasr_gather_cache_rows": [_P] * 9 + [_I] * 4 + [_P],
     # x, attn, wo, wo_s, bo, lnc_s, lnc_b, wqc, wqc_s, bqc, ck, cks, cv, cvs,
     # xo, qc (scratch), cross; B, K, D, S, s_real, packed; stream
     "ttasr_attnout_cross_int8": [_P] * 17 + [_I] * 6 + [_P],

@@ -4,9 +4,13 @@ kernels and their plain versions.
 Ports of ``ttasr/ops/decoder_blocks_pallas.py``:
 
 - B1 :func:`qkv_int8_fused` = ``qkv_int8_fused``: LN1(x) @ W_qkv * s + b;
-- B3 :func:`attnout_ln_q_cross_int8` = ``attnout_ln_q_cross_int8``: the
-  self-attention out-projection and residual, LNc, the cross query and the
-  per-head cross-attention over the int8 or int4 cross-KV cache.
+- B12 :func:`attnout_ln_q_fused` = ``attnout_ln_q_fused``: the
+  self-attention out-projection and residual, LNc and the cross query
+  (not pre-scaled), for the decode branches B3 does not take;
+- B3 :func:`attnout_ln_q_cross_int8` = ``attnout_ln_q_cross_int8``: B12
+  with the pre-scaled query, then the per-head cross-attention over the
+  int8 or int4 cross-KV cache (:func:`cross_attend_ref`, shared with B13
+  in :mod:`ttasr_torch.ops.cross_attention`).
 
 Each wrapper runs its plain PyTorch version (``*_ref``) for CPU tensors and
 launches the CUDA kernel (``ttasr_torch/csrc/decoder_blocks.cu``) for CUDA
@@ -111,13 +115,86 @@ qkv_int8_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# B3: attention out-projection + LNc + cross-q + int8/int4 cross-attention
+# B12: attention out-projection + LNc + cross-q
+# ---------------------------------------------------------------------------
+
+def attnout_ln_q_fused_ref(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
+                           wqc_q, wqc_s, bqc):
+    """x, attn: (R, D); wo_q (D, D) and wqc_q (D, DC) int8 with (1, N) f32
+    scales.  Returns (x' = x + (attn @ Wo) * s_o + b_o  (R, D) f32,
+    qc = LNc(x') @ Wq_c * s_qc + b_qc  (R, DC) f32); qc is not scaled by
+    dh**-0.5 (its consumer does that)."""
+    a = _bf16(attn.float())
+    xo = x.float() + _wmul(a, wo_q, wo_s) + bo.float()
+    ln = _bf16(_ln_f32(xo, lnc_s, lnc_b))
+    return xo, _wmul(ln, wqc_q, wqc_s) + bqc.float()
+
+
+def attnout_ln_q_fused(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
+                       wqc_q, wqc_s, bqc):
+    """B12; see :func:`attnout_ln_q_fused_ref` for the contract."""
+    if not _dispatch(x):
+        return attnout_ln_q_fused_ref(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
+                                      wqc_q, wqc_s, bqc)
+    r, d = x.shape
+    dc = wqc_q.shape[-1]
+    if (x.dtype != torch.float32 or attn.dtype != torch.float32
+            or attn.shape != x.shape):
+        raise TypeError("x and attn must be f32 (R, D)")
+    if wo_q.shape != (d, d) or wqc_q.shape != (d, dc) \
+            or {wo_q.dtype, wqc_q.dtype} != {torch.int8}:
+        raise TypeError(f"wo must be int8 (D, D) and wq_c int8 (D, DC): "
+                        f"{wo_q.dtype} {tuple(wo_q.shape)}, {wqc_q.dtype} "
+                        f"{tuple(wqc_q.shape)}")
+    if d % 32 or dc % 32:
+        raise ValueError(f"D={d} and DC={dc} must be multiples of 32")
+    vec = dict(wo_s=(wo_s, d), bo=(bo, d), lnc_s=(lnc_s, d), lnc_b=(lnc_b, d),
+               wqc_s=(wqc_s, dc), bqc=(bqc, dc))
+    dev = _check_cuda(vec, x=x, attn=attn, wo_q=wo_q, wqc_q=wqc_q)
+    xo = torch.empty((r, d), dtype=torch.float32, device=dev)
+    qc = torch.empty((r, dc), dtype=torch.float32, device=dev)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_attnout_ln_q", dev, x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
+           wqc_q, wqc_s, bqc, xo, qc, r, d, dc)
+    attnout_ln_q_fused.launches += 1
+    return xo, qc
+
+
+attnout_ln_q_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B3: B12 with the pre-scaled query + int8/int4 cross-attention
 # ---------------------------------------------------------------------------
 
 def _cross_codes(ck):
     """Stored cross-KV (B, S, D) int8 or (B, S/2, D) uint8 packed along S
     -> (B, S, D) f32 codes in slot order."""
     return (unpack_int4(ck) if ck.dtype == torch.uint8 else ck).float()
+
+
+def cross_attend_ref(q, ck, cks, cv, cvs, s_real: int):
+    """Per-head cross-attention of pre-scaled queries over the quantized
+    cross-KV, as the TPU kernels compute it:
+
+        softmax(bf16(q) K^T * ks, slots >= s_real masked) * vs -> bf16, @ V
+
+    q: (B, K, H, dh) f32 (already times dh**-0.5).  ck/cv: (B, S, D) int8
+    or (B, S/2, D) uint8 (int4 packed along S); cks/cvs: (B, H, S) f32.
+    Returns (B, K, H, dh) f32."""
+    b, k, h, dh = q.shape
+    qb = _bf16(q.float()).transpose(1, 2)                       # (B,H,K,dh)
+    kc = _cross_codes(ck)
+    s = kc.shape[1]
+    kc = kc.reshape(b, s, h, dh).permute(0, 2, 3, 1)            # (B,H,dh,S)
+    vc = _cross_codes(cv).reshape(b, s, h, dh).transpose(1, 2)  # (B,H,S,dh)
+    scores = torch.matmul(qb, kc) * cks.float()[:, :, None, :]  # (B,H,K,S)
+    valid = torch.arange(s, device=q.device) < s_real
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    pv = _bf16(probs * cvs.float()[:, :, None, :])
+    return torch.matmul(pv, vc).transpose(1, 2)                 # (B,K,H,dh)
 
 
 def attnout_ln_q_cross_int8_ref(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
@@ -135,22 +212,12 @@ def attnout_ln_q_cross_int8_ref(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
     """
     b, k, d = x.shape
     h = cks.shape[1]
-    a = _bf16(attn.float().reshape(b * k, d))
-    xo = x.float().reshape(b * k, d) + _wmul(a, wo_q, wo_s) + bo.float()
-    ln = _bf16(_ln_f32(xo, lnc_s, lnc_b))
-    qc = (_wmul(ln, wqc_q, wqc_s) + bqc.float()) * DH ** -0.5
-    q = _bf16(qc).reshape(b, k, h, DH).transpose(1, 2)          # (B,H,K,dh)
-    kc = _cross_codes(ck)
-    s = kc.shape[1]
-    kc = kc.reshape(b, s, h, DH).permute(0, 2, 3, 1)            # (B,H,dh,S)
-    vc = _cross_codes(cv).reshape(b, s, h, DH).transpose(1, 2)  # (B,H,S,dh)
-    scores = torch.matmul(q, kc) * cks.float()[:, :, None, :]   # (B,H,K,S)
-    valid = torch.arange(s, device=x.device) < s_real
-    scores = scores.masked_fill(~valid, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    pv = _bf16(probs * cvs.float()[:, :, None, :])
-    out = torch.matmul(pv, vc)                                  # (B,H,K,dh)
-    return xo.reshape(b, k, d), out.transpose(1, 2).reshape(b, k, d)
+    xo, qc = attnout_ln_q_fused_ref(x.reshape(b * k, d), attn.reshape(b * k, d),
+                                    wo_q, wo_s, bo, lnc_s, lnc_b, wqc_q, wqc_s,
+                                    bqc)
+    out = cross_attend_ref((qc * DH ** -0.5).reshape(b, k, h, DH),
+                           ck, cks, cv, cvs, s_real)
+    return xo.reshape(b, k, d), out.reshape(b, k, d)
 
 
 def attnout_ln_q_cross_int8(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
