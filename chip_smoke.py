@@ -40,7 +40,14 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    a top-k's index and a permutation) byte for byte; timed as in phase 4,
    B17 on the permutation beside its library call (four ``index_select``
    into the spare buffers);
-7. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
+7. holds the tensor-parallel kernels against their plain versions at the
+   shard shapes of a model axis of 1 and 2: B15 ``matmul_int8_partial``
+   (DL = 1280 and 640, 5 and 10 rows), B14 ``mlp_int8_fused`` (partial
+   and full, F = 5120 and 2560, 5 and 8 rows) and B16 ``ln_q_cross_int8``
+   (20 and 10 local heads, (B, K) = (1, 5) and (5, 1), int4 and int8
+   cross-KV), within the bound of B1-B4; timed as in phase 4, B15 beside
+   its library call (a bf16 matmul on a weight cast beforehand);
+8. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
    compute_type="bfloat16")`` with random weights from a seeded generator,
    on two synthesized speech-like WAVs (20 s and 45 s, so the seek loop
    crosses a window with prompt carry), through
@@ -48,7 +55,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    B11 ran 32 times per encoder pass, that beam decodes ran with finite
    logits, and that the encoder output agrees with the plain-attention
    encoder on one window;
-8. drives the main path, the int8 engine with all its defaults:
+9. drives the main path, the int8 engine with all its defaults:
    ``WhisperEngine("large-v3", compute_type="int8")`` (weights quantized
    on the card, the s8 x s8 encoder with B5-B9, int8 and int4 self-KV,
    int4 cross-KV, beam 5 through the ancestry map, best-of-5 fallback);
@@ -57,7 +64,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    per decode step, B2 32 times per beam step and B10 32 times per greedy
    step; and that one window through the s8 x s8 encoder agrees with the
    same encoder on the plain versions of B5-B9;
-9. drives the decode's other branches on one encoder window of the main
+10. drives the decode's other branches on one encoder window of the main
    path's engine, ``BRANCH_STEPS`` tokens each, beside a main-path beam
    decode of the same window: ``beam_decode`` with a bf16 cross-KV (B12),
    ``beam_decode`` with ``beam_indirect=False`` (B17 and B10; its tokens
@@ -70,7 +77,22 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    each with exact launch counts, finite logits and its ms per step; the
    unfused beam leg once more over ``PROFILE_STEPS`` tokens under
    ``torch.profiler`` (device ms, kernels and busy share per step);
-10. drives the int8 engine with ``encoder_act_int8=False`` (the bf16
+11. drives the tensor-parallel decode (``ttasr_torch.parallel``) on the
+   same window: ``TPDecoder(..., create_mesh(1, 1), row_parallel=True)``
+   on a one-rank NCCL group (TP v2: B15 twice, B16 and B14 per layer),
+   beam 5 held to the main-path leg (equal tokens, step logits within
+   1.4 % with every argmax equal) and greedy over 5 rows held to the
+   single-card fused greedy decode; ``WhisperEngine(..., mesh=
+   create_mesh(1, 1))`` (TP v1, the unfused s8 x s8 encoder with B11) on
+   the 20 s file at T = 0, and its own window decoded by the engine and by
+   the single-card fused ``beam_decode`` (held the same way); two one-card
+   controls that change only the order of f32 sums (B4 through its plain
+   version; the cross-KV projected per half of the heads, as a 2-way shard
+   does); then two gloo ranks on this card, mesh (1, 2) (10 local heads
+   each), v2 and v1 beam 5, their step-logit gaps to the main-path leg
+   held to the controls' (``CONTROL_MARGIN``); exact launch counts in
+   every leg;
+12. drives the int8 engine with ``encoder_act_int8=False`` (the bf16
    encoder on int8 weights, B11) on one file, with its launch counts.
 
 Every path's counts are set to 0 just before it and read just after, and
@@ -78,7 +100,8 @@ each path ends with one 30 s window through its encoder, timed and
 profiled (``torch.profiler``: device time, kernel count).  Prints one
 JSON line with each kernel's launches (from the main path's run; B11's
 from the bf16 path's, B12's from the bf16 cross-KV leg's, B13's from the
-unfused beam leg's, B17's from the ``beam_indirect=False`` leg's), worst
+unfused beam leg's, B17's from the ``beam_indirect=False`` leg's, B14-B16's
+from the one-rank TP v2 beam leg's), worst
 error, times, bound and library time, then
 the card line, then the contract line ``{"ok": true, "device": {...}}``
 last.
@@ -755,6 +778,103 @@ def check_branch_kernels(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the tensor-parallel kernels at large-v3 shard shapes
+# ---------------------------------------------------------------------------
+
+def check_tp_kernels(card: str) -> dict:
+    """B15, B14 and B16 against their plain versions at the shapes of a
+    model axis of n = 1 and n = 2 (a shard's rows of wo/wo_c/w2, columns of
+    w1 and cross-q, local heads); timed at n = 1 with 5 rows, the one-card
+    TP leg's shapes.  Returns per-kernel measurements keyed by wrapper
+    name."""
+    import torch
+
+    from ttasr_torch.ops import decoder_blocks as blk
+    from ttasr_torch.ops import decoder_mlp as mlp
+
+    inp = Inputs(4)
+    res = {}
+
+    # B15: a shard's DL = D / n input columns, 5 and 10 rows
+    worst, main = 0.0, None
+    for n in (1, 2):
+        wq, ws = inp.weight(D // n, D)
+        for r in (5, 10):
+            b15 = (inp.randn(r, D // n, scale=0.5), wq, ws)
+            worst = _hold("matmul_int8_partial", f"n={n} DL={D // n} R={r}",
+                          blk.matmul_int8_partial(*b15),
+                          blk.matmul_int8_partial_ref(*b15), worst)
+            if (n, r) == (1, 5):
+                main = b15
+    ms, plain_ms = in_turns(lambda: blk.matmul_int8_partial(*main),
+                            lambda: blk.matmul_int8_partial_ref(*main))
+    x, wq, ws = main
+    w_bf16 = wq.to(torch.bfloat16)  # cast once, outside the timed call
+    res["matmul_int8_partial"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        library_ms=time_ms(lambda: torch.matmul(x.to(torch.bfloat16), w_bf16)),
+        **bound(_tensors(main, blk.matmul_int8_partial(*main)),
+                2.0 * 5 * D * D, "bf16"))
+
+    # B14: F / n hidden columns, partial (TP v2) and full, 5 and 8 rows
+    worst, main = 0.0, None
+    for n in (1, 2):
+        f = FFN // n
+        w1, w1_s = inp.weight(D, f)
+        w2, w2_s = inp.weight(f, D)
+        vecs = (inp.vec(D, 0.1, 1.0), inp.vec(D, 0.1), w1, w1_s, inp.vec(f),
+                w2, w2_s, inp.vec(D))
+        for r in (5, 8):
+            for partial in (True, False):
+                b14 = (inp.randn(r, D, scale=0.5), *vecs)
+                worst = _hold("mlp_int8_fused", f"n={n} F={f} R={r} partial={partial}",
+                              mlp.mlp_int8_fused(*b14, partial=partial),
+                              mlp.mlp_int8_fused_ref(*b14, partial=partial), worst)
+                if (n, r, partial) == (1, 5, True):
+                    main = b14
+    ms, plain_ms = in_turns(lambda: mlp.mlp_int8_fused(*main, partial=True),
+                            lambda: mlp.mlp_int8_fused_ref(*main, partial=True))
+    res["mlp_int8_fused"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(_tensors(main, mlp.mlp_int8_fused(*main, partial=True)),
+                2.0 * 5 * 2 * D * FFN, "bf16"))
+
+    # B16: H / n local heads over int4 and int8 cross-KV, (B, K) = (1, 5)
+    # and (5, 1), 1500 of 1504 slots valid
+    worst, main = 0.0, None
+    for n in (1, 2):
+        h_loc = H // n
+        wqc, wqc_s = inp.weight(D, h_loc * 64)
+        for b, k in ((1, 5), (5, 1)):
+            for int4 in (True, False):
+                ck, cks, cv, cvs = inp.cross_kv(b, int4)
+                ck, cv = (t[..., :h_loc * 64].contiguous() for t in (ck, cv))
+                cks, cvs = (t[:, :h_loc].contiguous() for t in (cks, cvs))
+                b16 = (inp.randn(b, k, D, scale=0.5), inp.vec(D, 0.1, 1.0),
+                       inp.vec(D, 0.1), wqc, wqc_s, inp.vec(h_loc * 64),
+                       ck, cks, cv, cvs, S_REAL)
+                case = f"n={n} H_loc={h_loc} B={b} K={k} {'int4' if int4 else 'int8'} cross-KV"
+                worst = _hold("ln_q_cross_int8", case, blk.ln_q_cross_int8(*b16),
+                              blk.ln_q_cross_int8_ref(*b16), worst)
+                if (n, b, k, int4) == (1, 1, 5, True):
+                    main = b16
+    ms, plain_ms = in_turns(lambda: blk.ln_q_cross_int8(*main),
+                            lambda: blk.ln_q_cross_int8_ref(*main))
+    # the cross query (2 R D DC), scores and values over S_REAL
+    res["ln_q_cross_int8"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(_tensors(main, blk.ln_q_cross_int8(*main)),
+                2.0 * 5 * D * D + 2.0 * 2 * 5 * S_REAL * D, "bf16"))
+
+    for name, r in res.items():
+        r.setdefault("library_ms", None)  # no single PyTorch call for B14, B16
+        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) ({card})")
+    return res
+
+
 @contextlib.contextmanager
 def plain_encoder_kernels():
     """The s8 x s8 encoder on the plain versions of B5-B9 (the int8 GEMM
@@ -777,7 +897,7 @@ def plain_encoder_kernels():
 
 
 # ---------------------------------------------------------------------------
-# Phases 6, 7 and 8: the CLI paths end to end
+# Phases 8, 9 and 12: the CLI paths end to end
 # ---------------------------------------------------------------------------
 
 SR = 16000
@@ -1003,7 +1123,8 @@ def _int8_counters():
             model.encoder_attention_merged_qkv, ef.ln_quant, ef.quant_only,
             ef.add_ln_quant, ef.gelu_quant, quant.quant_matmul_act8,
             blk.attnout_ln_q_fused, ca.cross_attention_int8,
-            bg.gather_cache_rows]
+            bg.gather_cache_rows, blk.matmul_int8_partial,
+            blk.ln_q_cross_int8, mlp.mlp_int8_fused]
 
 
 def run_int8_path(card: str, act8: bool) -> dict:
@@ -1039,7 +1160,8 @@ def run_int8_path(card: str, act8: bool) -> dict:
         want[name] = enc if act8 else 0
     want["quant_matmul_act8"] = 4 * enc if act8 else 0
     want["encoder_attention_merged"] = 0 if act8 else enc
-    off_path = ("attnout_ln_q_fused", "cross_attention_int8", "gather_cache_rows")
+    off_path = ("attnout_ln_q_fused", "cross_attention_int8", "gather_cache_rows",
+                "matmul_int8_partial", "ln_q_cross_int8", "mlp_int8_fused")
     want.update(dict.fromkeys(off_path, 0))
     for name, n in want.items():
         check(c[name] == n and (n > 0 or name in encoder_kernels + off_path + (
@@ -1052,14 +1174,17 @@ def run_int8_path(card: str, act8: bool) -> dict:
     if act8:
         _encoder_agrees(engine, run["first"], label, plain=plain_encoder_kernels)
     ms = encoder_ms(engine, run["first"], label, card)
-    branches = run_branch_paths(engine, run["first"], card) if act8 else None
+    branches = tp = None
+    if act8:
+        branches, main_leg = run_branch_paths(engine, run["first"], card)
+        tp = run_tp_paths(engine, run["first"], main_leg, card)
     del engine
     torch.cuda.empty_cache()
-    return dict(counts=c, encoder_ms=ms, branches=branches)
+    return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp)
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the decode's other branches on the main path's engine
+# Phase 10: the decode's other branches on the main path's engine
 # ---------------------------------------------------------------------------
 
 BRANCH_STEPS = 96  # tokens per branch decode: three growth buckets
@@ -1160,10 +1285,34 @@ def _first_difference(a, b):
     return None
 
 
-def run_branch_paths(engine, audio, card: str) -> dict:
+def _hold_to_main(label, out, logits, main) -> float:
+    """``out``'s tokens equal to the main-path leg's, and its step
+    ``logits`` within STEP_LOGIT_REL of that leg's with every argmax
+    equal; returns the worst relative gap."""
+    gaps = _logit_gaps(main["logits"], logits)
+    diff = _first_difference(main["out"], out)
+    if diff is not None:
+        row, step = diff
+        gap = "the prefill's" if step == 0 else f"{gaps[step - 1][0]:.3e}"
+        check(False, f"{label}: tokens differ from the main path leg's at row "
+              f"{row} step {step}; relative logit gap of the step that chose "
+              f"it {gap}")
+    worst = max(g for g, _ in gaps)
+    s = out["steps"]
+    print(f"{label}: tokens equal to the main path leg's ({s} steps); step "
+          f"logits within {worst:.3e} relative, argmax equal on "
+          f"{sum(a for _, a in gaps)} of {len(gaps)} steps")
+    check(len(gaps) == s and worst <= STEP_LOGIT_REL and all(a for _, a in gaps),
+          f"{label}: step logits not within {STEP_LOGIT_REL} of the main path "
+          f"leg's with every argmax equal")
+    return worst
+
+
+def run_branch_paths(engine, audio, card: str):
     """Each branch decode on one encoder window of ``audio``, its counts set
-    to 0 just before and read just after; returns {leg: {steps, ms_per_step,
-    counts}}."""
+    to 0 just before and read just after; returns ({leg: {steps,
+    ms_per_step, counts}}, the main-path leg: {out, logits, enc, prompt,
+    pad}) for the tensor-parallel legs to be held to."""
     import torch
 
     from ttasr_torch.models.whisper.decode import (
@@ -1234,21 +1383,8 @@ def run_branch_paths(engine, audio, card: str) -> dict:
         "gather_cache_rows": s})
     # B17 copies bytes and B10 sums the rows B2 reads through the map in the
     # same order: the legs do the same arithmetic, so no near-tie may flip
-    gaps = _logit_gaps(main_logits, copied_logits)
-    diff = _first_difference(main, copied)
-    if diff is not None:
-        row, step = diff
-        gap = "the prefill's" if step == 0 else f"{gaps[step - 1][0]:.3e}"
-        check(False, f"{label}: tokens differ from the main path leg's at row "
-              f"{row} step {step}; relative logit gap of the step that chose "
-              f"it {gap}")
-    worst = max(g for g, _ in gaps)
-    print(f"{label}: tokens equal to the main path leg's ({s} steps); step "
-          f"logits within {worst:.3e} relative, argmax equal on "
-          f"{sum(a for _, a in gaps)} of {len(gaps)} steps")
-    check(len(gaps) == s and worst <= STEP_LOGIT_REL and all(a for _, a in gaps),
-          f"{label}: step logits not within {STEP_LOGIT_REL} of the main path "
-          f"leg's with every argmax equal")
+    main_leg = dict(out=main, logits=main_logits, enc=enc, prompt=prompt, pad=pad)
+    _hold_to_main(label, copied, copied_logits, main_leg)
 
     label = "bf16 cross-KV (B12)"
     _, s = leg(label, beam_decode, engine.params, cross_kv_int8=False,
@@ -1293,7 +1429,353 @@ def run_branch_paths(engine, audio, card: str) -> dict:
     print("branch paths, profiled device ms per step: " + json.dumps(
         {k: round(v["profile"]["device_ms_per_step"], 3) for k, v in legs.items()
          if "profile" in v}) + f" ({card})")
+    return legs, main_leg
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the tensor-parallel decode
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2  # the two-rank leg: large-v3's 20 heads split into 2 x 10
+# The two-rank legs change the f32 summation order (the partial sums of v2;
+# cuBLAS's shape-dependent order in a shard's N = 640 projections), and on
+# random weights 32 layers grow such last-bit changes into step-logit gaps
+# far above STEP_LOGIT_REL: a one-card decode whose only change is the
+# order (CONTROLS) moves as far.  So those legs are held to the controls'
+# gaps, measured in the same run, times this margin for the spread of a
+# maximum over 96 steps; the legs whose arithmetic is the main leg's are
+# held to STEP_LOGIT_REL and equal tokens.
+CONTROL_MARGIN = 1.5
+
+
+def _tp_launches(s: int, beam: bool, row_parallel: bool) -> dict:
+    """Exact launch counts of ``s`` TP decode steps over N_LAYERS layers."""
+    L = N_LAYERS
+    want = {"qkv_int8_fused": L * s,
+            "self_attn_step_indirect_int8" if beam else "self_attn_step_int8": L * s}
+    if row_parallel:
+        want.update(matmul_int8_partial=2 * L * s, ln_q_cross_int8=L * s,
+                    mlp_int8_fused=L * s)
+    else:
+        want.update(attnout_ln_q_cross_int8=L * s, mlp_with_crossout_int8=L * s)
+    return want
+
+
+def _decode_leg(label, run, counters, card):
+    """``run()`` with the counts set to 0 just before and read just after,
+    under ``_step_logits``; returns (output, step logits, {steps,
+    ms_per_step, counts})."""
+    import torch
+
+    for c in counters:
+        c.launches = 0
+    with _step_logits() as logits, torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    steps = out["steps"]
+    check(steps > 0 and out["logits_finite"], f"{label}: {steps} steps, finite "
+          f"logits {out['logits_finite']}")
+    print(f"{label}: {steps} steps, {1e3 * wall / steps:.2f} ms per step (decode "
+          f"wall {wall:.2f} s, prefill included) ({card})")
+    return out, logits, dict(steps=steps, ms_per_step=1e3 * wall / steps, counts=counts)
+
+
+def _gap_summary(main_logits, logits) -> dict:
+    """Worst and median relative step-logit gap, steps with every argmax
+    equal."""
+    gaps = _logit_gaps(main_logits, logits)
+    g = [x for x, _ in gaps]
+    return dict(worst_gap=max(g), median_gap=float(np.median(g)),
+                argmax_equal_steps=sum(a for _, a in gaps), compared_steps=len(g))
+
+
+@contextlib.contextmanager
+def _plain_b4():
+    """The decode's B4 through its plain version: the same function, its
+    f32 sums in another order."""
+    from ttasr_torch.models.whisper import decode as dm
+    from ttasr_torch.ops import decoder_mlp as mlp
+
+    real = dm.mlp_with_crossout_int8
+    dm.mlp_with_crossout_int8 = mlp.mlp_with_crossout_int8_ref
+    try:
+        yield
+    finally:
+        dm.mlp_with_crossout_int8 = real
+
+
+@contextlib.contextmanager
+def _cross_kv_in_halves():
+    """``init_cache`` projects each layer's cross-KV as a 2-way model axis
+    does, one projection per half of the heads, and concatenates the
+    halves: one card, a 2-way shard's projection shapes."""
+    import torch
+
+    from ttasr_torch.models.whisper import model
+    from ttasr_torch.parallel.tp import _split_cols
+
+    real = model._quantized_cross_kv
+
+    def halves(enc_out, blk, h, int4):
+        parts = [real(enc_out, {k: _split_cols(blk[k], 2, i) for k in ("wk_c", "wv_c", "bv_c")},
+                      h // 2, int4) for i in range(2)]
+        # codes (B, S, D) join on D, scales (B, H, S) on H
+        return [torch.cat(pair, dim=-1 if j % 2 == 0 else 1)
+                for j, pair in enumerate(zip(*parts))]
+
+    model._quantized_cross_kv = halves
+    try:
+        yield
+    finally:
+        model._quantized_cross_kv = real
+
+
+CONTROLS = (("control: B4 through its plain version", _plain_b4),
+            ("control: cross-KV projected in head halves", _cross_kv_in_halves))
+
+
+def _segments_well_formed(label, segments) -> None:
+    for seg in segments:
+        check(isinstance(seg.text, str) and seg.tokens and seg.start <= seg.end
+              and np.isfinite(seg.avg_logprob) and 0.0 <= seg.no_speech_prob <= 1.0,
+              f"{label}: malformed segment {seg}")
+
+
+def run_tp_paths(engine, audio, main, card: str) -> dict:
+    """The tensor-parallel decode on the main path's window: TP v2 forced on
+    a one-rank NCCL group (beam 5 held to the main-path leg, greedy over 5
+    rows held to the single-card fused greedy decode), the engine with a
+    (1, 1) mesh (TP v1) on the 20 s file and on its own encoder window, the
+    one-card CONTROLS, and two gloo ranks on this card
+    (:func:`run_two_ranks`).  Returns {leg: {steps, ms_per_step, counts}}."""
+    import torch
+    import torch.distributed as dist
+
+    from ttasr_torch.models.whisper.decode import (
+        DecodingOptions,
+        beam_decode,
+        greedy_decode,
+    )
+    from ttasr_torch.parallel.distributed import initialize_distributed
+    from ttasr_torch.parallel.sharding import create_mesh
+    from ttasr_torch.parallel.tp import TPDecoder
+
+    counters = _int8_counters()
+    base = dict(beam_size=5, sample_len=BRANCH_STEPS, kv_int8=True,
+                cross_kv_int8=True, cross_kv_int4=True, kv_int4=True)
+    enc, prompt, pad, ti = main["enc"], main["prompt"], main["pad"], engine.ti
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = create_mesh(1, 1)
+            tp = TPDecoder(_unfused_decoder(engine.params), engine.cfg, mesh,
+                           row_parallel=True)
+            label = "TP v2 one rank beam 5 (B15, B16, B14)"
+            out, logits, legs[label] = _decode_leg(label, lambda: tp.beam(
+                enc, prompt, pad, opts=DecodingOptions(**base), ti=ti), counters, card)
+            _expect(label, legs[label]["counts"],
+                    _tp_launches(out["steps"], beam=True, row_parallel=True))
+            _hold_to_main(label, out, logits, main)
+
+            rows = 5
+            g_args = (enc.expand(rows, -1, -1), np.repeat(prompt, rows, 0),
+                      np.repeat(pad, rows, 0), None, 0.0)
+            g_opts = DecodingOptions(**dict(base, beam_size=1))
+            label = "TP v2 one rank greedy 5 rows"
+            out, logits, legs[label] = _decode_leg(label, lambda: tp.greedy(
+                *g_args, opts=g_opts, ti=ti), counters, card)
+            _expect(label, legs[label]["counts"],
+                    _tp_launches(out["steps"], beam=False, row_parallel=True))
+            single, single_logits, _ = _decode_leg(
+                "single-card fused greedy 5 rows", lambda: greedy_decode(
+                    engine.params, engine.cfg, *g_args, opts=g_opts, ti=ti),
+                counters, card)
+            _hold_to_main(label, out, logits, dict(out=single, logits=single_logits))
+            del tp
+
+            legs.update(run_mesh_engine(mesh, audio, base, counters, card))
+        finally:
+            dist.destroy_process_group()
+    controls = {}
+    for label, ctx in CONTROLS:
+        with ctx():
+            out, logits, legs[label] = _decode_leg(label, lambda: beam_decode(
+                engine.params, engine.cfg, enc, prompt, pad,
+                opts=DecodingOptions(**base), ti=ti), counters, card)
+        controls[label] = dict(_gap_summary(main["logits"], logits),
+                               first_difference=_first_difference(main["out"], out))
+        print(f"{label}: {json.dumps(controls[label])}")
+    legs.update(run_two_ranks(main, ti, controls, card))
+    print("tensor-parallel legs, ms per step: " + json.dumps(
+        {k: round(v["ms_per_step"], 3) for k, v in legs.items()}) + f" ({card})")
     return legs
+
+
+def run_mesh_engine(mesh, audio, base, counters, card) -> dict:
+    """``WhisperEngine(..., mesh=mesh)`` at (1, 1): TP v1 by the reference's
+    rule, the unfused s8 x s8 encoder (B11).  ``transcribe`` of the 20 s
+    file at T = 0 with exact counts, then the engine's own first window
+    decoded by the engine and by the single-card fused ``beam_decode`` of
+    its weights: equal tokens, step logits within STEP_LOGIT_REL."""
+    import torch
+
+    from ttasr_torch.engine.transcriber import WhisperEngine
+    from ttasr_torch.models.whisper.decode import (
+        DecodingOptions,
+        beam_decode,
+        build_prompt,
+        pad_prompts,
+    )
+    from ttasr_torch.ops.quant import fuse_qkv
+
+    L = N_LAYERS
+    t0 = time.perf_counter()
+    engine = WhisperEngine("large-v3", compute_type="int8", device="cuda", mesh=mesh)
+    check(engine._tp is not None and not engine._tp.row_parallel,
+          "the (1, 1) mesh engine must take TP v1")
+    print(f"engine: large-v3 int8 with a (1, 1) mesh in {time.perf_counter() - t0:.1f} s")
+    label = "mesh engine transcribe T=0 (TP v1, unfused encoder)"
+    for c in counters:
+        c.launches = 0
+    before = dict(engine.decode_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segments, _ = engine.transcribe(audio, temperature=(0.0,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    st = {k: engine.decode_stats[k] - before[k] for k in before}
+    s, passes = st["beam_steps"], st["encoder_passes"]
+    check(st["nonfinite_logits"] == 0 and s > 0 and st["greedy_steps"] == 0,
+          f"{label}: decode stats {st}")
+    _segments_well_formed(label, segments)
+    _expect(label, counts, dict(
+        _tp_launches(s, beam=True, row_parallel=False),
+        encoder_attention_merged=L * passes, ln_quant=L * passes,
+        quant_only=L * passes, add_ln_quant=L * passes, gelu_quant=L * passes,
+        quant_matmul_act8=6 * L * passes))
+    legs = {label: dict(steps=s, ms_per_step=1e3 * wall / s, counts=counts)}
+    print(f"{label}: {len(segments)} segments, {s} beam steps, {passes} encoder "
+          f"passes, wall {wall:.2f} s = {1e3 * wall / s:.2f} ms per beam step "
+          f"(encoder included) ({card})")
+
+    enc = engine.encode_windows(audio[None])
+    prompt, pad = pad_prompts([build_prompt(engine.tokenizer, language="zh")],
+                              engine.ti.eot)
+    opts = DecodingOptions(**base)
+    label = "mesh engine beam 5 on its window (TP v1)"
+    out, logits, legs[label] = _decode_leg(label, lambda: engine.run_beam_decode(
+        enc, prompt, pad, None, opts), counters, card)
+    _expect(label, legs[label]["counts"],
+            _tp_launches(out["steps"], beam=True, row_parallel=False))
+    fused = fuse_qkv({"decoder": engine.params["decoder"]})
+    single, single_logits, _ = _decode_leg(
+        "single-card fused beam 5 on the mesh engine's window", lambda: beam_decode(
+            fused, engine.cfg, enc, prompt, pad, opts=opts, ti=engine.ti),
+        counters, card)
+    _hold_to_main(label, out, logits, dict(out=single, logits=single_logits))
+    del engine, fused
+    torch.cuda.empty_cache()
+    return legs
+
+
+def run_two_ranks(main, ti, controls, card: str) -> dict:
+    """Two gloo ranks on this card, mesh (1, 2), the seeded large-v3
+    weights: TP v2 and v1 beam 5 over the main-path leg's window, each
+    rank a process of this script (``--tp-rank``).  Both ranks' counts
+    must be exact at the shard shapes, and rank 0's worst and median step
+    gap to the main-path leg within CONTROL_MARGIN x the largest of the
+    ``controls``' (one-card decodes that only reorder sums)."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(enc=main["enc"], prompt=main["prompt"], pad=main["pad"], ti=ti,
+                        logits=torch.stack(main["logits"]),
+                        out={k: main["out"][k] for k in ("tokens", "lengths", "steps")}),
+                   os.path.join(tmp, "main.pt"))
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--tp-rank", str(r), tmp]) for r in range(TP_RANKS)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        check(codes == [0] * TP_RANKS, f"two-rank leg: rank exit codes {codes}")
+        legs = {}
+        for r in range(TP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json"), encoding="utf-8") as fh:
+                for label, leg in json.load(fh).items():
+                    _expect(f"{label} rank {r}", leg["counts"], _tp_launches(
+                        leg["steps"], beam=True, row_parallel=leg["row_parallel"]))
+                    if r == 0:
+                        legs[label] = leg
+    limit = {k: CONTROL_MARGIN * max(c[k] for c in controls.values())
+             for k in ("worst_gap", "median_gap")}
+    for label, leg in legs.items():
+        print(f"{label}: {leg['steps']} steps, {leg['ms_per_step']:.2f} ms per step; "
+              f"to the main path leg: first token difference (row, step) "
+              f"{leg['first_difference']}, step logits worst {leg['worst_gap']:.3e} "
+              f"(limit {limit['worst_gap']:.3e}), median {leg['median_gap']:.3e} "
+              f"(limit {limit['median_gap']:.3e}), argmax equal on "
+              f"{leg['argmax_equal_steps']} of {leg['compared_steps']} steps ({card})")
+        check(leg["compared_steps"] == leg["steps"]
+              and all(leg[k] <= limit[k] for k in limit),
+              f"{label}: further from the main path leg than the one-card controls")
+    return legs
+
+
+def tp_rank_main(rank: int, tmp: str) -> int:
+    """One rank of :func:`run_two_ranks`: builds the seeded large-v3 decoder
+    (the main engine's weights), keeps its shard, decodes v2 then v1 beam
+    5 and writes its legs to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from ttasr_torch import resolve_device
+    from ttasr_torch.models.whisper.decode import DecodingOptions
+    from ttasr_torch.models.whisper.load import load_whisper
+    from ttasr_torch.ops.quant import quantize_params
+    from ttasr_torch.parallel.distributed import initialize_distributed
+    from ttasr_torch.parallel.sharding import create_mesh
+    from ttasr_torch.parallel.tp import TPDecoder
+
+    resolve_device("cuda")
+    initialize_distributed(f"file://{tmp}/store", world_size=TP_RANKS, rank=rank,
+                           backend="gloo")
+    try:
+        mesh = create_mesh(1, TP_RANKS)
+        params, cfg = load_whisper("large-v3", dtype=torch.bfloat16, device="cuda")
+        q = quantize_params({"decoder": params["decoder"]})
+        del params
+        ref = torch.load(os.path.join(tmp, "main.pt"), map_location="cuda",
+                         weights_only=False)
+        main = dict(out=ref["out"], logits=list(ref["logits"]))
+        opts = DecodingOptions(beam_size=5, sample_len=BRANCH_STEPS, kv_int8=True,
+                               cross_kv_int8=True, cross_kv_int4=True, kv_int4=True)
+        counters = _int8_counters()
+        legs = {}
+        for label, rp in ((f"TP v2 {TP_RANKS} gloo ranks, one card, beam 5", True),
+                          (f"TP v1 {TP_RANKS} gloo ranks, one card, beam 5", False)):
+            tp = TPDecoder(q, cfg, mesh, row_parallel=rp)
+            out, logits, leg = _decode_leg(label, lambda: tp.beam(
+                ref["enc"], ref["prompt"], ref["pad"], opts=opts, ti=ref["ti"]),
+                counters, f"rank {rank}")
+            legs[label] = dict(leg, row_parallel=rp,
+                               first_difference=_first_difference(main["out"], out),
+                               **_gap_summary(main["logits"], logits))
+            del tp
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w", encoding="utf-8") as fh:
+            json.dump(legs, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces
@@ -1325,6 +1807,12 @@ KERNELS = [  # wrapper name, source, the TPU kernel it replaces
      "ttasr/ops/cross_attention_pallas.py:47"),
     ("gather_cache_rows", "ttasr_torch/csrc/beam_gather.cu",
      "ttasr/ops/beam_gather_pallas.py:23"),
+    ("matmul_int8_partial", "ttasr_torch/csrc/decoder_blocks.cu",
+     "ttasr/ops/decoder_blocks_pallas.py:292"),
+    ("ln_q_cross_int8", "ttasr_torch/csrc/decoder_blocks.cu",
+     "ttasr/ops/decoder_blocks_pallas.py:322"),
+    ("mlp_int8_fused", "ttasr_torch/csrc/decoder_mlp.cu",
+     "ttasr/ops/decoder_mlp_pallas.py:65"),
 ]
 # the branch leg whose run gives each new kernel's launches
 BRANCH_LAUNCHES = {
@@ -1332,6 +1820,8 @@ BRANCH_LAUNCHES = {
     "cross_attention_int8": "unfused int8 graph beam 5 (B13, 5-D cache)",
     "gather_cache_rows": "beam_indirect=False (B17, B10)",
 }
+# the tensor-parallel leg whose run gives B14-B16's launches
+TP_LEG = "TP v2 one rank beam 5 (B15, B16, B14)"
 
 
 def main() -> int:
@@ -1362,6 +1852,7 @@ def main() -> int:
     measured.update(check_decode_kernels(card))
     measured.update(check_encoder_kernels(card))
     measured.update(check_branch_kernels(card))
+    measured.update(check_tp_kernels(card))
     gemm = measured.pop("int8_gemm")
     bf16 = run_bf16_path(card)
     main_path = run_int8_path(card, act8=True)
@@ -1369,6 +1860,8 @@ def main() -> int:
     launches = dict(main_path["counts"], encoder_attention_merged=bf16["launches"])
     for name, leg in BRANCH_LAUNCHES.items():
         launches[name] = main_path["branches"][leg]["counts"][name]
+    for name in ("matmul_int8_partial", "ln_q_cross_int8", "mlp_int8_fused"):
+        launches[name] = main_path["tp"][TP_LEG]["counts"][name]
     print(f"B11 launches: bf16 path {bf16['launches']}, int8 main path "
           f"{main_path['counts']['encoder_attention_merged']}, encoder_act_int8=False "
           f"path {int8_bf16_encoder['counts']['encoder_attention_merged']}")
@@ -1392,6 +1885,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--tp-rank"]:  # a rank of run_two_ranks
+            sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)

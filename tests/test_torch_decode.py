@@ -189,10 +189,16 @@ def test_sampling_is_seeded_and_in_vocab(setup):
 
 
 def test_unported_options_raise(setup):
+    """The unfused-rules A/B path is not ported; tensor parallelism needs
+    its axis bound to a process group (``TPDecoder`` does that), so a
+    decode naming an unbound axis, or row-parallel without an axis, raises
+    instead of running unsharded (``tests/test_torch_tp_decode.py`` runs
+    it on two ranks)."""
     _, _, tp, tcfg, enc, _, tti, prompt, pad = setup
-    for flag, value in (("unfused_rules", True), ("tp_row_parallel", True),
-                        ("tp_axis", "model")):
+    for flag, value, error in (("unfused_rules", True, NotImplementedError),
+                               ("tp_row_parallel", True, ValueError),
+                               ("tp_axis", "model", RuntimeError)):
         opts = td.DecodingOptions(sample_len=4, **{flag: value})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error, match=flag):
             td.beam_decode(tp, tcfg, torch.from_numpy(enc), prompt, pad,
                            opts=opts, ti=tti)

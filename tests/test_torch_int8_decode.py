@@ -114,16 +114,20 @@ def test_int8_greedy_decode_matches_jax(setup, monkeypatch):
 
 
 def test_int8_decode_paths_off_the_slice_raise(setup):
-    """Only tensor parallelism and the unfused-rules A/B path are left
-    unported; the other branches run (tests/test_torch_decode_branches.py)."""
+    """Only the unfused-rules A/B path is left unported; the other branches
+    run (tests/test_torch_decode_branches.py), tensor parallelism with its
+    axis bound to a process group (tests/test_torch_tp_decode.py) and
+    raising without one."""
     s = setup
     args = (s["tp"], s["tcfg"], torch.from_numpy(s["enc"]), s["prompt"], s["pad"])
-    for kw, what in ((dict(tp_axis="model"), "tp_axis"),
-                     (dict(tp_row_parallel=True), "tp_row_parallel"),
-                     (dict(unfused_rules=True), "unfused_rules")):
+    for kw, what, error in ((dict(tp_axis="model"), "not bound", RuntimeError),
+                            (dict(tp_row_parallel=True), "tp_row_parallel",
+                             ValueError),
+                            (dict(unfused_rules=True), "unfused_rules",
+                             NotImplementedError)):
         opts = td.DecodingOptions(**{**dict(sample_len=4, **INT8), **kw})
         for fn in (td.beam_decode, td.greedy_decode):
-            with pytest.raises(NotImplementedError, match=what):
+            with pytest.raises(error, match=what):
                 fn(*args, opts=opts, ti=s["tti"])
 
 

@@ -1,5 +1,5 @@
 // Fused int8 decoder-block kernels around the attentions, for Hopper
-// (sm_90a): B1, B3 and B12 of the decode step.
+// (sm_90a): B1, B3, B12, B15 and B16 of the decode step.
 //
 // Replaces ttasr/ops/decoder_blocks_pallas.py:
 //   B1  qkv_int8_fused (:50)           out = LN1(x) @ W_qkv * s + b
@@ -8,9 +8,17 @@
 //   B3  attnout_ln_q_cross_int8 (:180) B12 with qc * dh^-0.5, then per head
 //        softmax(bf16(qc) . K^T * ks, slots >= s_real masked) * vs -> bf16,
 //        @ V, over the int8 or int4 cross-KV cache (cross_attention.cuh).
+//   B15 matmul_int8_partial (:292)     out = bf16(x) @ W * s, no bias: a
+//        tensor-parallel shard's partial sum of a row-split projection
+//   B16 ln_q_cross_int8 (:322)         B3 without its wo half: the cross
+//        query of the residual stream after the row-parallel wo sum, then
+//        the same cross-attention over the shard's heads
 // The decoder calls B1 once per token and layer (decode.py:410), and B3
 // (:567) or, when B3's condition fails -- a bf16 cross-KV, more than 8
-// beams per audio, an odd head count -- B12 (:579).
+// beams per audio, an odd head count -- B12 (:579).  Under tensor
+// parallelism (decode.py:494-547, row-parallel) B15 runs twice per layer,
+// for wo and wo_c, and B16 takes B3's place.  Under tensor parallelism the
+// cross width DC = 64 * local heads is narrower than the residual width D.
 //
 // What bounds them on this card: at R = beam rows <= 16 every weight byte
 // is used for R multiply-adds, and every cross-KV byte (int4: two slots)
@@ -27,7 +35,13 @@
 //     it that for free), then qc; B3 is the same two launches with the query
 //     pre-scale, then the cross-attention of cross_attention.cuh (shared
 //     with B13).  No atomics: the same input decodes to the same bits on
-//     every run.
+//     every run;
+//   * B15 is one launch of the skinny GEMM with the f32 -> bf16 cast
+//     prologue and a scale-only epilogue (1.6 MB of W at n = 1): the bias
+//     is not partial-summable, so the caller adds it once after the sum;
+//   * B16 is B3's second and third launches: the LayerNorm query GEMM with
+//     the 64^-0.5 pre-scale, then cross_attention.cuh over the local heads,
+//     so B3, B13 and B16 share one attention and cannot drift apart.
 //
 // Built by ttasr_torch/ops/_build.py (nvcc -gencode arch=compute_90a,
 // code=sm_90a) and called through ctypes; each entry point launches on the
@@ -83,21 +97,64 @@ extern "C" int ttasr_attnout_ln_q(const void* x, const void* attn, const void* w
                            DC, 1.f, static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// cross (B*K, DC) = per-head cross-attention of the pre-scaled queries qc
+// (B*K, DC) over the quantized cross-KV (B, S or S/2, DC).
+cudaError_t cross_of(const void* qc, const void* ck, const void* cks, const void* cv,
+                     const void* cvs, void* cross, int B, int K, int DC, int S, int s_real,
+                     int packed, cudaStream_t st) {
+  return ttasr::launch_cross_attention(
+      static_cast<const float*>(qc), static_cast<const uint8_t*>(ck),
+      static_cast<const float*>(cks), static_cast<const uint8_t*>(cv),
+      static_cast<const float*>(cvs), static_cast<float*>(cross), B, K, DC, S, s_real, packed,
+      st);
+}
+
+}  // namespace
+
 // B3: xo = x + attn @ Wo * s + bo; qc (scratch) = (LNc(xo) @ Wqc * s + b) / 8;
 // cross = per-head cross-attention of qc over the quantized cross-KV.
-// x/attn/xo/qc/cross (B, K, D) f32; S is the logical slot count.
+// x/attn/xo (B, K, D) f32, qc/cross (B, K, DC) f32; S is the logical slot
+// count.
 extern "C" int ttasr_attnout_cross_int8(
     const void* x, const void* attn, const void* wo, const void* wo_s, const void* bo,
     const void* lnc_s, const void* lnc_b, const void* wqc, const void* wqc_s, const void* bqc,
     const void* ck, const void* cks, const void* cv, const void* cvs, void* xo, void* qc,
-    void* cross, int B, int K, int D, int S, int s_real, int packed, void* stream) {
+    void* cross, int B, int K, int D, int DC, int S, int s_real, int packed, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % ttasr::kDh || K < 1 || K > ttasr::kMaxBeams) return (int)cudaErrorInvalidValue;
+  if (DC % ttasr::kDh || K < 1 || K > ttasr::kMaxBeams) return (int)cudaErrorInvalidValue;
   const cudaError_t err = attnout_ln_q(x, attn, wo, wo_s, bo, lnc_s, lnc_b, wqc, wqc_s, bqc, xo,
-                                       qc, B * K, D, D, 0.125f /* 64^-0.5 */, st);
+                                       qc, B * K, D, DC, 0.125f /* 64^-0.5 */, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)ttasr::launch_cross_attention(
-      static_cast<const float*>(qc), static_cast<const uint8_t*>(ck),
-      static_cast<const float*>(cks), static_cast<const uint8_t*>(cv),
-      static_cast<const float*>(cvs), static_cast<float*>(cross), B, K, D, S, s_real, packed, st);
+  return (int)cross_of(qc, ck, cks, cv, cvs, cross, B, K, DC, S, s_real, packed, st);
+}
+
+// B15: out (R, M) = bf16(x) @ W * s for x (R, DL) f32 and W (DL, M) int8.
+extern "C" int ttasr_matmul_int8_partial(const void* x, const void* w, const void* w_scale,
+                                         void* out, int R, int DL, int M, void* stream) {
+  if (M % kTileCols || R < 1) return (int)cudaErrorInvalidValue;
+  GemmArgs g{x, nullptr, nullptr, static_cast<const int8_t*>(w),
+             static_cast<const float*>(w_scale), nullptr, nullptr, out, R, DL, M, 1.f};
+  return (int)ttasr::launch_skinny_gemm<ttasr::kCast, ttasr::kScale>(
+      g, static_cast<cudaStream_t>(stream));
+}
+
+// B16: qc (scratch, B*K x DC) = (LNc(xo) @ Wqc * s + b) / 8; cross (B, K, DC)
+// = per-head cross-attention of qc over the shard's quantized cross-KV.
+// xo (B, K, D) f32 is the residual stream after the row-parallel wo sum.
+extern "C" int ttasr_ln_q_cross_int8(const void* xo, const void* lnc_s, const void* lnc_b,
+                                     const void* wqc, const void* wqc_s, const void* bqc,
+                                     const void* ck, const void* cks, const void* cv,
+                                     const void* cvs, void* qc, void* cross, int B, int K, int D,
+                                     int DC, int S, int s_real, int packed, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % kTileCols || DC % ttasr::kDh || K < 1 || K > ttasr::kMaxBeams)
+    return (int)cudaErrorInvalidValue;
+  GemmArgs g{xo, static_cast<const float*>(lnc_s), static_cast<const float*>(lnc_b),
+             static_cast<const int8_t*>(wqc), static_cast<const float*>(wqc_s),
+             static_cast<const float*>(bqc), nullptr, qc, B * K, D, DC, 0.125f /* 64^-0.5 */};
+  const cudaError_t err = ttasr::launch_skinny_gemm<ttasr::kLayerNorm, ttasr::kQScale>(g, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cross_of(qc, ck, cks, cv, cvs, cross, B, K, DC, S, s_real, packed, st);
 }

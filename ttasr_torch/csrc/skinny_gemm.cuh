@@ -1,5 +1,5 @@
 // Skinny int8-weight GEMM for the decode step, shared by decoder_blocks.cu
-// (B1, B3) and decoder_mlp.cu (B4).
+// (B1, B3, B12, B15, B16) and decoder_mlp.cu (B4, B14).
 //
 //   out[r, n] = epilogue( sum_k bf16(prologue(a))[r, k] * W[k, n] * s[n] )
 //
@@ -19,7 +19,8 @@
 //     the same bits on every run;
 //   * rows are processed 8 at a time (register accumulators 8 x 8).
 // The epilogue applies the column scale and, per kernel, the bias, the
-// residual, the query pre-scale or the GELU.  Every multiply and add of an
+// residual, the query pre-scale or the GELU -- or nothing more: the
+// tensor-parallel partial sums (B14, B15) leave the bias to the caller.  Every multiply and add of an
 // epilogue is an explicit _rn operation (no FMA contraction), in the order
 // of the TPU kernel's expression.
 
@@ -83,7 +84,8 @@ enum Epilogue {
   kResidual = 1,     // (x + v*s) + b
   kQScale = 2,       // (v*s + b) * qscale
   kGelu = 3,         // bf16(gelu(v*s + b))
-  kResidualBias = 4  // (x + b) + v*s
+  kResidualBias = 4,  // (x + b) + v*s
+  kScale = 5          // v*s (a partial sum: no bias, no residual)
 };
 
 struct GemmArgs {
@@ -92,7 +94,7 @@ struct GemmArgs {
   const float* ln_b;
   const int8_t* w;       // (K, N)
   const float* w_scale;  // (N,)
-  const float* bias;     // (N,)
+  const float* bias;     // (N,); unused by kScale
   const float* resid;    // (R, N) for the residual epilogues
   void* out;             // (R, N) f32, or bf16 for kGelu
   int R, K, N;
@@ -214,8 +216,10 @@ __global__ void __launch_bounds__(kGemmThreads) skinny_gemm_kernel(GemmArgs g) {
         } else if (E == kGelu) {
           static_cast<__nv_bfloat16*>(g.out)[o] =
               __float2bfloat16_rn(gelu_as(__fadd_rn(vs, g.bias[n])));
-        } else {
+        } else if (E == kResidualBias) {
           static_cast<float*>(g.out)[o] = __fadd_rn(__fadd_rn(g.resid[o], g.bias[n]), vs);
+        } else {
+          static_cast<float*>(g.out)[o] = vs;
         }
       }
     }

@@ -22,6 +22,16 @@ with plain quantize chains.  ``transcribe(..., beam_size=10)`` (more than
 8 beams) takes the fused path's B12 branch, and ``kv_cache_int8=True`` on
 a float engine the 5-D int8 self-KV of the unfused graph
 (:mod:`ttasr_torch.models.whisper.decode`).
+
+``mesh=`` (a :func:`ttasr_torch.parallel.sharding.create_mesh` mesh, one
+engine per rank) with ``compute_type="int8"`` quantizes without fusing
+q/k/v, as the reference does under a mesh: the encoder takes the unfused
+s8 x s8 branch (three GEMMs and B11), and the decodes go to a
+:class:`ttasr_torch.parallel.tp.TPDecoder` (heads split over the model axis,
+the batch over the data axis).  A mesh that ``tp_eligible`` refuses raises:
+the reference's GSPMD unfused graph is not ported.  Each rank runs the
+whole encoder on its own card, where the JAX engine shards the encoder's
+weights under GSPMD; the results are the same.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from ttasr_torch.ops.mel import (
     log_mel_spectrogram,
 )
 from ttasr_torch.ops.quant import fuse_qkv, kmajor_encoder_codes, quantize_params
+from ttasr_torch.parallel.tp import TPDecoder, tp_eligible
 from ttasr_torch.text.tokenizer import WhisperTokenizer, load_tokenizer
 
 TIME_PRECISION = 0.02
@@ -142,9 +153,10 @@ class WhisperEngine:
     """PyTorch Whisper inference engine with a faster-whisper-compatible
     API, on an explicit device (default ``"cuda"``; raises when absent).
 
-    The keyword arguments after ``device`` are the reference's: the int4
-    sub-modes of the int8 caches (default on), and the s8 x s8 encoder
-    switches (default on; they act only on quantized weights)."""
+    The keyword arguments after ``device`` are the reference's: the
+    tensor-parallel mesh, the int4 sub-modes of the int8 caches (default
+    on), and the s8 x s8 encoder switches (default on; they act only on
+    quantized weights)."""
 
     def __init__(self, model_path_or_name: str = "tiny", *,
                  compute_type: str = "float32",
@@ -152,6 +164,7 @@ class WhisperEngine:
                  params: Optional[Any] = None,
                  config: Optional[WhisperConfig] = None,
                  device="cuda",
+                 mesh: Optional[Any] = None,
                  cross_kv_int4: bool = True,
                  kv_int4: bool = True,
                  encoder_act_int8: bool = True,
@@ -161,6 +174,7 @@ class WhisperEngine:
         self.compute_type = compute_type
         self.device = resolve_device(device)
         self.model_size = model_path_or_name
+        self.mesh = mesh
         if params is not None and config is not None:
             self.params, self.cfg = params, config
         else:
@@ -171,9 +185,21 @@ class WhisperEngine:
         self.kv_cache_int8 = compute_type == "int8"
         self.cross_kv_int4 = cross_kv_int4 and self.kv_cache_int8
         self.kv_int4 = kv_int4 and self.kv_cache_int8
+        self._tp = None
         if compute_type == "int8":
-            self.params = kmajor_encoder_codes(
-                fuse_qkv(quantize_params(self.params)))
+            self.params = quantize_params(self.params)
+            if mesh is None:
+                self.params = fuse_qkv(self.params)
+            self.params = kmajor_encoder_codes(self.params)
+        if mesh is not None:
+            if not tp_eligible(self.params, self.cfg, mesh):
+                raise NotImplementedError(
+                    f"mesh {mesh.shape} with compute_type={compute_type!r}: the "
+                    f"fused tensor-parallel decode needs int8 weights, 64-wide "
+                    f"heads and an even head count per shard; the GSPMD graph "
+                    f"for other meshes is not ported to ttasr_torch yet "
+                    f"(ROADMAP A12)")
+            self._tp = TPDecoder(self.params, self.cfg, mesh)
         # s8 x s8 encoder: None = the encoder's auto rule (on for quantized
         # weights), False forces it off; likewise its fused quantize kernels
         self._act8 = None if encoder_act_int8 else False
@@ -221,16 +247,26 @@ class WhisperEngine:
 
     @torch.inference_mode()
     def run_beam_decode(self, enc_out, prompt, pad, rng, opts: DecodingOptions):
-        out = beam_decode(self.params, self.cfg, enc_out, prompt, pad, rng,
-                          opts=opts, ti=self.ti)
+        """A beam decode: through the tensor-parallel decoder under a mesh,
+        else the single-card program."""
+        if self._tp is not None:
+            out = self._tp.beam(enc_out, prompt, pad, rng, opts=opts, ti=self.ti)
+        else:
+            out = beam_decode(self.params, self.cfg, enc_out, prompt, pad, rng,
+                              opts=opts, ti=self.ti)
         self._record("beam", out)
         return out
 
     @torch.inference_mode()
     def run_greedy_decode(self, enc_out, prompt, pad, rng, temperature,
                           opts: DecodingOptions):
-        out = greedy_decode(self.params, self.cfg, enc_out, prompt, pad,
-                            rng, temperature, opts=opts, ti=self.ti)
+        """Greedy/sampled counterpart of :meth:`run_beam_decode`."""
+        if self._tp is not None:
+            out = self._tp.greedy(enc_out, prompt, pad, rng, temperature,
+                                  opts=opts, ti=self.ti)
+        else:
+            out = greedy_decode(self.params, self.cfg, enc_out, prompt, pad,
+                                rng, temperature, opts=opts, ti=self.ti)
         self._record("greedy", out)
         return out
 

@@ -28,7 +28,18 @@ the cross-attention runs outside the kernel.  Beam search permutes a
 ``gather_cache_rows`` after each top-k.  Without fused weights ``kv_int8``
 runs the unfused int8 graph (``scan_block``): a 5-D int8 self-KV and the
 plain quantized attention, with B13 ``cross_attention_int8`` over an int8
-cross-KV.  Tensor parallelism and the unfused-rules A/B path raise.
+cross-KV.
+
+Tensor parallelism (``opts.tp_axis``, bound to a process group by
+:class:`ttasr_torch.parallel.tp.TPDecoder`): a rank's decoder carries its
+local heads' columns, so the attentions and caches run on those heads.  v1
+all-gathers the merged attention and cross outputs before the replicated
+wo/wo_c/MLP (B3, or B12, and B4); v2 (``opts.tp_row_parallel``) runs B15
+``matmul_int8_partial`` for wo and wo_c, B16 ``ln_q_cross_int8`` (or B1 on
+the cross query and the cross-attention outside the kernel where B3's
+condition fails) and B14 ``mlp_int8_fused(partial=True)`` on row- and
+column-split weights, each partial sum all-reduced and its bias added once
+after the sum.  The unfused-rules A/B path raises.
 
 The host-side pieces (``DecodingOptions``, ``TokenizerInfo``,
 ``build_prompt``, ``pad_prompts``, ``compression_ratio`` and the
@@ -44,6 +55,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from ttasr_torch.models.whisper.config import WhisperConfig
 from ttasr_torch.models.whisper.model import (
@@ -60,6 +73,7 @@ from ttasr_torch.models.whisper.model import (
     _split_heads,
     _unembed,
     init_cache,
+    local_heads,
     quantize_kv,
 )
 from ttasr_torch.ops.beam_gather import gather_cache_rows
@@ -69,9 +83,11 @@ from ttasr_torch.ops.decoder_blocks import (
     MAX_BEAMS,
     attnout_ln_q_cross_int8,
     attnout_ln_q_fused,
+    ln_q_cross_int8,
+    matmul_int8_partial,
     qkv_int8_fused,
 )
-from ttasr_torch.ops.decoder_mlp import mlp_with_crossout_int8
+from ttasr_torch.ops.decoder_mlp import mlp_int8_fused, mlp_with_crossout_int8
 from ttasr_torch.ops.int4 import pack_int4_lanes, quantize_kv4, unpack_int4
 from ttasr_torch.ops.self_attention import (
     self_attn_step_indirect_int8,
@@ -87,9 +103,10 @@ SAMPLE_LEN = 224   # max new tokens per window (n_ctx // 2)
 
 @dataclasses.dataclass(frozen=True)
 class DecodingOptions:
-    """Decode configuration.  Same fields and defaults as the reference;
-    tensor parallelism and the unfused-rules A/B path raise in the decode
-    functions (:func:`_check_supported`)."""
+    """Decode configuration.  Same fields and defaults as the reference.
+    ``tp_axis`` names a mesh axis that must be bound to a process group
+    (:func:`ttasr_torch.parallel.sharding.bind_axes`, as ``TPDecoder``
+    does); the unfused-rules A/B path raises (:func:`_check_supported`)."""
 
     beam_size: int = 5
     temperature: float = 0.0  # 0 = deterministic; >0 enables sampling
@@ -156,17 +173,23 @@ def _use_flat_kv(params, cfg: WhisperConfig, opts: DecodingOptions) -> bool:
             and cfg.d_model // cfg.decoder_heads == 64)
 
 
+def _even_heads(params, cfg: WhisperConfig) -> bool:
+    """An even count of the heads the decoder's weights carry (the
+    shard's under tensor parallelism)."""
+    return local_heads(params["decoder"]["blocks"][0], cfg) % 2 == 0
+
+
 def _use_cross_int4(params, cfg: WhisperConfig, opts: DecodingOptions) -> bool:
     """int4 cross-KV: a sub-mode of ``cross_kv_int8`` on the flat path."""
     return (opts.cross_kv_int4 and opts.cross_kv_int8
-            and _use_flat_kv(params, cfg, opts) and cfg.decoder_heads % 2 == 0)
+            and _use_flat_kv(params, cfg, opts) and _even_heads(params, cfg))
 
 
 def _use_self_int4(params, cfg: WhisperConfig, opts: DecodingOptions) -> bool:
     """int4 lane-packed self-KV: a sub-mode of ``kv_int8`` on the flat
     path, with an even head count (the D/2 split lands on a head)."""
     return (opts.kv_int4 and opts.kv_int8
-            and _use_flat_kv(params, cfg, opts) and cfg.decoder_heads % 2 == 0)
+            and _use_flat_kv(params, cfg, opts) and _even_heads(params, cfg))
 
 
 def _f32_decoder_vectors(params):
@@ -181,16 +204,33 @@ def _f32_decoder_vectors(params):
 
 
 def _check_supported(opts: DecodingOptions) -> None:
-    """Raise for the options whose paths are not ported: tensor
-    parallelism and the unfused-rules A/B control."""
-    missing = [name for name in ("unfused_rules", "tp_row_parallel")
-               if getattr(opts, name)]
-    if opts.tp_axis is not None:
-        missing.append("tp_axis")
-    if missing:
+    """Raise for the option whose path is not ported: the unfused-rules A/B
+    control."""
+    if opts.unfused_rules:
         raise NotImplementedError(
-            f"DecodingOptions {missing} are not ported to ttasr_torch yet "
-            f"(ROADMAP A5, A12)")
+            "DecodingOptions unfused_rules is not ported to ttasr_torch yet "
+            "(ROADMAP A5)")
+
+
+def _tp_setup(params, cfg: WhisperConfig, opts: DecodingOptions):
+    """(process group of ``opts.tp_axis`` or None, row-parallel).  Raises
+    when the axis is not bound to a group (a decode that names an axis
+    never runs unsharded), for ``tp_row_parallel`` without an axis, and
+    for v2 off the flat fused path (the only step with its branch)."""
+    if opts.tp_axis is None:
+        if opts.tp_row_parallel:
+            raise ValueError("DecodingOptions tp_row_parallel needs tp_axis")
+        return None, False
+    from ttasr_torch.parallel.sharding import axis_group
+
+    try:
+        group = axis_group(opts.tp_axis)
+    except RuntimeError as exc:
+        raise RuntimeError(f"DecodingOptions tp_axis={opts.tp_axis!r}: {exc}") from None
+    if opts.tp_row_parallel and not _use_flat_kv(params, cfg, opts):
+        raise ValueError("tp_row_parallel runs the fused int8 step: it needs "
+                         "kv_int8, fused wqkv weights and 64-wide heads")
+    return group, opts.tp_row_parallel
 
 
 # ---------------------------------------------------------------------------
@@ -198,14 +238,50 @@ def _check_supported(opts: DecodingOptions) -> None:
 # ---------------------------------------------------------------------------
 
 def _qkv_proj(h, blk, cfg: WhisperConfig):
-    """Self-attention q/k/v, through the fused ``wqkv`` leaf when present."""
-    n = cfg.decoder_heads
+    """Self-attention q/k/v, through the fused ``wqkv`` leaf when present;
+    the head count comes from the weight's width (a tensor-parallel
+    shard's local heads)."""
+    n = local_heads(blk, cfg)
     if "wqkv" in blk:
         qkv = _proj(h, blk["wqkv"], blk["bqkv"])
         return tuple(_split_heads(t, n) for t in qkv.chunk(3, dim=-1))
     return (_split_heads(_proj(h, blk["wq"], blk["bq"]), n),
             _split_heads(_proj(h, blk["wk"]), n),
             _split_heads(_proj(h, blk["wv"], blk["bv"]), n))
+
+
+def _tp_gather(x, group):
+    """Concatenate the ranks' head blocks along the last axis, in rank
+    order (rank i holds heads [i * h_loc, (i + 1) * h_loc)); identity
+    without tensor parallelism."""
+    if group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
+
+
+def _psum(x, group):
+    """Sum of the ranks' partial sums ``x`` (a fresh f32 tensor, reduced
+    in place)."""
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _rp_proj(x_local, w, b, group):
+    """Row-parallel projection (TP v2): the local input slice times the
+    shard's row slice, summed over the ranks, the bias added once."""
+    out = _psum(_proj(x_local, w).float(), group)
+    return (out + b.float()).to(x_local.dtype)
+
+
+def _rp_mlp(xln, blk, group):
+    """Row-parallel MLP (TP v2): w1/b1 column-split (the local hidden
+    slice), w2 row-split; partial sums summed over the ranks, b2 added
+    once."""
+    h = F.gelu(_proj(xln, blk["w1"], blk["b1"]))
+    out = _psum(_proj(h, blk["w2"]).float(), group)
+    return (out + blk["b2"].float()).to(xln.dtype)
 
 
 def _cross_attn_quantized(qc, ck8, cks_t, cv8, cvs_t, s_real: int):
@@ -268,7 +344,8 @@ def _write_prefill_kv(cache: DecodeCache, i: int, k_new, v_new, t: int):
 
 
 def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
-             s_real: Optional[int] = None):
+             s_real: Optional[int] = None, tp_group=None,
+             tp_row_parallel: bool = False):
     """Teacher-forced pass over the left-padded prompt buffer.
 
     tokens: (B, W) long, real tokens at positions ``pad_len..W-1`` with
@@ -276,6 +353,9 @@ def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
     ``0..W-1`` of the self cache in place (quantized on the flat int8
     path).  ``s_real``: valid cross-attention slots of a quantized
     cross-KV (the encoder length; default ``cfg.max_source_positions``).
+    ``tp_group``: the tensor-parallel process group (attention on the local
+    heads; v1 all-gathers the merged outputs before the replicated
+    wo/wo_c/MLP, v2 with ``tp_row_parallel`` sums row-parallel partials).
     Returns (final-LN hidden states (B, W, d), cache).
     """
     if s_real is None:
@@ -293,17 +373,28 @@ def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
         q, k_new, v_new = _qkv_proj(h, blk, cfg)
         _write_prefill_kv(cache, i, k_new, v_new, t)
         attn = _attention(q, k_new, v_new, mask)  # its own exact K/V block
-        x = x + _proj(_merge_heads(attn), blk["wo"], blk["bo"])
+        if tp_row_parallel:
+            x = x + _rp_proj(_merge_heads(attn), blk["wo"], blk["bo"], tp_group)
+        else:
+            x = x + _proj(_tp_gather(_merge_heads(attn), tp_group),
+                          blk["wo"], blk["bo"])
         hc = _ln(x, blk["lnc_s"], blk["lnc_b"])
-        qc = _split_heads(_proj(hc, blk["wq_c"], blk["bq_c"]), cfg.decoder_heads)
+        qc = _proj(hc, blk["wq_c"], blk["bq_c"])
+        qc = _split_heads(qc, qc.shape[-1] // q.shape[-1])
         if cache.cross_quantized:
             cross = _cross_attn_quantized(qc, cache.cross_k[i], cache.cks[i],
                                           cache.cross_v[i], cache.cvs[i],
                                           s_real)
         else:
             cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
-        x = x + _proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"])
-        x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+        if tp_row_parallel:
+            x = x + _rp_proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"],
+                             tp_group)
+            x = x + _rp_mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk, tp_group)
+        else:
+            x = x + _proj(_tp_gather(_merge_heads(cross), tp_group),
+                          blk["wo_c"], blk["bo_c"])
+            x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
     return _ln(x, dec["ln_s"], dec["ln_b"]), cache
 
 
@@ -319,26 +410,49 @@ def _self_mask(max_len: int, slot: int, pad_len):
 
 
 def _step_fused(params, cfg: WhisperConfig, x, slot: int, pad_len,
-                cache: DecodeCache, anc, s_real: int):
+                cache: DecodeCache, anc, s_real: int, tp_group=None,
+                tp_row_parallel: bool = False):
     """The fused int8 step over the flat cache (the reference's
-    ``scan_block_fused`` without the TP branches): per layer B1 -> B2
-    (``anc`` given) or B10 -> B3, or, where B3's condition fails (a bf16
-    cross-KV, more than 8 beam rows per audio, an odd head count), B12 and
-    the cross-attention outside the kernel -> B4.  Each layer's new K/V
-    codes and scales are written at ``slot`` after the loop (the kernels
-    read only positions < slot)."""
+    ``scan_block_fused``): per layer B1 -> B2 (``anc`` given) or B10, then
+
+    - one card or TP v1: B3, or, where B3's condition fails (a bf16
+      cross-KV, more than 8 beam rows per audio, an odd head count), B12
+      and the cross-attention outside the kernel -> B4, the local-head
+      attention and cross outputs all-gathered over ``tp_group`` first;
+    - TP v2 (``tp_row_parallel``): B15 for wo, the sum over the ranks, then
+      B16, or where B3's condition fails B1 on LNc/wq_c and the
+      cross-attention outside the kernel; B15 for wo_c, the sum; B14
+      partial, the sum.  Each bias is added once after its sum, in the
+      reference's order ``(x + sum) + b``, in f32.
+
+    Head counts are the shard's (from the q/k/v width).  Each layer's new
+    K/V codes and scales are written at ``slot`` after the loop (the
+    kernels read only positions < slot)."""
     dec = params["decoder"]
-    bk = x.shape[0]
+    bk, d_model = x.shape[0], x.shape[-1]
     b_audio = cache.cross_k.shape[1]
     group = bk // b_audio
-    h, d = cfg.decoder_heads, cfg.d_model
-    fused_cross = (cache.cross_quantized and d == h * DH and h % 2 == 0
-                   and group <= MAX_BEAMS)
+    h = local_heads(dec["blocks"][0], cfg)
+    d = h * DH  # the local attention width (d_model on one card)
+    fused_cross = (cache.cross_quantized and cfg.d_model == cfg.decoder_heads * DH
+                   and h % 2 == 0 and group <= MAX_BEAMS)
     cache_len, d_store = cache.k.shape[2:]
     hp = cache.ks.shape[2]
     pad_g = pad_len.to(torch.int32).reshape(b_audio, group)  # once per step
     anc_g = None if anc is None else anc.reshape(b_audio, group, cache_len)
     new_rows = []
+
+    def cross_outside(i, blk, qc):
+        """The cross-attention of B1's/B12's queries (R, DC) f32 outside a
+        kernel, on the model-dtype queries: (R, DC) f32 merged."""
+        qc = _split_heads(qc[:, None, :].to(x.dtype), h)
+        if cache.cross_quantized:
+            cross = _cross_attn_quantized(qc, cache.cross_k[i], cache.cks[i],
+                                          cache.cross_v[i], cache.cvs[i], s_real)
+        else:
+            cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
+        return _merge_heads(cross)[:, 0].float().contiguous()
+
     for i, blk in enumerate(dec["blocks"]):
         x2 = x[:, 0].float()
         qkv = qkv_int8_fused(x2, blk["ln1_s"], blk["ln1_b"],
@@ -355,34 +469,55 @@ def _step_fused(params, cfg: WhisperConfig, x, slot: int, pad_len,
             attn, *rows = self_attn_step_int8(
                 *caches, pad_g, slot, n_heads=h, int4=cache.self_int4)
         new_rows.append(rows)
-        if fused_cross:
-            xo, cross = attnout_ln_q_cross_int8(
-                x2.reshape(b_audio, group, d), attn.reshape(b_audio, group, d),
-                blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
-                blk["lnc_s"], blk["lnc_b"],
-                blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"],
-                cache.cross_k[i], cache.cks[i], cache.cross_v[i], cache.cvs[i],
-                s_real)
-        else:
-            xo, qc = attnout_ln_q_fused(
-                x2, attn.reshape(bk, d).contiguous(),
-                blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
-                blk["lnc_s"], blk["lnc_b"],
-                blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"])
-            qc = _split_heads(qc[:, None, :].to(x.dtype), h)  # the model dtype
-            if cache.cross_quantized:
-                cross = _cross_attn_quantized(qc, cache.cross_k[i], cache.cks[i],
-                                              cache.cross_v[i], cache.cvs[i],
-                                              s_real)
+        attn = attn.reshape(bk, d)
+        if tp_row_parallel:
+            xo = (x2 + _psum(matmul_int8_partial(attn, blk["wo"]["q"],
+                                                 blk["wo"]["s"]), tp_group)
+                  + blk["bo"].float())
+            if fused_cross:
+                cross = ln_q_cross_int8(
+                    xo.reshape(b_audio, group, d_model),
+                    blk["lnc_s"], blk["lnc_b"],
+                    blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"],
+                    cache.cross_k[i], cache.cks[i], cache.cross_v[i],
+                    cache.cvs[i], s_real).reshape(bk, d)
             else:
-                cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
-            cross = _merge_heads(cross).float().contiguous()
-        x_new = mlp_with_crossout_int8(
-            xo.reshape(bk, d), cross.reshape(bk, d),
-            blk["wo_c"]["q"], blk["wo_c"]["s"], blk["bo_c"],
-            blk["ln2_s"], blk["ln2_b"],
-            blk["w1"]["q"], blk["w1"]["s"], blk["b1"],
-            blk["w2"]["q"], blk["w2"]["s"], blk["b2"])
+                cross = cross_outside(i, blk, qkv_int8_fused(
+                    xo, blk["lnc_s"], blk["lnc_b"],
+                    blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"]))
+            x_mid = (xo + _psum(matmul_int8_partial(cross, blk["wo_c"]["q"],
+                                                    blk["wo_c"]["s"]), tp_group)
+                     + blk["bo_c"].float())
+            x_new = (x_mid + _psum(mlp_int8_fused(
+                x_mid, blk["ln2_s"], blk["ln2_b"],
+                blk["w1"]["q"], blk["w1"]["s"], blk["b1"],
+                blk["w2"]["q"], blk["w2"]["s"], blk["b2"], partial=True), tp_group)
+                     + blk["b2"].float())
+        else:
+            attn = _tp_gather(attn, tp_group)
+            if fused_cross:
+                xo, cross = attnout_ln_q_cross_int8(
+                    x2.reshape(b_audio, group, d_model),
+                    attn.reshape(b_audio, group, d_model),
+                    blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
+                    blk["lnc_s"], blk["lnc_b"],
+                    blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"],
+                    cache.cross_k[i], cache.cks[i], cache.cross_v[i],
+                    cache.cvs[i], s_real)
+                cross = _tp_gather(cross.reshape(bk, d), tp_group)
+            else:
+                xo, qc = attnout_ln_q_fused(
+                    x2, attn,
+                    blk["wo"]["q"], blk["wo"]["s"], blk["bo"],
+                    blk["lnc_s"], blk["lnc_b"],
+                    blk["wq_c"]["q"], blk["wq_c"]["s"], blk["bq_c"])
+                cross = _tp_gather(cross_outside(i, blk, qc), tp_group)
+            x_new = mlp_with_crossout_int8(
+                xo.reshape(bk, d_model), cross,
+                blk["wo_c"]["q"], blk["wo_c"]["s"], blk["bo_c"],
+                blk["ln2_s"], blk["ln2_b"],
+                blk["w1"]["q"], blk["w1"]["s"], blk["b1"],
+                blk["w2"]["q"], blk["w2"]["s"], blk["b2"])
         x = x_new[:, None, :].to(x.dtype)
     k_rows, ks_rows, v_rows, vs_rows = (torch.stack(t) for t in zip(*new_rows))
     cache.k[:, :, slot] = k_rows.reshape(-1, bk, d_store)
@@ -394,13 +529,16 @@ def _step_fused(params, cfg: WhisperConfig, x, slot: int, pad_len,
 
 
 def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
-          cache: DecodeCache, anc=None, s_real: Optional[int] = None):
+          cache: DecodeCache, anc=None, s_real: Optional[int] = None,
+          tp_group=None, tp_row_parallel: bool = False):
     """Single-token decode at cache slot ``slot``; writes the slot in place.
 
     token: (B, 1) long.  pad_len: (B,) long — pad slots stay masked.
     anc: optional (rows, len) ancestry map (beam search on the flat int8
     path): the physical row, within the audio's beam group, that holds
-    each row's entry at each cache position.
+    each row's entry at each cache position.  ``tp_group`` and
+    ``tp_row_parallel``: tensor parallelism, as :func:`_prefill` (v2 runs
+    only on the flat fused path, :func:`_tp_setup`).
     Returns (logits (B, V) f32, cache).
     """
     if s_real is None:
@@ -410,7 +548,8 @@ def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
     x = (_embed_lookup(dec, token)
          + dec["pos"][pos][:, None, :]).to(_model_dtype(dec))
     if cache.flat:
-        return _step_fused(params, cfg, x, slot, pad_len, cache, anc, s_real)
+        return _step_fused(params, cfg, x, slot, pad_len, cache, anc, s_real,
+                           tp_group, tp_row_parallel)
     mask = _self_mask(cache.k.shape[2], slot, pad_len)
     for i, blk in enumerate(dec["blocks"]):
         h = _ln(x, blk["ln1_s"], blk["ln1_b"])
@@ -423,16 +562,19 @@ def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
             cache.k[i, :, slot] = k_new[:, 0]
             cache.v[i, :, slot] = v_new[:, 0]
             attn = _attention(q, cache.k[i], cache.v[i], mask)
-        x = x + _proj(_merge_heads(attn), blk["wo"], blk["bo"])
+        x = x + _proj(_tp_gather(_merge_heads(attn), tp_group),
+                      blk["wo"], blk["bo"])
         hc = _ln(x, blk["lnc_s"], blk["lnc_b"])
-        qc = _split_heads(_proj(hc, blk["wq_c"], blk["bq_c"]), cfg.decoder_heads)
+        qc = _proj(hc, blk["wq_c"], blk["bq_c"])
+        qc = _split_heads(qc, qc.shape[-1] // q.shape[-1])
         if cache.cross_quantized:
             cross = _cross_attn_quantized(qc, cache.cross_k[i], cache.cks[i],
                                           cache.cross_v[i], cache.cvs[i],
                                           s_real)
         else:
             cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
-        x = x + _proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"])
+        x = x + _proj(_tp_gather(_merge_heads(cross), tp_group),
+                      blk["wo_c"], blk["bo_c"])
         x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
     return _unembed(x[:, 0], dec), cache
@@ -622,6 +764,7 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     ``logits_finite`` (every step's logits were finite).
     """
     _check_supported(opts)
+    tp = _tp_setup(params, cfg, opts)
     if _use_flat_kv(params, cfg, opts):
         params = _f32_decoder_vectors(params)
     dev = enc_out.device
@@ -640,7 +783,7 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     cache = init_cache(params, cfg, enc_out, max_len=buckets[0],
                        **_cache_flags(params, cfg, opts))
     hidden, cache = _prefill(params, cfg, prompt, pad_len, cache,
-                             s_real=s_real)
+                             s_real, *tp)
     no_speech_prob = _no_speech_prob(params, hidden, prompt, ti)
 
     static_mask = torch.from_numpy(_static_suppress_mask(ti)).to(dev)
@@ -685,7 +828,7 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
             finished = finished | newly_finished
             logits, cache = _step(params, cfg, write_tok[:, None],
                                   max_prompt + step, pad_len, cache,
-                                  s_real=s_real)
+                                  None, s_real, *tp)
             finite = finite & torch.isfinite(logits).all()
             step += 1
     return {
@@ -718,6 +861,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     """
     k = opts.beam_size
     _check_supported(opts)
+    tp = _tp_setup(params, cfg, opts)
     if _use_flat_kv(params, cfg, opts):
         params = _f32_decoder_vectors(params)
     dev = enc_out.device
@@ -734,7 +878,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     cache = init_cache(params, cfg, enc_out, max_len=buckets[0],
                        **_cache_flags(params, cfg, opts))
     hidden_b, cache = _prefill(params, cfg, prompt, pad_len, cache,
-                               s_real=s_real)
+                               s_real, *tp)
     cache = _tile_cache_rows(cache, k)
     # with beam_indirect the flat int8 caches never reorder: a (rows, len)
     # map of each row's source row within its beam group is permuted
@@ -838,7 +982,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
             cum_logprob = sel_score.reshape(-1)
             logits, cache = _step(params, cfg, new_tok[:, None],
                                   max_prompt + step, pad_rep, cache, anc,
-                                  s_real=s_real)
+                                  s_real, *tp)
             finite = finite & torch.isfinite(logits).all()
             step += 1
 

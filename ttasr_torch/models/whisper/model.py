@@ -474,6 +474,21 @@ def _quantized_cross_kv(enc_out, blk, h: int, int4: bool):
     return out
 
 
+def _width(w) -> int:
+    """Output width of a weight leaf (float or quantized)."""
+    return (w["q"] if is_quantized(w) else w).shape[-1]
+
+
+def local_heads(blk: dict, cfg: WhisperConfig) -> int:
+    """Self-attention heads of a decoder layer, from its q projection's
+    width: ``cfg.decoder_heads`` on one card, the shard's heads under
+    tensor parallelism."""
+    dh = cfg.d_model // cfg.decoder_heads
+    if "wqkv" in blk:
+        return _width(blk["wqkv"]) // 3 // dh
+    return _width(blk["wq"]) // dh
+
+
 def init_cache(params: Params, cfg: WhisperConfig, enc_out, max_len: int,
                beam_expand: int = 1, kv_int8: bool = False,
                cross_kv_int8: bool = False, cross_kv_int4: bool = False,
@@ -485,21 +500,28 @@ def init_cache(params: Params, cfg: WhisperConfig, enc_out, max_len: int,
     ``kv_int8`` quantizes the self cache: in the flat layout of the fused
     kernels with ``flat_kv`` (``kv_int4`` lane-packs it when the head count
     is even), else in the 5-D layout of the unfused int8 graph.
+
+    The head counts come from the projection widths, as the reference's
+    do: a tensor-parallel shard (:mod:`ttasr_torch.parallel.tp`) carries
+    only its local heads' q/k/v and cross-K/V columns, so its caches hold
+    those heads (``cfg.decoder_heads`` on one card).
     """
     dec = params["decoder"]
     b = enc_out.shape[0]
-    h = cfg.decoder_heads
-    dh = cfg.d_model // h
+    dh = cfg.d_model // cfg.decoder_heads
+    blk0 = dec["blocks"][0]
+    h = local_heads(blk0, cfg)
+    h_cross = _width(blk0["wk_c"]) // dh
     dev = enc_out.device
     if cross_kv_int8 or cross_kv_int4:
-        per_layer = [_quantized_cross_kv(enc_out, blk, h, cross_kv_int4)
+        per_layer = [_quantized_cross_kv(enc_out, blk, h_cross, cross_kv_int4)
                      for blk in dec["blocks"]]
         ck, cks, cv, cvs = (torch.stack(t) for t in zip(*per_layer))
     else:
-        ck = torch.stack([_split_heads(_proj(enc_out, blk["wk_c"]), h)
+        ck = torch.stack([_split_heads(_proj(enc_out, blk["wk_c"]), h_cross)
                           for blk in dec["blocks"]])
-        cv = torch.stack([_split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), h)
-                          for blk in dec["blocks"]])
+        cv = torch.stack([_split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]),
+                                       h_cross) for blk in dec["blocks"]])
         cks = cvs = None
     rows = b * beam_expand
     shape = (cfg.decoder_layers, rows, max_len, h, dh)
@@ -585,8 +607,8 @@ def decode_step(params: Params, cfg: WhisperConfig, tokens, pos: int,
     q_ids = pos + torch.arange(t_new, device=x.device)[:, None]
     k_ids = torch.arange(max_len, device=x.device)[None, :]
     mask = (k_ids <= q_ids)[None, None]  # (1, 1, T_new, max_len)
-    h_n = cfg.decoder_heads
     for i, blk in enumerate(dec["blocks"]):
+        h_n = local_heads(blk, cfg)
         h = _ln(x, blk["ln1_s"], blk["ln1_b"])
         q = _split_heads(_proj(h, blk["wq"], blk["bq"]), h_n)
         cache.k[i, :, pos: pos + t_new] = _split_heads(_proj(h, blk["wk"]), h_n)

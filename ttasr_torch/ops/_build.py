@@ -61,8 +61,16 @@ ARGTYPES = {
     # sc_row_bytes; stream
     "ttasr_gather_cache_rows": [_P] * 9 + [_I] * 4 + [_P],
     # x, attn, wo, wo_s, bo, lnc_s, lnc_b, wqc, wqc_s, bqc, ck, cks, cv, cvs,
-    # xo, qc (scratch), cross; B, K, D, S, s_real, packed; stream
-    "ttasr_attnout_cross_int8": [_P] * 17 + [_I] * 6 + [_P],
+    # xo, qc (scratch), cross; B, K, D, DC, S, s_real, packed; stream
+    "ttasr_attnout_cross_int8": [_P] * 17 + [_I] * 7 + [_P],
+    # x, w, w_scale, out; R, DL, M; stream
+    "ttasr_matmul_int8_partial": [_P] * 4 + [_I] * 3 + [_P],
+    # xo, lnc_s, lnc_b, wqc, wqc_s, bqc, ck, cks, cv, cvs, qc (scratch),
+    # cross; B, K, D, DC, S, s_real, packed; stream
+    "ttasr_ln_q_cross_int8": [_P] * 12 + [_I] * 7 + [_P],
+    # x, ln_s, ln_b, w1, w1_s, b1, w2, w2_s, b2, h (scratch), out; R, D, F,
+    # partial; stream
+    "ttasr_mlp_int8": [_P] * 11 + [_I] * 4 + [_P],
     # x, cross, woc, woc_s, boc, ln_s, ln_b, w1, w1_s, b1, w2, w2_s, b2,
     # x_mid (scratch), h (scratch), out; R, D, F; stream
     "ttasr_mlp_crossout_int8": [_P] * 16 + [_I] * 3 + [_P],

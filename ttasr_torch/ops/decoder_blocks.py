@@ -10,7 +10,17 @@ Ports of ``ttasr/ops/decoder_blocks_pallas.py``:
 - B3 :func:`attnout_ln_q_cross_int8` = ``attnout_ln_q_cross_int8``: B12
   with the pre-scaled query, then the per-head cross-attention over the
   int8 or int4 cross-KV cache (:func:`cross_attend_ref`, shared with B13
-  in :mod:`ttasr_torch.ops.cross_attention`).
+  in :mod:`ttasr_torch.ops.cross_attention`);
+- B15 :func:`matmul_int8_partial` = ``matmul_int8_partial``: bf16(x) @ W *
+  s with no bias, a tensor-parallel shard's partial sum of the row-split
+  wo or wo_c;
+- B16 :func:`ln_q_cross_int8` = ``ln_q_cross_int8``: B3 without its wo
+  half, the cross query and cross-attention of a row-parallel shard.
+
+Under tensor parallelism a shard carries its local heads' columns of the
+cross query and cross-KV, so the cross width DC = 64 * local heads is
+narrower than the residual width D (B3, B12 and B16 take DC from the
+weight).
 
 Each wrapper runs its plain PyTorch version (``*_ref``) for CPU tensors and
 launches the CUDA kernel (``ttasr_torch/csrc/decoder_blocks.cu``) for CUDA
@@ -206,18 +216,45 @@ def attnout_ln_q_cross_int8_ref(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
         qc  = (LNc(x') @ Wq_c * s_qc + b_qc) * dh**-0.5
         out = softmax(bf16(qc) K^T * ks, slots >= s_real masked) * vs @ V
 
-    x, attn: (B, K, D) f32.  ck/cv: (B, S, D) int8 or (B, S/2, D) uint8
-    (int4 packed along S); cks/cvs: (B, H, S) f32.  Returns (x' (B, K, D)
-    f32, cross (B, K, D) f32 merged-head).
+    x, attn: (B, K, D) f32.  wqc_q: (D, DC) int8, DC = 64 * H.  ck/cv:
+    (B, S, DC) int8 or (B, S/2, DC) uint8 (int4 packed along S); cks/cvs:
+    (B, H, S) f32.  Returns (x' (B, K, D) f32, cross (B, K, DC) f32
+    merged-head).
     """
     b, k, d = x.shape
-    h = cks.shape[1]
     xo, qc = attnout_ln_q_fused_ref(x.reshape(b * k, d), attn.reshape(b * k, d),
                                     wo_q, wo_s, bo, lnc_s, lnc_b, wqc_q, wqc_s,
                                     bqc)
-    out = cross_attend_ref((qc * DH ** -0.5).reshape(b, k, h, DH),
-                           ck, cks, cv, cvs, s_real)
-    return xo.reshape(b, k, d), out.reshape(b, k, d)
+    return xo.reshape(b, k, d), _cross_of(qc * DH ** -0.5, b, k, ck, cks, cv,
+                                          cvs, s_real)
+
+
+def _cross_of(qc, b, k, ck, cks, cv, cvs, s_real: int):
+    """(B*K, DC) pre-scaled queries -> (B, K, DC) cross-attention output."""
+    h = cks.shape[1]
+    out = cross_attend_ref(qc.reshape(b, k, h, DH), ck, cks, cv, cvs, s_real)
+    return out.reshape(b, k, h * DH)
+
+
+def _check_cross(b, k, dc, ck, cks, cv, s_real):
+    """The shapes B3 and B16 take: K <= 8 rows per audio, DC = 64 * H,
+    and a cross-KV cache that matches its scales; returns (S, packed)."""
+    h = cks.shape[1]
+    packed = ck.dtype == torch.uint8
+    s = cks.shape[2]
+    if not 1 <= k <= MAX_BEAMS or dc != h * DH:
+        raise ValueError(f"K={k} rows per audio (1..{MAX_BEAMS}) and DC={dc} = "
+                         f"64 * H={h} expected")
+    want = (torch.uint8, s // 2) if packed else (torch.int8, s)
+    for name, t in (("ck", ck), ("cv", cv)):
+        if (t.dtype, t.shape[1]) != want or t.shape != (b, want[1], dc):
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} does not "
+                             f"match scales {tuple(cks.shape)}")
+    if packed and s % 2:
+        raise ValueError("packed cross-KV needs an even slot count")
+    if not 1 <= s_real <= s:
+        raise ValueError(f"s_real={s_real} outside [1, S={s}]")
+    return s, packed
 
 
 def attnout_ln_q_cross_int8(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
@@ -229,40 +266,119 @@ def attnout_ln_q_cross_int8(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
             ck, cks, cv, cvs, s_real)
     b, k, d = x.shape
     h = cks.shape[1]
-    packed = ck.dtype == torch.uint8
-    s = cks.shape[2]
+    dc = wqc_q.shape[-1]
     if (x.dtype != torch.float32 or attn.shape != x.shape
             or attn.dtype != torch.float32):
         raise TypeError("x and attn must be f32 (B, K, D)")
-    if not 1 <= k <= MAX_BEAMS or d != h * DH:
-        raise ValueError(f"K={k} rows per audio (1..{MAX_BEAMS}) and D={d} = "
-                         f"64 * H={h} expected")
-    want = (torch.uint8, s // 2) if packed else (torch.int8, s)
-    for name, t in (("ck", ck), ("cv", cv)):
-        if (t.dtype, t.shape[1]) != want or t.shape != (b, want[1], d):
-            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} does not "
-                             f"match scales {tuple(cks.shape)}")
-    if packed and s % 2:
-        raise ValueError("packed cross-KV needs an even slot count")
-    if not 1 <= s_real <= s:
-        raise ValueError(f"s_real={s_real} outside [1, S={s}]")
-    if wo_q.shape != (d, d) or wqc_q.shape != (d, d) \
+    s, packed = _check_cross(b, k, dc, ck, cks, cv, s_real)
+    if wo_q.shape != (d, d) or wqc_q.shape != (d, dc) \
             or {wo_q.dtype, wqc_q.dtype} != {torch.int8}:
-        raise TypeError("wo and wq_c must be int8 (D, D)")
+        raise TypeError("wo must be int8 (D, D) and wq_c int8 (D, DC)")
     vec = dict(wo_s=(wo_s, d), bo=(bo, d), lnc_s=(lnc_s, d), lnc_b=(lnc_b, d),
-               wqc_s=(wqc_s, d), bqc=(bqc, d), cks=(cks, b * h * s),
+               wqc_s=(wqc_s, dc), bqc=(bqc, dc), cks=(cks, b * h * s),
                cvs=(cvs, b * h * s))
     dev = _check_cuda(vec, x=x, attn=attn, wo_q=wo_q, wqc_q=wqc_q, ck=ck, cv=cv)
     xo = torch.empty((b, k, d), dtype=torch.float32, device=dev)
-    qc = torch.empty((b, k, d), dtype=torch.float32, device=dev)
-    cross = torch.empty((b, k, d), dtype=torch.float32, device=dev)
+    qc = torch.empty((b, k, dc), dtype=torch.float32, device=dev)
+    cross = torch.empty((b, k, dc), dtype=torch.float32, device=dev)
     from ttasr_torch.ops._build import launch
 
     launch("ttasr_attnout_cross_int8", dev, x, attn, wo_q, wo_s, bo, lnc_s,
            lnc_b, wqc_q, wqc_s, bqc, ck, cks, cv, cvs, xo, qc, cross,
-           b, k, d, s, int(s_real), int(packed))
+           b, k, d, dc, s, int(s_real), int(packed))
     attnout_ln_q_cross_int8.launches += 1
     return xo, cross
 
 
 attnout_ln_q_cross_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B15: the partial sum of a row-split projection (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+def matmul_int8_partial_ref(x, wq, ws):
+    """x: (R, DL) f32, a shard's slice of the input; wq: (DL, M) int8, the
+    shard's row slice of the weight; ws: (1, M) f32, the full column scales
+    (the scale is linear in the partial sum, so each shard applies it).
+    Returns bf16(x) @ W * s as (R, M) f32, with no bias: the shards sum the
+    results and the caller adds the bias once."""
+    return _wmul(_bf16(x.float()), wq, ws)
+
+
+def matmul_int8_partial(x, wq, ws):
+    """B15; see :func:`matmul_int8_partial_ref` for the contract."""
+    if not _dispatch(x):
+        return matmul_int8_partial_ref(x, wq, ws)
+    r, dl = x.shape
+    m = wq.shape[1]
+    if x.dtype != torch.float32 or wq.dtype != torch.int8 or wq.shape[0] != dl:
+        raise TypeError(f"matmul_int8_partial takes f32 x (R, DL) and int8 W "
+                        f"(DL, M): {x.dtype} {tuple(x.shape)}, {wq.dtype} "
+                        f"{tuple(wq.shape)}")
+    if m % 32:
+        raise ValueError(f"M={m} must be a multiple of 32")
+    dev = _check_cuda(dict(ws=(ws, m)), x=x, wq=wq)
+    out = torch.empty((r, m), dtype=torch.float32, device=dev)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_matmul_int8_partial", dev, x, wq, ws, out, r, dl, m)
+    matmul_int8_partial.launches += 1
+    return out
+
+
+matmul_int8_partial.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B16: LNc + the shard's cross query + int8/int4 cross-attention
+# ---------------------------------------------------------------------------
+
+def ln_q_cross_int8_ref(xo, lnc_s, lnc_b, wqc_q, wqc_s, bqc, ck, cks, cv, cvs,
+                        s_real: int):
+    """Per audio b (beam rows grouped, K <= 8):
+
+        qc  = (LNc(xo) @ Wq_c * s_qc + b_qc) * dh**-0.5
+        out = softmax(bf16(qc) K^T * ks, slots >= s_real masked) * vs @ V
+
+    xo: (B, K, D) f32, the residual stream after the row-parallel wo sum
+    (residual and bias added).  wqc_q: (D, DC) int8 with (1, DC) f32
+    scales and (DC,) bias, the shard's column slice (DC = 64 * H local
+    heads); ck/cv/cks/cvs: the shard's cross-KV in B3's formats.  Returns
+    cross (B, K, DC) f32 merged-head."""
+    b, k, d = xo.shape
+    ln = _bf16(_ln_f32(xo.reshape(b * k, d).float(), lnc_s, lnc_b))
+    qc = (_wmul(ln, wqc_q, wqc_s) + bqc.float()) * DH ** -0.5
+    return _cross_of(qc, b, k, ck, cks, cv, cvs, s_real)
+
+
+def ln_q_cross_int8(xo, lnc_s, lnc_b, wqc_q, wqc_s, bqc, ck, cks, cv, cvs,
+                    s_real: int):
+    """B16; see :func:`ln_q_cross_int8_ref` for the contract."""
+    if not _dispatch(xo):
+        return ln_q_cross_int8_ref(xo, lnc_s, lnc_b, wqc_q, wqc_s, bqc,
+                                   ck, cks, cv, cvs, s_real)
+    b, k, d = xo.shape
+    h = cks.shape[1]
+    dc = wqc_q.shape[-1]
+    if xo.dtype != torch.float32:
+        raise TypeError("xo must be f32 (B, K, D)")
+    s, packed = _check_cross(b, k, dc, ck, cks, cv, s_real)
+    if wqc_q.shape != (d, dc) or wqc_q.dtype != torch.int8 or d % 32:
+        raise TypeError(f"wq_c must be int8 (D, DC) with D a multiple of 32: "
+                        f"{wqc_q.dtype} {tuple(wqc_q.shape)}, D={d}")
+    vec = dict(lnc_s=(lnc_s, d), lnc_b=(lnc_b, d), wqc_s=(wqc_s, dc),
+               bqc=(bqc, dc), cks=(cks, b * h * s), cvs=(cvs, b * h * s))
+    dev = _check_cuda(vec, xo=xo, wqc_q=wqc_q, ck=ck, cv=cv)
+    qc = torch.empty((b, k, dc), dtype=torch.float32, device=dev)
+    cross = torch.empty((b, k, dc), dtype=torch.float32, device=dev)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_ln_q_cross_int8", dev, xo, lnc_s, lnc_b, wqc_q, wqc_s, bqc,
+           ck, cks, cv, cvs, qc, cross, b, k, d, dc, s, int(s_real),
+           int(packed))
+    ln_q_cross_int8.launches += 1
+    return cross
+
+
+ln_q_cross_int8.launches = 0

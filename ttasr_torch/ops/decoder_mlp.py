@@ -1,10 +1,17 @@
-"""Fused int8 decoder MLP with the cross-attention out-projection: the
-Hopper kernel and its plain version.
+"""Fused int8 decoder MLPs: the Hopper kernels and their plain versions.
 
-Port of ``ttasr/ops/decoder_mlp_pallas.py::mlp_with_crossout_int8`` (B4):
+Ports of ``ttasr/ops/decoder_mlp_pallas.py``:
+
+- B4 ``mlp_with_crossout_int8``, the MLP with the cross-attention
+  out-projection folded in::
 
     x' = x + (cross @ Wo_c) * s_oc + b_oc
     y  = x' + GELU(LN2(x') @ W1 * s1 + b1) @ W2 * s2 + b2
+
+- B14 ``mlp_int8_fused``, the MLP alone; with ``partial=True`` it is a
+  row-parallel tensor-parallel shard's partial sum (W1/b1 the shard's
+  column slice, W2 its row slice): ``GELU(LN2(x) @ W1 * s1 + b1) @ W2 * s2``
+  with no residual and no b2, which the caller adds once after the sum.
 
 GELU uses the Abramowitz-Stegun 7.1.26 erf polynomial the TPU kernel uses
 (``decoder_mlp_pallas.py:28-48``, max erf error 1.5e-7), in both the CUDA
@@ -13,10 +20,10 @@ kernel; the JAX reference paths outside the kernel use the exact erf.
 The LN2 output and the GELU output round to bf16 before their weight
 products, as on the TPU.
 
-:func:`mlp_with_crossout_int8` runs the plain version for CPU tensors and
-launches ``ttasr_torch/csrc/decoder_mlp.cu`` for CUDA tensors, counting
-launches in ``mlp_with_crossout_int8.launches``; on the card the vectors
-must be f32, as for the kernels of :mod:`ttasr_torch.ops.decoder_blocks`.
+Each wrapper runs its plain version for CPU tensors and launches
+``ttasr_torch/csrc/decoder_mlp.cu`` for CUDA tensors, counting launches in
+``<wrapper>.launches``; on the card the vectors must be f32, as for the
+kernels of :mod:`ttasr_torch.ops.decoder_blocks`.
 """
 
 from __future__ import annotations
@@ -88,3 +95,44 @@ def mlp_with_crossout_int8(x, cross, woc_q, woc_s, boc, ln_s, ln_b,
 
 
 mlp_with_crossout_int8.launches = 0
+
+
+def mlp_int8_fused_ref(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
+                       partial: bool = False):
+    """x: (R, D).  w1q (D, F) int8 with (1, F) f32 scales and (F,) bias;
+    w2q (F, D) int8 with the full (1, D) scales.  Returns (R, D) f32:
+    ``x + b2 + GELU(LN2(x) @ W1 * s1 + b1) @ W2 * s2``, or with ``partial``
+    the last term alone."""
+    ln = _bf16(_ln_f32(x.float(), ln_s, ln_b))
+    hid = _bf16(gelu_as(_wmul(ln, w1q, w1s) + b1.float()))
+    out = _wmul(hid, w2q, w2s)
+    return out if partial else x.float() + b2.float() + out
+
+
+def mlp_int8_fused(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
+                   partial: bool = False):
+    """B14; see :func:`mlp_int8_fused_ref` for the contract."""
+    if not _dispatch(x):
+        return mlp_int8_fused_ref(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
+                                  partial)
+    r, d = x.shape
+    f = w1q.shape[1]
+    if x.dtype != torch.float32:
+        raise TypeError("x must be f32 (R, D)")
+    if (w1q.shape != (d, f) or w2q.shape != (f, d)
+            or {w1q.dtype, w2q.dtype} != {torch.int8}):
+        raise ValueError("W1 (D, F) and W2 (F, D) must be int8")
+    vec = dict(ln_s=(ln_s, d), ln_b=(ln_b, d), w1s=(w1s, f), b1=(b1, f),
+               w2s=(w2s, d), b2=(b2, d))
+    dev = _check_cuda(vec, x=x, w1q=w1q, w2q=w2q)
+    hid = torch.empty((r, f), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((r, d), dtype=torch.float32, device=dev)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_mlp_int8", dev, x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
+           hid, out, r, d, f, int(partial))
+    mlp_int8_fused.launches += 1
+    return out
+
+
+mlp_int8_fused.launches = 0
