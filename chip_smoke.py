@@ -47,7 +47,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    (20 and 10 local heads, (B, K) = (1, 5) and (5, 1), int4 and int8
    cross-KV), within the bound of B1-B4; timed as in phase 4, B15 beside
    its library call (a bf16 matmul on a weight cast beforehand);
-8. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
+8. drives B18 ``log_mel_spectrogram_fused`` and B19
+   ``encoder_self_attention``, which no engine path calls (in either
+   package), through their entry points as the JAX golden test drives the
+   Pallas kernels: B18 at 128 mels on the 20 s and 45 s clips (padded and
+   cut) at B = 1 and on 48 windows, within 2e-4 of its plain version (the
+   port's matmul frontend in float64); B19 at (1, 1500, 20, 64) in
+   bf16 and float32 within ``BF16_REL`` x max|plain|, its float32 output
+   bf16-rounded; exact launch counts; timed as in phase 4, B18 beside the
+   port's float32 matmul frontend (whose distance from the plain version is
+   printed), B19 beside ``scaled_dot_product_attention``;
+9. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
    compute_type="bfloat16")`` with random weights from a seeded generator,
    on two synthesized speech-like WAVs (20 s and 45 s, so the seek loop
    crosses a window with prompt carry), through
@@ -55,7 +65,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    B11 ran 32 times per encoder pass, that beam decodes ran with finite
    logits, and that the encoder output agrees with the plain-attention
    encoder on one window;
-9. drives the main path, the int8 engine with all its defaults:
+10. drives the main path, the int8 engine with all its defaults:
    ``WhisperEngine("large-v3", compute_type="int8")`` (weights quantized
    on the card, the s8 x s8 encoder with B5-B9, int8 and int4 self-KV,
    int4 cross-KV, beam 5 through the ancestry map, best-of-5 fallback);
@@ -64,9 +74,12 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    per decode step, B2 32 times per beam step and B10 32 times per greedy
    step; and that one window through the s8 x s8 encoder agrees with the
    same encoder on the plain versions of B5-B9;
-10. drives the decode's other branches on one encoder window of the main
+11. drives the decode's other branches on one encoder window of the main
    path's engine, ``BRANCH_STEPS`` tokens each, beside a main-path beam
-   decode of the same window: ``beam_decode`` with a bf16 cross-KV (B12),
+   decode of the same window: ``beam_decode`` with
+   ``TTASR_UNFUSED_RULES=1`` (the two-stage logit rules: ``_apply_rules``
+   once per step, finite log-probabilities, its tokens' agreement with the
+   main-path leg printed), ``beam_decode`` with a bf16 cross-KV (B12),
    ``beam_decode`` with ``beam_indirect=False`` (B17 and B10; its tokens
    must equal the main-path leg's and its step logits stay within 1.4 %
    of them with every argmax equal), ``beam_decode`` and
@@ -77,7 +90,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    each with exact launch counts, finite logits and its ms per step; the
    unfused beam leg once more over ``PROFILE_STEPS`` tokens under
    ``torch.profiler`` (device ms, kernels and busy share per step);
-11. drives the tensor-parallel decode (``ttasr_torch.parallel``) on the
+12. drives the tensor-parallel decode (``ttasr_torch.parallel``) on the
    same window: ``TPDecoder(..., create_mesh(1, 1), row_parallel=True)``
    on a one-rank NCCL group (TP v2: B15 twice, B16 and B14 per layer),
    beam 5 held to the main-path leg (equal tokens, step logits within
@@ -92,7 +105,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    each), v2 and v1 beam 5, their step-logit gaps to the main-path leg
    held to the controls' (``CONTROL_MARGIN``); exact launch counts in
    every leg;
-12. drives the int8 engine with ``encoder_act_int8=False`` (the bf16
+13. drives the int8 engine with ``encoder_act_int8=False`` (the bf16
    encoder on int8 weights, B11) on one file, with its launch counts.
 
 Every path's counts are set to 0 just before it and read just after, and
@@ -101,7 +114,8 @@ profiled (``torch.profiler``: device time, kernel count).  Prints one
 JSON line with each kernel's launches (from the main path's run; B11's
 from the bf16 path's, B12's from the bf16 cross-KV leg's, B13's from the
 unfused beam leg's, B17's from the ``beam_indirect=False`` leg's, B14-B16's
-from the one-rank TP v2 beam leg's), worst
+from the one-rank TP v2 beam leg's, B18's and B19's from phase 8's run),
+worst
 error, times, bound and library time, then
 the card line, then the contract line ``{"ok": true, "device": {...}}``
 last.
@@ -220,10 +234,11 @@ def bound(tensors, ops: float, kind: str) -> dict:
             else dict(bound_ms=op_ms, bound_by="operations"))
 
 
-def _sdpa_ms(q, k, v, t_real: int) -> float:
+def _sdpa_ms(q, k, v, t_real: int, scale: float = 1.0) -> float:
     """One ``scaled_dot_product_attention`` call on the same heads (the
     merged (B, T, D) tensors viewed as (B, H, T, 64)), keys >= t_real
-    masked: the library yardstick for B6 and B11."""
+    masked, scores times ``scale``: the library yardstick for B6, B11 and
+    B19."""
     import torch
     import torch.nn.functional as F
 
@@ -237,7 +252,7 @@ def _sdpa_ms(q, k, v, t_real: int) -> float:
     if t_real < t:
         mask = (torch.arange(t, device=q.device) < t_real).view(1, 1, 1, t)
     return time_ms(lambda: F.scaled_dot_product_attention(
-        heads(q), heads(k), heads(v), attn_mask=mask, scale=1.0))
+        heads(q), heads(k), heads(v), attn_mask=mask, scale=scale))
 
 
 def check_encoder_attention(card: str) -> dict:
@@ -897,7 +912,157 @@ def plain_encoder_kernels():
 
 
 # ---------------------------------------------------------------------------
-# Phases 8, 9 and 12: the CLI paths end to end
+# Phase 8: B18 and B19, the two kernels no engine path calls
+# ---------------------------------------------------------------------------
+
+MEL_ABS = 2e-4  # B18 vs its plain version: the Pallas kernel's contract
+MEL_WINDOWS = 48  # bench.py's window count
+N_MELS = 128  # large-v3
+ATTN_SHAPE = (1, 1500, 20, 64)  # large-v3's encoder self-attention heads
+
+
+def _mel_batch(clips):
+    """MEL_WINDOWS rows of 45 s: the 45 s clip and the 20 s clip followed
+    by silence, in turns, each rolled and scaled differently."""
+    import torch
+    import torch.nn.functional as F
+
+    a20, a45 = clips["speech20"], clips["speech45"]
+    rows = [torch.roll(a45 if i % 2 else F.pad(a20, (0, a45.numel() - a20.numel())),
+                       7919 * i) * (0.5 + i / (2 * MEL_WINDOWS))
+            for i in range(MEL_WINDOWS)]
+    return torch.stack(rows).contiguous()
+
+
+N_FFT, N_FREQS = 400, 201  # Whisper's frame and its one-sided spectrum
+
+
+def _log_mel_frame_flop(n_fb: int) -> float:
+    """Float operations one frame of the log-mel needs at the least: the
+    window (N_FFT multiplies), a real FFT of N_FFT points (2.5 N log2 N, half
+    of a complex FFT's 5 N log2 N), the power (3 per bin), the mel
+    projection over the bank's ``n_fb`` nonzeros (2 each), and the floor
+    and log10 of each mel (2 each)."""
+    return (N_FFT + 2.5 * N_FFT * np.log2(N_FFT) + 3 * N_FREQS + 2 * n_fb
+            + 2 * N_MELS)
+
+
+def check_standalone_kernels(card: str) -> tuple:
+    """B18 ``log_mel_spectrogram_fused`` and B19 ``encoder_self_attention``
+    driven through their entry points as the JAX golden test drives the
+    Pallas kernels (no engine path calls either, in either package): B18
+    on the 20 s (padded) and 45 s (cut) clips at B = 1 and on
+    MEL_WINDOWS windows, B19 at large-v3's encoder shape in bf16 and
+    float32.  Counts set to 0 just before that run and read just after;
+    each output held to its plain version on the same inputs; timed as in
+    phase 4.  Returns ({name: measured}, {name: launches})."""
+    import torch
+
+    from ttasr_torch.ops.encoder_attention import (
+        encoder_self_attention,
+        encoder_self_attention_ref,
+    )
+    from ttasr_torch.ops.mel import log_mel_spectrogram, mel_filter_bank
+    from ttasr_torch.ops.mel_fused import (
+        log_mel_spectrogram_fused,
+        log_mel_spectrogram_fused_ref,
+    )
+
+    t_phase = time.perf_counter()
+    clips = {name: torch.from_numpy(synth_speech(np.random.default_rng(seed),
+                                                 seconds)[0]).cuda()
+             for name, seconds, seed in AUDIO}
+    mel_in = {f"B=1 {name}": clip for name, clip in clips.items()}
+    mel_in[f"B={MEL_WINDOWS}"] = _mel_batch(clips)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    qkv32 = [torch.randn(ATTN_SHAPE, generator=gen, device="cuda") for _ in range(3)]
+    attn_in = {"bf16": [x.to(torch.bfloat16) for x in qkv32], "f32": qkv32}
+
+    counters = (log_mel_spectrogram_fused, encoder_self_attention)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    mel_out = {key: log_mel_spectrogram_fused(x, N_MELS) for key, x in mel_in.items()}
+    attn_out = {key: encoder_self_attention(*x) for key, x in attn_in.items()}
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    _expect("phase 8", launches, {"log_mel_spectrogram_fused": len(mel_in),
+                                  "encoder_self_attention": len(attn_in)})
+    print(f"phase 8 launches: {json.dumps(launches)}")
+
+    worst_mel = 0.0
+    for key, x in mel_in.items():
+        got, want = mel_out[key], log_mel_spectrogram_fused_ref(x, N_MELS)
+        err = _max_err(got, want)
+        # the float32 frontend's own distance from the float64 plain
+        # version, for comparison (the DFT cancels near the floor)
+        f32_err = _max_err(log_mel_spectrogram(x, N_MELS), want)
+        print(f"log_mel_spectrogram_fused {key} ({x.shape[-1] / SR:.0f} s): max_abs_err "
+              f"{err:.3e} (bound {MEL_ABS:.0e}); ops/mel.py float32 {f32_err:.3e}")
+        check(got.shape == want.shape == x.shape[:-1] + (N_MELS, 3000)
+              and bool(torch.isfinite(got).all()), f"B18 {key}: shape "
+              f"{tuple(got.shape)} or non-finite values")
+        check(err <= MEL_ABS, f"B18 {key} disagrees with its plain version: "
+                              f"{err} > {MEL_ABS}")
+        worst_mel = max(worst_mel, err)
+    worst_attn = 0.0
+    for key, x in attn_in.items():
+        got, want = attn_out[key], encoder_self_attention_ref(*x)
+        err = _max_err(got, want)
+        limit = BF16_REL * want.float().abs().max().item()
+        print(f"encoder_self_attention {key} {ATTN_SHAPE}: max_abs_err {err:.3e} "
+              f"(bound {limit:.3e})")
+        check(err <= limit, f"B19 {key} disagrees with its plain version: "
+                            f"{err} > {limit}")
+        check(torch.equal(got, got.to(torch.bfloat16).to(got.dtype)),
+              f"B19 {key}: output not rounded to bf16")
+        worst_attn = max(worst_attn, err)
+
+    times = {}
+    for key, x in mel_in.items():
+        times[key] = in_turns(lambda: log_mel_spectrogram_fused(x, N_MELS),
+                              lambda: log_mel_spectrogram_fused_ref(x, N_MELS))
+        print(f"log_mel_spectrogram_fused {key}: kernel {times[key][0]:.4f} ms, plain "
+              f"{times[key][1]:.4f} ms ({card})")
+    key = f"B={MEL_WINDOWS}"  # the numbers of the kernels line
+    x = mel_in[key]
+    n_fb = int(np.count_nonzero(mel_filter_bank(N_MELS)))
+    flop = x.shape[0] * 3000 * _log_mel_frame_flop(n_fb)
+    measured = {"log_mel_spectrogram_fused": dict(
+        max_abs_err=worst_mel, ms=times[key][0], plain_ms=times[key][1],
+        library_ms=time_ms(lambda: log_mel_spectrogram(x, N_MELS)),
+        **bound([x[:, :480000], mel_out[key]], flop, "f32"))}
+    m = measured["log_mel_spectrogram_fused"]
+    dense = x.shape[0] * 3000 * (N_FFT * N_FREQS * 2 * 2 + N_FREQS * N_MELS * 2)
+    print(f"log_mel_spectrogram_fused {key}: library (ops/mel.py, f32 cuBLAS "
+          f"matmuls and unfold) {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+          f"({m['bound_by']}; {flop / 1e9:.2f} GFLOP by a real FFT and the "
+          f"{n_fb} nonzeros of the mel bank, {flop / PEAK_OPS_PER_S['f32'] * 1e3:.4f} ms "
+          f"at the f32 peak; the kernel's dense DFT and bank do "
+          f"{dense / 1e9:.1f} GFLOP, {dense / PEAK_OPS_PER_S['f32'] * 1e3:.4f} ms) "
+          f"({card})")
+
+    b, t, h, dh = ATTN_SHAPE
+    for key, x in attn_in.items():
+        kernel_ms, plain_ms = in_turns(lambda: encoder_self_attention(*x),
+                                       lambda: encoder_self_attention_ref(*x))
+        print(f"encoder_self_attention {key}: kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms ({card})")
+        if key == "bf16":
+            merged = [y.view(b, t, h * dh) for y in x]
+            measured["encoder_self_attention"] = dict(
+                max_abs_err=worst_attn, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=_sdpa_ms(*merged, t, scale=dh ** -0.5),
+                **bound(x + [attn_out[key]], 4.0 * b * h * t * t * dh, "bf16"))
+    m = measured["encoder_self_attention"]
+    print(f"encoder_self_attention bf16: scaled_dot_product_attention "
+          f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({card})")
+    print(f"phase 8 (B18, B19): {time.perf_counter() - t_phase:.1f} s")
+    return measured, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 9, 10 and 13: the CLI paths end to end
 # ---------------------------------------------------------------------------
 
 SR = 16000
@@ -1184,7 +1349,7 @@ def run_int8_path(card: str, act8: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the decode's other branches on the main path's engine
+# Phase 11: the decode's other branches on the main path's engine
 # ---------------------------------------------------------------------------
 
 BRANCH_STEPS = 96  # tokens per branch decode: three growth buckets
@@ -1265,6 +1430,36 @@ def _step_logits():
         yield seen
     finally:
         dm._step = step
+
+
+@contextlib.contextmanager
+def _unfused_rules_env():
+    """TTASR_UNFUSED_RULES=1 for the decodes inside, with
+    ``decode._apply_rules`` counted and its log-probabilities checked
+    finite; the variable is unset afterwards.  The flag stays on the card
+    (``seen["finite"]``, a bool tensor, read once after the leg), so the
+    spy adds a few small kernels per step and no host sync."""
+    import torch
+
+    from ttasr_torch.models.whisper import decode as dm
+
+    apply_rules, seen = dm._apply_rules, {"calls": 0, "finite": None}
+
+    def counted(*args, **kwargs):
+        out = apply_rules(*args, **kwargs)
+        seen["calls"] += 1
+        finite = torch.isfinite(torch.log_softmax(out, dim=-1)).all()
+        seen["finite"] = finite if seen["finite"] is None else seen["finite"] & finite
+        return out
+
+    check("TTASR_UNFUSED_RULES" not in os.environ, "TTASR_UNFUSED_RULES already set")
+    dm._apply_rules = counted
+    os.environ["TTASR_UNFUSED_RULES"] = "1"
+    try:
+        yield seen
+    finally:
+        del os.environ["TTASR_UNFUSED_RULES"]
+        dm._apply_rules = apply_rules
 
 
 def _logit_gaps(a, b):
@@ -1374,6 +1569,23 @@ def run_branch_paths(engine, audio, card: str):
         "qkv_int8_fused": L * s, "self_attn_step_indirect_int8": L * s,
         "attnout_ln_q_cross_int8": L * s, "mlp_with_crossout_int8": L * s})
 
+    # the main path with the two-stage rules (ROADMAP C1): same kernels
+    label = "TTASR_UNFUSED_RULES=1 beam 5 (two-stage rules)"
+    with _unfused_rules_env() as rules:
+        unfused_rules, s = leg(label, beam_decode, engine.params)
+    _expect(label, legs[label]["counts"], {
+        "qkv_int8_fused": L * s, "self_attn_step_indirect_int8": L * s,
+        "attnout_ln_q_cross_int8": L * s, "mlp_with_crossout_int8": L * s})
+    finite = rules["finite"] is not None and bool(rules["finite"])
+    check(rules["calls"] == s and finite,
+          f"{label}: _apply_rules ran {rules['calls']} times in {s} steps, "
+          f"log-probabilities finite {finite}")
+    diff = _first_difference(main, unfused_rules)
+    print(f"{label}: _apply_rules ran once per step ({s} steps), log-probabilities "
+          f"finite; tokens " + ("equal to the main path leg's" if diff is None else
+                               f"differ from the main path leg's first at row "
+                               f"{diff[0]} step {diff[1]}"))
+
     label = "beam_indirect=False (B17, B10)"
     with _step_logits() as copied_logits:
         copied, s = leg(label, beam_decode, engine.params, beam_indirect=False)
@@ -1433,7 +1645,7 @@ def run_branch_paths(engine, audio, card: str):
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the tensor-parallel decode
+# Phase 12: the tensor-parallel decode
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 2  # the two-rank leg: large-v3's 20 heads split into 2 x 10
@@ -1813,6 +2025,10 @@ KERNELS = [  # wrapper name, source, the TPU kernel it replaces
      "ttasr/ops/decoder_blocks_pallas.py:322"),
     ("mlp_int8_fused", "ttasr_torch/csrc/decoder_mlp.cu",
      "ttasr/ops/decoder_mlp_pallas.py:65"),
+    ("log_mel_spectrogram_fused", "ttasr_torch/csrc/mel.cu",
+     "ttasr/ops/mel_pallas.py:114"),
+    ("encoder_self_attention", "ttasr_torch/csrc/encoder_attention.cu",
+     "ttasr/ops/encoder_attention_pallas.py:23"),
 ]
 # the branch leg whose run gives each new kernel's launches
 BRANCH_LAUNCHES = {
@@ -1853,6 +2069,8 @@ def main() -> int:
     measured.update(check_encoder_kernels(card))
     measured.update(check_branch_kernels(card))
     measured.update(check_tp_kernels(card))
+    standalone, standalone_launches = check_standalone_kernels(card)
+    measured.update(standalone)
     gemm = measured.pop("int8_gemm")
     bf16 = run_bf16_path(card)
     main_path = run_int8_path(card, act8=True)
@@ -1862,6 +2080,7 @@ def main() -> int:
         launches[name] = main_path["branches"][leg]["counts"][name]
     for name in ("matmul_int8_partial", "ln_q_cross_int8", "mlp_int8_fused"):
         launches[name] = main_path["tp"][TP_LEG]["counts"][name]
+    launches.update(standalone_launches)  # phase 8's run: no engine path calls them
     print(f"B11 launches: bf16 path {bf16['launches']}, int8 main path "
           f"{main_path['counts']['encoder_attention_merged']}, encoder_act_int8=False "
           f"path {int8_bf16_encoder['counts']['encoder_attention_merged']}")

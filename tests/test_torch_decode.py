@@ -189,16 +189,20 @@ def test_sampling_is_seeded_and_in_vocab(setup):
 
 
 def test_unported_options_raise(setup):
-    """The unfused-rules A/B path is not ported; tensor parallelism needs
-    its axis bound to a process group (``TPDecoder`` does that), so a
-    decode naming an unbound axis, or row-parallel without an axis, raises
-    instead of running unsharded (``tests/test_torch_tp_decode.py`` runs
-    it on two ranks)."""
+    """Tensor parallelism needs its axis bound to a process group
+    (``TPDecoder`` does that), so a decode naming an unbound axis, or
+    row-parallel without an axis, raises instead of running unsharded
+    (``tests/test_torch_tp_decode.py`` runs it on two ranks).  The
+    unfused-rules A/B path is ported and runs
+    (``tests/test_torch_unfused_rules.py`` holds it to JAX)."""
     _, _, tp, tcfg, enc, _, tti, prompt, pad = setup
-    for flag, value, error in (("unfused_rules", True, NotImplementedError),
-                               ("tp_row_parallel", True, ValueError),
+    for flag, value, error in (("tp_row_parallel", True, ValueError),
                                ("tp_axis", "model", RuntimeError)):
         opts = td.DecodingOptions(sample_len=4, **{flag: value})
         with pytest.raises(error, match=flag):
             td.beam_decode(tp, tcfg, torch.from_numpy(enc), prompt, pad,
                            opts=opts, ti=tti)
+    out = td.beam_decode(tp, tcfg, torch.from_numpy(enc), prompt, pad,
+                         opts=td.DecodingOptions(sample_len=4, unfused_rules=True),
+                         ti=tti)
+    assert out["steps"] > 0 and out["logits_finite"]

@@ -114,21 +114,24 @@ def test_int8_greedy_decode_matches_jax(setup, monkeypatch):
 
 
 def test_int8_decode_paths_off_the_slice_raise(setup):
-    """Only the unfused-rules A/B path is left unported; the other branches
-    run (tests/test_torch_decode_branches.py), tensor parallelism with its
-    axis bound to a process group (tests/test_torch_tp_decode.py) and
-    raising without one."""
+    """Every branch runs: the decode's other branches
+    (tests/test_torch_decode_branches.py), the unfused-rules A/B path
+    (tests/test_torch_unfused_rules.py; here on the int8 cache), tensor
+    parallelism with its axis bound to a process group
+    (tests/test_torch_tp_decode.py) and raising without one."""
     s = setup
     args = (s["tp"], s["tcfg"], torch.from_numpy(s["enc"]), s["prompt"], s["pad"])
     for kw, what, error in ((dict(tp_axis="model"), "not bound", RuntimeError),
                             (dict(tp_row_parallel=True), "tp_row_parallel",
-                             ValueError),
-                            (dict(unfused_rules=True), "unfused_rules",
-                             NotImplementedError)):
+                             ValueError)):
         opts = td.DecodingOptions(**{**dict(sample_len=4, **INT8), **kw})
         for fn in (td.beam_decode, td.greedy_decode):
             with pytest.raises(error, match=what):
                 fn(*args, opts=opts, ti=s["tti"])
+    opts = td.DecodingOptions(sample_len=4, unfused_rules=True, **INT8)
+    for fn in (td.beam_decode, td.greedy_decode):
+        out = fn(*args, opts=opts, ti=s["tti"])
+        assert out["steps"] > 0 and out["logits_finite"]
 
 
 def test_int8_engine_transcribe_matches_jax():

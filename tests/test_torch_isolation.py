@@ -11,7 +11,9 @@ copies of the JAX package's host modules behave as the originals.
   synthesized speech (the learned model and the energy heuristic), a
   ``write_wav``/``load_audio`` round trip with resampling,
   ``compare_texts`` and ``postprocess_transcript`` on ``sample_corpus/``,
-  the mel constants, and ``chip_smoke.synth_speech``.
+  the mel constants (the DFT basis and filterbank that the fused log-mel
+  kernel reads too), the ``TTASR_UNFUSED_RULES`` truthiness, and
+  ``chip_smoke.synth_speech``.
 """
 
 import csv
@@ -61,7 +63,8 @@ _ISOLATED = textwrap.dedent("""
         ttasr_torch.__path__, "ttasr_torch.")]
     assert {{"ttasr_torch.ops.cross_attention", "ttasr_torch.ops.beam_gather",
              "ttasr_torch.ops.decoder_blocks", "ttasr_torch.parallel.distributed",
-             "ttasr_torch.parallel.sharding", "ttasr_torch.parallel.tp"}} <= set(names), names
+             "ttasr_torch.parallel.sharding", "ttasr_torch.parallel.tp",
+             "ttasr_torch.ops.mel_fused", "ttasr_torch.ops.encoder_attention"}} <= set(names), names
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
@@ -80,7 +83,7 @@ def test_port_and_chip_smoke_import_with_ttasr_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO_ROOT, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 31
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 32
 
 
 _IMPORT_TTASR = re.compile(r"^\s*(from|import)\s+ttasr(\.|\s|$)")
@@ -212,6 +215,21 @@ def test_mel_constants_equal():
                              j_mel._device_constants(n_mels)):
             assert got.dtype == want.dtype
             np.testing.assert_array_equal(got, want)
+
+
+def test_fused_mel_and_rules_copies_match(monkeypatch):
+    """The copies ``ops/mel_fused.py`` and the decode's rules switch read."""
+    from ttasr.models.whisper import decode as j_dec
+    from ttasr_torch.models.whisper import decode as t_dec
+
+    for got, want in zip(t_mel._dft_basis(), j_mel._dft_basis()):
+        np.testing.assert_array_equal(got, want)
+    for n_mels in (80, 128):
+        np.testing.assert_array_equal(t_mel.mel_filter_bank(n_mels),
+                                      j_mel.mel_filter_bank(n_mels))
+    for value in ("1", "true", "0", "false", "no", "", "anything"):
+        monkeypatch.setenv("TTASR_UNFUSED_RULES", value)
+        assert t_dec._env_unfused_rules() == j_dec._env_unfused_rules(), value
 
 
 def test_chip_smoke_synth_speech_matches():

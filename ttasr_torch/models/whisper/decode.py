@@ -39,7 +39,13 @@ wo/wo_c/MLP (B3, or B12, and B4); v2 (``opts.tp_row_parallel``) runs B15
 the cross query and the cross-attention outside the kernel where B3's
 condition fails) and B14 ``mlp_int8_fused(partial=True)`` on row- and
 column-split weights, each partial sum all-reduced and its bias added once
-after the sum.  The unfused-rules A/B path raises.
+after the sum.
+
+``TTASR_UNFUSED_RULES`` (read when :func:`greedy_decode` or
+:func:`beam_decode` is called, as in the reference) or
+``opts.unfused_rules`` selects the two-stage rules path, the reference's
+A/B control: :func:`_apply_rules`, then ``log_softmax``, in place of the
+one-pass :func:`_apply_rules_logprobs`.
 
 The host-side pieces (``DecodingOptions``, ``TokenizerInfo``,
 ``build_prompt``, ``pad_prompts``, ``compression_ratio`` and the
@@ -50,6 +56,7 @@ constants) are declared again because the reference module imports jax;
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
 from typing import List, Optional, Sequence, Tuple
 
@@ -106,7 +113,8 @@ class DecodingOptions:
     """Decode configuration.  Same fields and defaults as the reference.
     ``tp_axis`` names a mesh axis that must be bound to a process group
     (:func:`ttasr_torch.parallel.sharding.bind_axes`, as ``TPDecoder``
-    does); the unfused-rules A/B path raises (:func:`_check_supported`)."""
+    does); ``unfused_rules`` (or ``TTASR_UNFUSED_RULES``) runs the
+    two-stage rules path (:func:`_apply_rules`)."""
 
     beam_size: int = 5
     temperature: float = 0.0  # 0 = deterministic; >0 enables sampling
@@ -201,15 +209,6 @@ def _f32_decoder_vectors(params):
     blocks = [{k: (v.float() if torch.is_tensor(v) and v.dim() == 1 else v)
                for k, v in blk.items()} for blk in dec["blocks"]]
     return dict(params, decoder=dict(dec, blocks=blocks))
-
-
-def _check_supported(opts: DecodingOptions) -> None:
-    """Raise for the option whose path is not ported: the unfused-rules A/B
-    control."""
-    if opts.unfused_rules:
-        raise NotImplementedError(
-            "DecodingOptions unfused_rules is not ported to ttasr_torch yet "
-            "(ROADMAP A5)")
 
 
 def _tp_setup(params, cfg: WhisperConfig, opts: DecodingOptions):
@@ -597,6 +596,60 @@ def _static_suppress_mask(ti: TokenizerInfo) -> np.ndarray:
     return mask
 
 
+def _apply_rules(logits, *, ti: TokenizerInfo, opts: DecodingOptions,
+                 static_mask, n_sampled, last_tok, penult_tok, max_ts_tok):
+    """The logit rules as a pass of their own (the reference's two-stage
+    A/B control): static suppress mask, SuppressBlank, the timestamp
+    pairing, monotonicity and first-token rules, then the probability-mass
+    rule by a second pass over ``log_softmax``.  Returns logits; the caller
+    takes ``log_softmax``.  logits: (N, V) f32; the other state is per row
+    (N,)."""
+    v = ti.n_vocab
+    dev = logits.device
+    ids = torch.arange(v, device=dev)[None, :]
+    logits = logits + static_mask[None, :]
+
+    if opts.suppress_blank:
+        blank = torch.zeros((v,), dtype=torch.bool, device=dev)
+        blank[list(ti.blank) + [ti.eot]] = True
+        blank_mask = torch.where(blank, NEG_INF, 0.0)[None, :]
+        logits = logits + torch.where((n_sampled == 0)[:, None], blank_mask, 0.0)
+
+    ts0 = ti.timestamp_begin
+    is_ts = ids >= ts0
+    if opts.without_timestamps:
+        return logits + torch.where(is_ts, NEG_INF, 0.0)
+
+    last_is_ts = last_tok >= ts0
+    penult_is_ts = penult_tok >= ts0
+    active = n_sampled > 0
+    # last two sampled tokens both timestamps (or only one sampled): text next
+    rule_a = ((active & last_is_ts
+               & ((n_sampled < 2) | penult_is_ts))[:, None] & is_ts)
+    # an unpaired timestamp last: a timestamp or eot next
+    unpaired_last = active & last_is_ts & (n_sampled >= 2) & (~penult_is_ts)
+    rule_b = unpaired_last[:, None] & ((~is_ts) & (ids != ti.eot))
+    logits = torch.where(rule_a | rule_b, NEG_INF, logits)
+
+    # monotonicity: strictly after a paired end, equal allowed when unpaired
+    floor = torch.clamp(max_ts_tok + torch.where(unpaired_last, 0, 1), min=ts0)
+    has_ts = max_ts_tok > 0
+    mono = is_ts & (ids < floor[:, None]) & (active & has_ts)[:, None]
+    logits = torch.where(mono, NEG_INF, logits)
+
+    # the first sampled token is a timestamp up to max_initial_timestamp
+    max_init = ts0 + int(round(opts.max_initial_timestamp / 0.02))
+    first = (n_sampled == 0)[:, None] & ((~is_ts) | (ids > max_init))
+    logits = torch.where(first, NEG_INF, logits)
+
+    # probability mass: timestamps more likely than any text token -> force one
+    logprobs = torch.log_softmax(logits, dim=-1)
+    ts_mass = torch.logsumexp(torch.where(is_ts, logprobs, NEG_INF), dim=-1)
+    text_max = torch.where(is_ts, NEG_INF, logprobs).amax(dim=-1)
+    force = (ts_mass > text_max)[:, None]
+    return torch.where(force & (~is_ts), NEG_INF, logits)
+
+
 def _apply_rules_logprobs(logits, *, ti: TokenizerInfo,
                           opts: DecodingOptions, static_mask, n_sampled,
                           last_tok, penult_tok, max_ts_tok):
@@ -642,6 +695,31 @@ def _apply_rules_logprobs(logits, *, ti: TokenizerInfo,
     return torch.where(force,
                        torch.where(is_ts, lp - ts_mass[:, None], NEG_INF),
                        lp)
+
+
+def _rules_logprobs(logits, *, opts: DecodingOptions, **state):
+    """Log-probabilities after the logit rules: the one-pass
+    :func:`_apply_rules_logprobs`, or with ``opts.unfused_rules``
+    ``log_softmax`` of :func:`_apply_rules`."""
+    if opts.unfused_rules:
+        return torch.log_softmax(_apply_rules(logits, opts=opts, **state), dim=-1)
+    return _apply_rules_logprobs(logits, opts=opts, **state)
+
+
+def _env_unfused_rules() -> bool:
+    """Explicit truthiness for TTASR_UNFUSED_RULES: "0"/"false"/"no"/""
+    disable, "1"/"true"/"yes" enable (any other non-empty value also
+    enables, with the usual flag-env convention)."""
+    val = os.environ.get("TTASR_UNFUSED_RULES", "").strip().lower()
+    return val not in ("", "0", "false", "no")
+
+
+def _with_env_rules(opts: DecodingOptions) -> DecodingOptions:
+    """``opts`` with ``unfused_rules`` set when TTASR_UNFUSED_RULES is,
+    read at call time as the reference's decode wrappers do."""
+    if _env_unfused_rules() and not opts.unfused_rules:
+        return dataclasses.replace(opts, unfused_rules=True)
+    return opts
 
 
 # ---------------------------------------------------------------------------
@@ -763,7 +841,7 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     no_speech_prob, plus ``steps`` (decode steps run) and
     ``logits_finite`` (every step's logits were finite).
     """
-    _check_supported(opts)
+    opts = _with_env_rules(opts)
     tp = _tp_setup(params, cfg, opts)
     if _use_flat_kv(params, cfg, opts):
         params = _f32_decoder_vectors(params)
@@ -802,7 +880,7 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
         cache = _pad_cache_to(cache, bucket_len)
         cap = bucket_len - max_prompt
         while step < cap and step < opts.sample_len and not bool(finished.all()):
-            logprobs = _apply_rules_logprobs(
+            logprobs = _rules_logprobs(
                 logits, ti=ti, opts=opts, static_mask=static_mask,
                 n_sampled=n, last_tok=last, penult_tok=penult,
                 max_ts_tok=max_ts)
@@ -860,7 +938,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     ``logits_finite`` as :func:`greedy_decode`.
     """
     k = opts.beam_size
-    _check_supported(opts)
+    opts = _with_env_rules(opts)
     tp = _tp_setup(params, cfg, opts)
     if _use_flat_kv(params, cfg, opts):
         params = _f32_decoder_vectors(params)
@@ -917,7 +995,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
         cap = bucket_len - max_prompt
         while (step < cap and step < L
                and not bool((fin_count >= max_finished).all())):
-            logprobs = _apply_rules_logprobs(
+            logprobs = _rules_logprobs(
                 logits, ti=ti, opts=opts, static_mask=static_mask,
                 n_sampled=n, last_tok=last, penult_tok=penult,
                 max_ts_tok=max_ts)

@@ -12,6 +12,10 @@ kernel leaves them as junk; callers drop them either way).
 launches in ``encoder_attention_merged.launches``.
 :func:`encoder_attention_merged_qkv` (B6) is the same attention read from
 the s8 x s8 encoder's fused (B, T, 3D) qkv buffer.
+:func:`encoder_self_attention` (B19) is the head-split kernel of
+``encoder_attention_pallas.py::encoder_self_attention``, with its own
+rounding: q/k/v (B, T, H, 64) in float32 or bf16, everything rounded to
+bf16 on the way in and the output on the way out.
 """
 
 from __future__ import annotations
@@ -127,3 +131,61 @@ def encoder_attention_merged_qkv(qkv, t_real: int):
 
 
 encoder_attention_merged_qkv.launches = 0
+
+
+def encoder_self_attention_ref(q, k, v):
+    """Plain version of B19, its roundings step by step: q scaled by
+    dh**-0.5 in q's type, q/k/v rounded to bf16, f32 scores and softmax, the
+    normalised probabilities rounded to bf16, f32 sums, the output rounded
+    to bf16 and cast to q's type.  (B, T, H, dh) -> (B, T, H, dh)."""
+    dh = q.shape[-1]
+
+    def heads(x):
+        return x.to(torch.bfloat16).transpose(1, 2).float()  # (B, H, T, dh)
+
+    scores = torch.matmul(heads(q * dh ** -0.5), heads(k).transpose(-1, -2))
+    probs = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
+    out = torch.matmul(probs, heads(v)).to(torch.bfloat16)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def encoder_self_attention(q, k, v):
+    """B19, port of ``encoder_attention_pallas.py::encoder_self_attention``:
+    non-causal self-attention of q/k/v (B, T, H, 64) float32 or bf16, in
+    q's type; see :func:`encoder_self_attention_ref` for the roundings.
+    The kernel reads the contiguous (B, T, H, 64) tensors as the merged
+    (B, T, 64 H) layout, so nothing is transposed or padded.  The plain
+    version runs for CPU tensors.  Counts its launches in
+    ``encoder_self_attention.launches``."""
+    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+        raise ValueError(f"q/k/v must share one (B, T, H, Dh) shape: "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    b, t, h, dh = q.shape
+    if dh != DH:
+        raise ValueError(f"Dh={dh}: the kernel takes heads {DH} wide")
+    if t < 1:
+        raise ValueError("T must be at least 1")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q/k/v must all be float32 or bfloat16, got "
+                        f"{q.dtype} {k.dtype} {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q/k/v lie on different devices")
+    if q.device.type == "cpu":
+        return encoder_self_attention_ref(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if q.numel() >= 2 ** 31:
+        raise ValueError("tensor too large for the kernel's int indexing")
+    from ttasr_torch.ops._build import launch
+
+    out = torch.empty_like(q)
+    launch("ttasr_encoder_self_attention", q.device, q, k, v, out, b, t, h * dh,
+           _DTYPE_CODE[q.dtype])
+    encoder_self_attention.launches += 1
+    return out
+
+
+encoder_self_attention.launches = 0

@@ -98,13 +98,16 @@ def _device_constants(n_mels: int):
     return cos, sin, mel_filter_bank(n_mels)
 
 
+@lru_cache(maxsize=8)
 def _constants(n_mels: int, device) -> tuple:
+    """The constants on ``device``, copied there once (a copy from host
+    memory inside a CUDA graph capture would fail)."""
     cos, sin, fb = _device_constants(n_mels)
     return tuple(torch.from_numpy(x).to(device) for x in (cos, sin, fb))
 
 
 def log_mel_spectrogram(audio, n_mels: int = 80, *, pad_to_chunk: bool = True,
-                        device=None):
+                        device=None, dtype=torch.float32):
     """Whisper log-mel features.
 
     Args:
@@ -114,6 +117,8 @@ def log_mel_spectrogram(audio, n_mels: int = 80, *, pad_to_chunk: bool = True,
       pad_to_chunk: zero-pad / truncate to the 30 s window (480000
         samples).
       device: where numpy input goes (tensors stay where they are).
+      dtype: the arithmetic's type; float64 gives the fused kernel's
+        plain version (``ops/mel_fused.py``) its reference precision.
 
     Returns:
       ``(n_mels, 3000)`` or ``(batch, n_mels, 3000)`` float32 features.
@@ -128,9 +133,9 @@ def log_mel_spectrogram(audio, n_mels: int = 80, *, pad_to_chunk: bool = True,
         if device is not None:
             x = x.to(device)
     if x.dtype == torch.int16:
-        x = x.to(torch.float32) * (1.0 / 32768.0)
+        x = x.to(dtype) * (1.0 / 32768.0)
     else:
-        x = x.to(torch.float32)
+        x = x.to(dtype)
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
@@ -146,7 +151,7 @@ def log_mel_spectrogram(audio, n_mels: int = 80, *, pad_to_chunk: bool = True,
     padded = F.pad(x[:, None], (half, half), mode="reflect")[:, 0]
     frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]  # (B, F, 400)
 
-    cos, sin, fb = _constants(n_mels, x.device)
+    cos, sin, fb = (c.to(dtype) for c in _constants(n_mels, x.device))
     re = torch.matmul(frames, cos)
     im = torch.matmul(frames, sin)
     power = re * re + im * im                       # (B, F, 201)
@@ -156,5 +161,5 @@ def log_mel_spectrogram(audio, n_mels: int = 80, *, pad_to_chunk: bool = True,
     peak = log_spec.amax(dim=(1, 2), keepdim=True)
     log_spec = torch.maximum(log_spec, peak - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
-    out = log_spec.transpose(1, 2)                  # (B, n_mels, F)
+    out = log_spec.transpose(1, 2).to(torch.float32)  # (B, n_mels, F)
     return out[0] if squeeze else out
