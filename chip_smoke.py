@@ -11,7 +11,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    (one process per source, in parallel);
 3. holds the encoder-attention kernel (B11) against its plain PyTorch
    version at large-v3 shapes (bf16 and float32, full and ragged
-   ``t_real``);
+   ``t_real``); prints its TFLOP/s and share of the bound beside
+   ``scaled_dot_product_attention``'s;
 4. holds the int8 decode kernels against their plain versions at large-v3
    shapes: B1 and B4 at 5 rows; B3 at (B, K) = (1, 5) and (5, 1) over int4
    and int8 cross-KV; B2 (beam 5, a non-identity ancestry map) and B10
@@ -31,7 +32,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    within B11's bound, and the int8 GEMM (``torch._int_mm`` on K-major
    codes) equal to the exact int32 product at the encoder's four shapes;
    timed as in phase 4, with the library call beside B6 and B11
-   (``scaled_dot_product_attention``) and the GEMM (a bf16 matmul);
+   (``scaled_dot_product_attention``) and the GEMM (a bf16 matmul); B6
+   also at bench.py's 48 windows, (48, 1500, 3840), held to and timed in
+   turns with ``scaled_dot_product_attention``, with TFLOP/s and the share
+   of the bound;
 6. holds the kernels of the decode's other branches against their plain
    versions at large-v3 shapes: B12 ``attnout_ln_q_fused`` at 5 and 10
    rows and B13 ``cross_attention_int8`` at (B, K) = (1, 5), (5, 1) and
@@ -56,7 +60,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    bf16 and float32 within ``BF16_REL`` x max|plain|, its float32 output
    bf16-rounded; exact launch counts; timed as in phase 4, B18 beside the
    port's float32 matmul frontend (whose distance from the plain version is
-   printed), B19 beside ``scaled_dot_product_attention``;
+   printed), B19 beside ``scaled_dot_product_attention`` (TFLOP/s and
+   the share of the bound printed);
 9. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
    compute_type="bfloat16")`` with random weights from a seeded generator,
    on two synthesized speech-like WAVs (20 s and 45 s, so the seek loop
@@ -255,6 +260,14 @@ def _sdpa_ms(q, k, v, t_real: int, scale: float = 1.0) -> float:
         heads(q), heads(k), heads(v), attn_mask=mask, scale=scale))
 
 
+def _attention_rate(name: str, m: dict, flop: float, card: str) -> None:
+    """Prints an attention kernel's achieved rate and its share of the
+    bound (``m``: ms, bound_ms, library_ms)."""
+    print(f"{name}: {flop / m['ms'] / 1e9:.1f} TFLOP/s ({flop / 1e9:.2f} GFLOP), "
+          f"{m['bound_ms'] / m['ms']:.1%} of the bound; scaled_dot_product_attention "
+          f"{flop / m['library_ms'] / 1e9:.1f} TFLOP/s ({card})")
+
+
 def check_encoder_attention(card: str) -> dict:
     """B11 against its plain version at the main path's shapes."""
     import torch
@@ -299,6 +312,7 @@ def check_encoder_attention(card: str) -> dict:
                             **bound([q, k, v, got], 4.0 * b * t * t_real * d, "bf16"))
     print(f"encoder_attention bf16 B=1 T=1500: scaled_dot_product_attention "
           f"{main['library_ms']:.4f} ms, bound {main['bound_ms']:.4f} ms ({card})")
+    _attention_rate("encoder_attention bf16 B=1 T=1500", main, 4.0 * 1500 * 1500 * d, card)
     return dict(max_abs_err=worst, **main)
 
 
@@ -578,6 +592,43 @@ def _hold_codes(name, case, got, want):
     return float(worst)
 
 
+def _b6_windows(gen, colscale, card: str) -> dict:
+    """B6 at bench.py's MEL_WINDOWS windows ((48, 1500, 3840) bf16, each
+    window's attention 32 times per encoder pass there), held to
+    ``scaled_dot_product_attention`` on the same heads within B11's bound
+    and timed beside it in turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from ttasr_torch.ops.encoder_attention import encoder_attention_merged_qkv
+
+    b = MEL_WINDOWS
+    qkv = (torch.randn((b, ENC_T, 3 * D), generator=gen, device="cuda") * colscale
+           ).to(torch.bfloat16)
+
+    def heads(x):
+        return x.view(b, ENC_T, H, 64).transpose(1, 2)
+
+    q, k, v = heads(qkv[..., :D]), heads(qkv[..., D:2 * D]), heads(qkv[..., 2 * D:])
+    got = encoder_attention_merged_qkv(qkv, ENC_T)
+    want = F.scaled_dot_product_attention(q, k, v, scale=1.0).transpose(1, 2).reshape(
+        b, ENC_T, D)
+    err = _max_err(got, want)
+    limit = BF16_REL * want.float().abs().max().item()
+    print(f"encoder_attention_merged_qkv B={b} T={ENC_T}: max_abs_err {err:.3e} against "
+          f"scaled_dot_product_attention (bound {limit:.3e})")
+    check(err <= limit, f"B6 at B={b} disagrees with scaled_dot_product_attention: {err}")
+    ms, sdpa_ms = in_turns(lambda: encoder_attention_merged_qkv(qkv, ENC_T),
+                           lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    m = dict(ms=ms, library_ms=sdpa_ms, **bound([qkv, got], 4.0 * b * ENC_T * ENC_T * D, "bf16"))
+    print(f"encoder_attention_merged_qkv B={b} T={ENC_T}: kernel {ms:.4f} ms, "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {m['bound_ms']:.4f} ms "
+          f"({card})")
+    _attention_rate(f"encoder_attention_merged_qkv B={b} T={ENC_T}", m,
+                    4.0 * b * ENC_T * ENC_T * D, card)
+    return m
+
+
 def check_encoder_kernels(card: str) -> dict:
     """B5, B6, B7, B8 and B9 against their plain versions, and the int8
     GEMM against the exact product; returns per-kernel measurements keyed
@@ -649,6 +700,9 @@ def check_encoder_kernels(card: str) -> dict:
                 qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], t_real),
                 **bound([qkv, got], 4.0 * b * ENC_T * t_real * D, "bf16"))
     res["encoder_attention_merged_qkv"] = dict(max_abs_err=worst, **main)
+    _attention_rate(f"encoder_attention_merged_qkv B=1 T={ENC_T}", main,
+                    4.0 * ENC_T * ENC_T * D, card)
+    res["b6_windows"] = _b6_windows(gen, colscale, card)
 
     # the int8 GEMM at the encoder's four shapes, K-major codes
     gemm = {}
@@ -1057,6 +1111,7 @@ def check_standalone_kernels(card: str) -> tuple:
     m = measured["encoder_self_attention"]
     print(f"encoder_self_attention bf16: scaled_dot_product_attention "
           f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({card})")
+    _attention_rate("encoder_self_attention bf16", m, 4.0 * b * h * t * t * dh, card)
     print(f"phase 8 (B18, B19): {time.perf_counter() - t_phase:.1f} s")
     return measured, launches
 
@@ -2072,6 +2127,7 @@ def main() -> int:
     standalone, standalone_launches = check_standalone_kernels(card)
     measured.update(standalone)
     gemm = measured.pop("int8_gemm")
+    b6_windows = measured.pop("b6_windows")
     bf16 = run_bf16_path(card)
     main_path = run_int8_path(card, act8=True)
     int8_bf16_encoder = run_int8_path(card, act8=False)
@@ -2088,6 +2144,7 @@ def main() -> int:
         "bf16": bf16["encoder_ms"], "int8_act8": main_path["encoder_ms"],
         "int8_bf16_encoder": int8_bf16_encoder["encoder_ms"]}) + f" ({card})")
     print("int8 GEMM: " + json.dumps(gemm))
+    print(f"B6 at {MEL_WINDOWS} windows: " + json.dumps(b6_windows))
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -1,118 +1,318 @@
-// The tensor-core tile loop of the Whisper encoder's self-attention, shared
-// by the three entry points of encoder_attention.cu so they cannot drift:
-// B11 (three bf16 (B, T, D) tensors), B6 (the s8 x s8 encoder's fused
-// (B, T, 3D) bf16 buffer) and B19 (q/k/v (B, T, H, 64) in float32 or bf16,
-// B19's own rounding: q scaled in f32, q/k/v rounded to bf16, the output
-// rounded to bf16 before it is written in the input type).
+// The Whisper encoder's self-attention on Hopper's tensor cores, shared by
+// the three entry points of encoder_attention.cu so they cannot drift: B11
+// (three bf16 (B, T, D) tensors), B6 (the s8 x s8 encoder's fused
+// (B, T, 3D) bf16 buffer) and B19 (q/k/v (B, T, H, 64), its scores scaled
+// by 64^-0.5 here; float32 inputs are rounded to bf16 by a pass before).
 //
-// Layout: merged heads, head h at columns 64h..64h+63 of rows `ld` elements
-// apart (a contiguous (B, T, H, 64) is the merged (B, T, 64 H) layout byte
-// for byte); keys at index >= t_real masked; the output (B, T, D) rows D
-// apart.  Sums are f32.
+// Layout: merged heads, head h at columns 64h..64h+63 of rows `ld`
+// elements apart (a contiguous (B, T, H, 64) is the merged (B, T, 64 H)
+// layout byte for byte); keys at index >= t_real masked; the output
+// (B, T, D) rows D apart, bf16, or float32 holding bf16-rounded values.
+// Sums are f32.
 //
-// What bounds it, and the design: per (batch, head) ~4 T^2 64 FLOP against
-// 3 T 64 2 bytes of q/K/V (~T/3 FLOP per byte, ~500 at T = 1500, above the
-// H100's ~295 bf16 balance point), so it is compute-bound once the
-// quadratic score matrix stays out of device memory.  One block of 4 warps
-// per (64-query tile, head, batch) streams K/V tiles of 64 keys through
-// shared memory with an online (running max / running sum) softmax; both
-// products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate), and the score accumulators are re-packed in registers as
-// the A operand of the value product, so neither scores nor probabilities
-// touch memory.  Key tiles wholly at or past t_real are skipped.  The
-// probabilities rounded to bf16 are the unnormalised exponentials of the
-// online softmax; the TPU kernels round the normalised ones, which differs
-// by up to one bf16 step per probability.
+// What bounds it: per (batch, head) ~4 T^2 64 FLOP against 3 T 64 2 bytes
+// of q/K/V (~T/3 FLOP per byte, ~500 at T = 1500, above the H100's ~295
+// bf16 balance point), so it is compute-bound once the quadratic score
+// matrix stays out of device memory, and only wgmma reaches the tensor
+// cores' full rate.  At a head width of 64 each score costs 256 FLOP of
+// products but also one exp2, and the SFU's 16 exp2 per clock per SM
+// match the tensor cores' 4096 FLOP per clock: the softmax has to run
+// under the products.
+//
+// The design: one block of 384 threads per SM, persistent over work items
+// of (128-query tile, head, batch row):
+// * warpgroup 0 is the producer: one thread loads each item's Q tile (two
+//   buffers, so the next item's Q arrives during this one) and keeps K and
+//   V tiles of 128 keys x 64 columns (16 KB each) in flight by TMA through
+//   a ring of kStages stages, with full barriers for K and for V and an
+//   empty barrier per stage.  The tensor maps are 3-D (D, T, B) with the
+//   128-B swizzle, so a box past T is zero-filled (never the next batch
+//   row) and each 128-B row lands in the layout the wgmma descriptors read.
+// * warpgroups 1 and 2 are consumers of 64 query rows each: S = Q K^T by
+//   four wgmma.m64n128k16 from shared memory (Q and K K-major), an online
+//   softmax in registers in f32 (score scale and log2(e) folded into one
+//   multiply before exp2; keys >= t_real masked in the last tile only;
+//   tiles wholly past t_real are never loaded), then O += P V by eight
+//   wgmma.m64n64k16 with P in registers as bf16 and V read MN-major from
+//   shared memory through the descriptor's transpose bit.  Tile j's score
+//   product is issued together with tile j-1's P V, so the softmax of tile
+//   j runs while the tensor cores do P V; and the two warpgroups take turns
+//   to issue (two named barriers), so one's softmax runs under the other's
+//   products.
+// * setmaxnreg moves registers from the producer to the consumers.
+// The probabilities rounded to bf16 are the unnormalised exponentials of
+// the online softmax; the TPU kernels round the normalised ones, which
+// differs by up to one bf16 step per probability.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (types only: nothing links libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace ttasr_enc {
 
-constexpr int kDh = 64;           // head width (Whisper)
-constexpr int kRowsPerWarp = 16;  // mma M
-constexpr int kWarps = 4;
-constexpr int kBlockQ = kRowsPerWarp * kWarps;  // 64 query rows per block
-constexpr int kBlockK = 64;                     // keys per shared-memory tile
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = kDh + 8;  // padded smem row (bf16): 144 B, 16 B aligned
+constexpr int kDh = 64;         // head width (Whisper): one 128-B bf16 row
+constexpr int kBlockQ = 128;    // query rows per work item
+constexpr int kBlockK = 128;    // keys per ring stage
+constexpr int kStages = 3;      // K/V ring depth
+constexpr int kConsumers = 2;   // consumer warpgroups, 64 query rows each
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kTileBytes = kBlockK * kDh * 2;  // 16 KB: a Q, K or V tile
+// two Q tiles, the K ring, the V ring, the barriers, and slack to align to
+// 1024 B (the 128-B swizzle repeats every 8 rows of 128 B)
+constexpr int kBarrierOffset = (2 + 2 * kStages) * kTileBytes;
+constexpr int kSmemBytes = kBarrierOffset + 8 * (4 + 3 * kStages) + 1024;
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D = A (16x16, row) * B (16x8, col) + D; bf16 inputs, f32 accumulators.
-// Fragment layout (lane = 4*g + t):
-//   a0: (g, 2t..2t+1)  a1: (g+8, 2t..)  a2: (g, 2t+8..)  a3: (g+8, 2t+8..)
-//   b0: (k=2t..2t+1, n=g)  b1: (k=2t+8..2t+9, n=g)
-//   c0,c1: (g, 2t..2t+1)  c2,c3: (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Until the phase of parity `parity` has completed (parity 1 passes at
+// once on a fresh barrier: the producer's first pass over empty stages).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box (64 columns, 128 rows, 1 batch row) at (c0, c1, c2) into shared
+// memory at `dst`; completes `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
-// Eight consecutive elements as f32 (16 or 32 bytes, aligned).
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor for a tile of 128-B rows written by TMA
+// with SWIZZLE_128B: start address >> 4, leading offset 1 (unused by
+// swizzled K-major tiles and by MN-major tiles one swizzle atom, 64
+// bf16, wide), stride 1024 B between groups of 8 rows, layout 1 (128-B
+// swizzle).  A k16 step inside a row advances the start by 32 B.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or reuse of registers that an
+// in-flight wgmma writes or reads across the wait that ends it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, K-major smem) * B (16 x 128, K-major
+// smem).  Warp w of the warpgroup holds rows 16w..16w+15; with lane =
+// 4 g + t, d[4 j + e] is row g (+8 for e >= 2), column 8 j + 2 t + (e & 1).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a_desc,
+                                                    uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers: a[0] row g keys
+// 2t..2t+1, a[1] row g+8, a[2] row g keys 2t+8.., a[3] row g+8) * B (16 x 64,
+// MN-major smem: the transpose bit).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads) order the two consumer
+// warpgroups' products: a warpgroup syncs on its own before it issues and
+// arrives on the other's after, so one's softmax runs under the other's
+// products.  256 threads each: the syncing warpgroup and the arriving one.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The consumers' pieces
+// ---------------------------------------------------------------------------
+
+// s = Q K^T for this warpgroup's 64 rows and one 128-key tile: dh = 64 in
+// four k16 steps of 32 B.
+__device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q_tile, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk)
+    wgmma_m64n128k16_ss(s, smem_desc(q_tile + 32 * kk), smem_desc(k_tile + 32 * kk), kk > 0);
+}
+
+// o += P V over one 128-key tile: eight k16 steps of 16 keys (2 KB of V).
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    wgmma_m64n64k16_rs(o, a, smem_desc(v_tile + 2048 * kk));
   }
 }
 
-__device__ __forceinline__ void load8(const float* p, float f[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
-  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
-}
-
-// Copy rows [row0, row0 + 64) of one head's 64 columns (row stride `ld`)
-// into smem as bf16 (padded rows); rows at or past `rows` are zero-filled.
-// bf16 input without a scale is copied as is; otherwise each element is
-// read as f32, multiplied by `scale` when kScaled, and rounded to bf16.
-template <typename In, bool kScaled>
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kLd], const In* src, int row0,
-                                          int rows, int ld, float scale) {
-  // 64 rows x 8 chunks of 8 elements = 512 chunks, 4 per thread
-  for (int c = threadIdx.x; c < kBlockK * (kDh / 8); c += kThreads) {
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      const In* p = src + (size_t)(row0 + r) * ld + col;
-      if constexpr (std::is_same<In, __nv_bfloat16>::value && !kScaled) {
-        val = *reinterpret_cast<const uint4*>(p);
-      } else {
-        float f[8];
-        load8(p, f);
-        if (kScaled) {
+// One tile of the online softmax over this thread's rows g (lo) and g + 8
+// (hi): masks keys >= t_real when the tile reaches past it, updates the
+// running maxima (raw scores) and sums, returns each row's correction
+// factor for the earlier sums, and leaves the unnormalised
+// probabilities exp2(scale_log2 (s - m)) in s.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], int k0, int t_real, int t,
+                                             float scale_log2, float& m_lo, float& m_hi,
+                                             float& l_lo, float& l_hi, float& corr_lo,
+                                             float& corr_hi) {
+  if (k0 + kBlockK > t_real) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) f[i] *= scale;
-        }
-        val = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
-                         pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
-      }
+    for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * j + 2 * t + (e & 1) >= t_real) s[4 * j + e] = -INFINITY;
+  }
+  // row maxima and sums as trees over the 16 n-chunks: short dependency
+  // chains
+  float a_lo[8], a_hi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a_lo[j] = fmaxf(fmaxf(s[4 * j], s[4 * j + 1]), fmaxf(s[4 * j + 32], s[4 * j + 33]));
+    a_hi[j] = fmaxf(fmaxf(s[4 * j + 2], s[4 * j + 3]), fmaxf(s[4 * j + 34], s[4 * j + 35]));
+  }
+#pragma unroll
+  for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+      a_lo[j] = fmaxf(a_lo[j], a_lo[j + w]);
+      a_hi[j] = fmaxf(a_hi[j], a_hi[j + w]);
     }
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
+  float mx_lo = fmaxf(m_lo, a_lo[0]), mx_hi = fmaxf(m_hi, a_hi[0]);
+  // the 4 lanes of a row group hold the row's 128 columns between them
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
   }
+  // key 0 < t_real lies in tile 0, so every max is finite from there on;
+  // on tile 0 the old max is -inf and the correction exp2(-inf) = 0
+  corr_lo = fast_exp2((m_lo - mx_lo) * scale_log2);
+  corr_hi = fast_exp2((m_hi - mx_hi) * scale_log2);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  const float off_lo = mx_lo * scale_log2, off_hi = mx_hi * scale_log2;
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+    s[4 * j] = fast_exp2(fmaf(s[4 * j], scale_log2, -off_lo));
+    s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], scale_log2, -off_lo));
+    s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], scale_log2, -off_hi));
+    s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], scale_log2, -off_hi));
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a_lo[j] = (s[4 * j] + s[4 * j + 1]) + (s[4 * j + 32] + s[4 * j + 33]);
+    a_hi[j] = (s[4 * j + 2] + s[4 * j + 3]) + (s[4 * j + 34] + s[4 * j + 35]);
+  }
+#pragma unroll
+  for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+      a_lo[j] += a_lo[j + w];
+      a_hi[j] += a_hi[j + w];
+    }
+  l_lo = l_lo * corr_lo + a_lo[0];
+  l_hi = l_hi * corr_hi + a_hi[0];
 }
 
-// Two adjacent outputs of a row: bf16 as is; float32 as the bf16-rounded
+// The probabilities as the A operand of P V: k16 step kk takes the score
+// columns 16 kk..16 kk + 15, i.e. n-chunks 2 kk and 2 kk + 1.
+__device__ __forceinline__ void pack_probs(uint32_t (&p)[32], const float (&s)[64]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
+}
+
+// Two adjacent outputs of a row: bf16, or float32 holding the bf16-rounded
 // value (B19 rounds its output to bf16 before the cast to q's type).
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
@@ -122,161 +322,168 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 
-// One block: query rows [64 blockIdx.x, +64) of head blockIdx.y of batch
-// row blockIdx.z.  q/k/v rows `ld` elements apart, out rows D apart; q is
-// multiplied by q_scale on load when kScaleQ.
-template <typename In, bool kScaleQ>
-__global__ void __launch_bounds__(kThreads)
-attention_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
-                     const In* __restrict__ v, In* __restrict__ out, int T, int ld, int D,
-                     int t_real, float q_scale) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBlockQ][kLd];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK][kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK][kLd];
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int head = blockIdx.y;
-  const size_t base = (size_t)blockIdx.z * T * ld + (size_t)head * kDh;  // inputs
-  const size_t obase = (size_t)blockIdx.z * T * D + (size_t)head * kDh;  // output
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // row within the 8-row group
-  const int t = lane & 3;   // column pair
+// Persistent: block b takes work items b, b + gridDim.x, ... of n_qt x H x
+// B (128-query tile fastest, then head, then batch row), so the producer
+// loads the next item's Q and first K/V tiles while the consumers finish
+// the current one.  The maps cover q, K and V as (D, T, B) bf16 with
+// 64 x 128 x 1 boxes; out rows D apart; scores multiplied by
+// scale_log2 / log2(e).
+template <typename Out>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, Out* __restrict__ out, int B,
+                       int T, int D, int t_real, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const uint32_t q_buf = base;                         // 2 tiles: items alternate
+  const uint32_t k_ring = base + 2 * kTileBytes;
+  const uint32_t v_ring = k_ring + kStages * kTileBytes;
+  const uint32_t q_full = base + kBarrierOffset;       // 2 barriers each
+  const uint32_t q_empty = q_full + 16;
+  const uint32_t k_full = q_empty + 16;                // kStages barriers each
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t kv_empty = v_full + 8 * kStages;
 
-  load_tile<In, kScaleQ>(q_s, q + base, q0, T, ld, q_scale);
+  const int n_qt = (T + kBlockQ - 1) / kBlockQ;
+  const int heads = D / kDh;
+  const int n_items = n_qt * heads * B;
+  const int n_tiles = (t_real + kBlockK - 1) / kBlockK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + 8 * i, 1);
+      mbar_init(q_empty + 8 * i, kConsumers * 4);  // every consumer warp
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(kv_empty + 8 * i, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per 16-wide dh chunk
-  uint32_t qa[kDh / 16][4];
-  const int wr = warp * kRowsPerWarp;
-#pragma unroll
-  for (int kc = 0; kc < kDh / 16; ++kc) {
-    qa[kc][0] = *reinterpret_cast<const uint32_t*>(&q_s[wr + g][kc * 16 + 2 * t]);
-    qa[kc][1] = *reinterpret_cast<const uint32_t*>(&q_s[wr + g + 8][kc * 16 + 2 * t]);
-    qa[kc][2] = *reinterpret_cast<const uint32_t*>(&q_s[wr + g][kc * 16 + 8 + 2 * t]);
-    qa[kc][3] = *reinterpret_cast<const uint32_t*>(&q_s[wr + g + 8][kc * 16 + 8 + 2 * t]);
-  }
-
-  float o[kDh / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kDh / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, rows g and g+8
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's partial sums
-
-  const int n_tiles = (t_real + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // previous tile fully consumed
-    load_tile<In, false>(k_s, k + base, k0, T, ld, 1.f);
-    load_tile<In, false>(v_s, v + base, k0, T, ld, 1.f);
-    __syncthreads();
-
-    // scores S (16 x 64) = Q K^T: 8 key n-tiles of 8
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kDh / 16; ++kc) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&k_s[nt * 8 + g][kc * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&k_s[nt * 8 + g][kc * 16 + 8 + 2 * t]);
-        mma_16816(s[nt], qa[kc], b0, b1);
-      }
-    }
-
-    // mask keys >= t_real, then the tile's row maxima
-    float tmax_lo = -INFINITY, tmax_hi = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (k0 + nt * 8 + 2 * t + j >= t_real) {
-          s[nt][j] = -INFINITY;
-          s[nt][2 + j] = -INFINITY;
+  if (threadIdx.x < 128) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int ring = 0;  // K/V tiles through the ring so far
+      for (int i = 0, item = blockIdx.x; item < n_items; ++i, item += gridDim.x) {
+        const int col = (item / n_qt) % heads * kDh, batch = item / (n_qt * heads);
+        const uint32_t qb = 8 * (i & 1);
+        mbar_wait(q_empty + qb, ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full + qb, kTileBytes);
+        tma_load_3d(q_buf + (i & 1) * kTileBytes, &q_map, q_full + qb, col,
+                    item % n_qt * kBlockQ, batch);
+        for (int kt = 0; kt < n_tiles; ++kt, ++ring) {
+          const int st = ring % kStages;
+          mbar_wait(kv_empty + 8 * st, ((ring / kStages) & 1) ^ 1);
+          mbar_expect_tx(k_full + 8 * st, kTileBytes);
+          tma_load_3d(k_ring + st * kTileBytes, &k_map, k_full + 8 * st, col, kt * kBlockK, batch);
+          mbar_expect_tx(v_full + 8 * st, kTileBytes);
+          tma_load_3d(v_ring + st * kTileBytes, &v_map, v_full + 8 * st, col, kt * kBlockK, batch);
         }
-        tmax_lo = fmaxf(tmax_lo, s[nt][j]);
-        tmax_hi = fmaxf(tmax_hi, s[nt][2 + j]);
       }
     }
-    // the 4 lanes of a row group hold the row's 64 columns between them
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      tmax_lo = fmaxf(tmax_lo, __shfl_xor_sync(0xffffffffu, tmax_lo, off));
-      tmax_hi = fmaxf(tmax_hi, __shfl_xor_sync(0xffffffffu, tmax_hi, off));
-    }
-    // key 0 < t_real lies in tile 0, so every row max is finite from here
-    const float mn_lo = fmaxf(m_lo, tmax_lo);
-    const float mn_hi = fmaxf(m_hi, tmax_hi);
-    const float corr_lo = __expf(m_lo - mn_lo);  // exp(-inf) = 0 on tile 0
-    const float corr_hi = __expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    l_lo *= corr_lo;
-    l_hi *= corr_hi;
-#pragma unroll
-    for (int dt = 0; dt < kDh / 8; ++dt) {
-      o[dt][0] *= corr_lo;
-      o[dt][1] *= corr_lo;
-      o[dt][2] *= corr_hi;
-      o[dt][3] *= corr_hi;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - mn_lo);
-      s[nt][1] = __expf(s[nt][1] - mn_lo);
-      s[nt][2] = __expf(s[nt][2] - mn_hi);
-      s[nt][3] = __expf(s[nt][3] - mn_hi);
-      l_lo += s[nt][0] + s[nt][1];
-      l_hi += s[nt][2] + s[nt][3];
-    }
+  } else {  // consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float o[32], s[64];
+    uint32_t p[32];
 
-    // O += P V: P's accumulators re-packed as A fragments (16 keys each)
+    int ring = 0;
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    for (int i = 0, item = blockIdx.x; item < n_items; ++i, item += gridDim.x) {
+      const int q0 = item % n_qt * kBlockQ;
+      const int col = (item / n_qt) % heads * kDh, batch = item / (n_qt * heads);
+      const uint32_t qb = 8 * (i & 1);
+      const uint32_t my_q = q_buf + (i & 1) * kTileBytes + wg * 64 * 128;  // this warpgroup's rows
 #pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const unsigned short* vs = reinterpret_cast<const unsigned short*>(&v_s[0][0]);
-      const int r0 = kc * 16 + 2 * t;
+      for (int j = 0; j < 32; ++j) o[j] = 0.f;
+      float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, corr_lo, corr_hi;
+
+      int st = ring % kStages;
+      mbar_wait(q_full + qb, (i >> 1) & 1);
+      mbar_wait(k_full + 8 * st, (ring / kStages) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_scores(s, my_q, k_ring + st * kTileBytes);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      reg_fence(s);
+      if (n_tiles == 1 && lane == 0) mbar_arrive(q_empty + qb);  // the item's last use of Q
+      softmax_tile(s, 0, t_real, t, scale_log2, m_lo, m_hi, l_lo, l_hi, corr_lo, corr_hi);
+      pack_probs(p, s);
+
+      for (int kt = 1; kt < n_tiles; ++kt) {
+        const int prev = st;
+        st = (ring + kt) % kStages;
+        mbar_wait(k_full + 8 * st, ((ring + kt) / kStages) & 1);
+        mbar_wait(v_full + 8 * prev, ((ring + kt - 1) / kStages) & 1);
+        turn_wait(wg);
+        wgmma_fence();
+        issue_scores(s, my_q, k_ring + st * kTileBytes);
+        wgmma_commit();
+        issue_pv(o, p, v_ring + prev * kTileBytes);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<1>();  // the scores; P V of tile kt - 1 runs on
+        reg_fence(s);
+        if (kt == n_tiles - 1 && lane == 0) mbar_arrive(q_empty + qb);
+        softmax_tile(s, kt * kBlockK, t_real, t, scale_log2, m_lo, m_hi, l_lo, l_hi, corr_lo,
+                     corr_hi);
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(p);
+        if (lane == 0) mbar_arrive(kv_empty + 8 * prev);
 #pragma unroll
-      for (int dt = 0; dt < kDh / 8; ++dt) {
-        const int col = dt * 8 + g;
-        const uint32_t b0 = (uint32_t)vs[r0 * kLd + col] |
-                            ((uint32_t)vs[(r0 + 1) * kLd + col] << 16);
-        const uint32_t b1 = (uint32_t)vs[(r0 + 8) * kLd + col] |
-                            ((uint32_t)vs[(r0 + 9) * kLd + col] << 16);
-        mma_16816(o[dt], pa, b0, b1);
+        for (int j = 0; j < 8; ++j) {
+          o[4 * j] *= corr_lo;
+          o[4 * j + 1] *= corr_lo;
+          o[4 * j + 2] *= corr_hi;
+          o[4 * j + 3] *= corr_hi;
+        }
+        pack_probs(p, s);
+      }
+      mbar_wait(v_full + 8 * st, ((ring + n_tiles - 1) / kStages) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_pv(o, p, v_ring + st * kTileBytes);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      reg_fence(o);
+      reg_fence(p);
+      if (lane == 0) mbar_arrive(kv_empty + 8 * st);
+      ring += n_tiles;
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+      }
+      const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+      const int row_lo = q0 + wg * 64 + warp * 16 + g;
+      const int row_hi = row_lo + 8;
+      Out* dst = out + (size_t)batch * T * D + col + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kDh / 8; ++j) {
+        if (row_lo < T)
+          store2(dst + (size_t)row_lo * D + 8 * j, o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+        if (row_hi < T)
+          store2(dst + (size_t)row_hi * D + 8 * j, o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
       }
     }
+    if (wg == 0) turn_wait(wg);  // warpgroup 1's last pass: none left pending
   }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = 1.f / l_lo;
-  const float inv_hi = 1.f / l_hi;
-  const int row_lo = q0 + wr + g;
-  const int row_hi = row_lo + 8;
-#pragma unroll
-  for (int dt = 0; dt < kDh / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row_lo < T) store2(out + obase + (size_t)row_lo * D + col, o[dt][0] * inv_lo, o[dt][1] * inv_lo);
-    if (row_hi < T) store2(out + obase + (size_t)row_hi * D + col, o[dt][2] * inv_hi, o[dt][3] * inv_hi);
-  }
-}
-
-// Launch on `st`: B x heads blocks of query tiles.
-template <typename In, bool kScaleQ>
-cudaError_t launch_attention_mma(const In* q, const In* k, const In* v, In* out, int B, int T,
-                                 int ld, int D, int t_real, float q_scale, cudaStream_t st) {
-  const dim3 grid((T + kBlockQ - 1) / kBlockQ, D / kDh, B);
-  attention_mma_kernel<In, kScaleQ><<<grid, kThreads, 0, st>>>(q, k, v, out, T, ld, D, t_real,
-                                                              q_scale);
-  return cudaGetLastError();
 }
 
 }  // namespace ttasr_enc

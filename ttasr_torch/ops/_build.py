@@ -42,8 +42,9 @@ ARGTYPES = {
     "ttasr_encoder_attention": [_P] * 4 + [_I] * 5 + [_P],
     # qkv, out; B, T, D, t_real, dtype; stream
     "ttasr_encoder_attention_qkv": [_P] * 2 + [_I] * 5 + [_P],
-    # q, k, v, out; B, T, D, dtype; stream
-    "ttasr_encoder_self_attention": [_P] * 4 + [_I] * 4 + [_P],
+    # q, k, v, scratch (float32 inputs rounded to bf16), out; B, T, D,
+    # dtype; stream
+    "ttasr_encoder_self_attention": [_P] * 5 + [_I] * 4 + [_P],
     # x, basis, fb, out; B, n, n_mels; stream
     "ttasr_log_mel": [_P] * 4 + [_I] * 3 + [_P],
     # x, ln_s, ln_b, codes, scales; rows, D; stream

@@ -15,7 +15,9 @@ the s8 x s8 encoder's fused (B, T, 3D) qkv buffer.
 :func:`encoder_self_attention` (B19) is the head-split kernel of
 ``encoder_attention_pallas.py::encoder_self_attention``, with its own
 rounding: q/k/v (B, T, H, 64) in float32 or bf16, everything rounded to
-bf16 on the way in and the output on the way out.
+bf16 on the way in and the output on the way out.  All three run one bf16
+kernel on the card (``csrc/encoder_attention.cuh``: wgmma on a TMA ring);
+B11's and B6's float32 inputs take a SIMT kernel in exact f32.
 """
 
 from __future__ import annotations
@@ -100,8 +102,8 @@ def encoder_attention_merged_qkv(qkv, t_real: int):
     the merged attention reading q, K and V straight from the fused
     (B, T, 3D) qkv buffer (columns 0:D, D:2D, 2D:3D; q pre-scaled through
     the weight scales).  Returns (B, T, D) in the buffer's type.  The
-    kernel is B11's tile loop with a row stride of 3D; the plain version
-    runs for CPU tensors.  Counts its launches in
+    kernel is B11's, its q, K and V tensor maps laid over the one buffer
+    with a row stride of 3D; the plain version runs for CPU tensors.  Counts its launches in
     ``encoder_attention_merged_qkv.launches``."""
     t_real = int(t_real)
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * DH):
@@ -154,8 +156,11 @@ def encoder_self_attention(q, k, v):
     non-causal self-attention of q/k/v (B, T, H, 64) float32 or bf16, in
     q's type; see :func:`encoder_self_attention_ref` for the roundings.
     The kernel reads the contiguous (B, T, H, 64) tensors as the merged
-    (B, T, 64 H) layout, so nothing is transposed or padded.  The plain
-    version runs for CPU tensors.  Counts its launches in
+    (B, T, 64 H) layout, so nothing is transposed or padded, and scales
+    the scores by 64**-0.5 = 2**-3 instead of q (a power of two commutes
+    with rounding to bf16 and with the f32 sums); float32 inputs are
+    first rounded to bf16 into scratch.  The plain version runs for CPU
+    tensors.  Counts its launches in
     ``encoder_self_attention.launches``."""
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q/k/v must share one (B, T, H, Dh) shape: "
@@ -182,8 +187,10 @@ def encoder_self_attention(q, k, v):
     from ttasr_torch.ops._build import launch
 
     out = torch.empty_like(q)
-    launch("ttasr_encoder_self_attention", q.device, q, k, v, out, b, t, h * dh,
-           _DTYPE_CODE[q.dtype])
+    scratch = (torch.empty(3 * q.numel(), dtype=torch.bfloat16, device=q.device)
+               if q.dtype == torch.float32 else None)
+    launch("ttasr_encoder_self_attention", q.device, q, k, v, scratch, out, b, t,
+           h * dh, _DTYPE_CODE[q.dtype])
     encoder_self_attention.launches += 1
     return out
 
