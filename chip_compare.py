@@ -1,0 +1,314 @@
+#!/usr/bin/env python3
+"""Times the decode step's int8 kernels of this checkout against those of
+another copy of ``ttasr_torch/csrc`` on one NVIDIA GPU.
+
+    python3 chip_compare.py --other DIR [--phases]
+
+DIR holds the other sources, for instance the parent commit's
+``ttasr_torch/csrc`` written out with ``git show`` or ``git archive``.  Both
+are built with nvcc into separate libraries and called through the same C
+entry points on the same seeded large-v3 inputs (``chip_smoke.Inputs``):
+B15, the LayerNorm GEMM alone (B1's entry at N = 1280), B1, B13 (int4 and
+int8), B3, B16, B4, B14 and B12.  For each, the two builds in turns (other,
+this, this, other), it prints ``chip_smoke.time_ms`` (one call per CUDA
+graph replay, whose floor it prints too), the time per call of a graph of
+20 calls (no host launch floor) and the kernels' device time from
+``torch.profiler``, and how far the other build's output lies from this
+one's; then B15, the other build's B15 and B15's library call (a bf16
+matmul) cold, over the 64 distinct weights of a tensor-parallel step.
+
+``--phases`` also builds an instrumented copy of this checkout's kernels:
+thread 0 of every block stamps ``%globaltimer`` at the skinny GEMM's and
+the cross-attention's phase points, and the script prints, per phase, the
+median and the latest block's microseconds from the first block's start.
+The instrumentation is text inserted at fixed places of the sources and
+fails loudly when they change.
+
+Imports nothing of jax and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import shutil
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(ROOT, "ttasr_torch", "csrc")
+SOURCES = ("decoder_blocks.cu", "decoder_mlp.cu", "cross_attention.cu")
+
+
+def build(src_dir: str, out_dir: str, tag: str) -> ctypes.CDLL:
+    """The decode kernels of ``src_dir`` in a library of their own."""
+    from ttasr_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    objs = [os.path.join(out_dir, f"{tag}_{s}.o") for s in SOURCES]
+    _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, os.path.join(src_dir, s)]
+                     for s, o in zip(SOURCES, objs)])
+    lib = os.path.join(out_dir, f"lib{tag}.so")
+    _build._run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+                      lib, *objs]])
+    dll = ctypes.CDLL(lib)
+    for name, argtypes in _build.ARGTYPES.items():
+        if hasattr(dll, name):
+            getattr(dll, name).argtypes = argtypes
+            getattr(dll, name).restype = ctypes.c_int
+    return dll
+
+
+def call(dll, entry, *args) -> None:
+    import torch
+
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(dll, entry)(*c_args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry}: cudaError {err}")
+
+
+def cases(cs):
+    """{label: (entry point, args...)}: the last tensor argument is the
+    output that is compared."""
+    import torch
+
+    D, F, S, SR = cs.D, cs.FFN, cs.S_PAD, cs.S_REAL
+    inp = cs.Inputs(1)
+    lay = inp.layer()
+
+    def e(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="cuda", dtype=dtype)
+
+    x5, a5, q = inp.randn(5, D, scale=0.5), inp.randn(5, D, scale=0.5), inp.randn(1, 5, D, scale=0.05)
+    kv4, kv8 = inp.cross_kv(1, True), inp.cross_kv(1, False)
+    cross = (lay["wqc"], lay["wqc_s"], lay["bqc"])
+    return {
+        "B15 R=5 (DL=1280)": ("ttasr_matmul_int8_partial", x5, lay["wo"], lay["wo_s"], e(5, D), 5, D, D),
+        "LayerNorm GEMM R=5 (B1's entry at N=1280)": (
+            "ttasr_qkv_int8", x5, lay["lnc_s"], lay["lnc_b"], *cross, e(5, D), 5, D, D),
+        "B1 R=5": ("ttasr_qkv_int8", x5, lay["ln1_s"], lay["ln1_b"], lay["wqkv"], lay["wqkv_s"],
+                   lay["bqkv"], e(5, 3 * D), 5, D, 3 * D),
+        "B13 B=1 K=5 int4": ("ttasr_cross_attention_int8", q, *kv4, e(1, 5, D), 1, 5, D, S, SR, 1),
+        "B13 B=1 K=5 int8": ("ttasr_cross_attention_int8", q, *kv8, e(1, 5, D), 1, 5, D, S, SR, 0),
+        "B3 B=1 K=5 int4": ("ttasr_attnout_cross_int8", x5, a5, lay["wo"], lay["wo_s"], lay["bo"],
+                            lay["lnc_s"], lay["lnc_b"], *cross, *kv4, e(5, D), e(5, D), e(5, D),
+                            1, 5, D, D, S, SR, 1),
+        "B16 B=1 K=5 int4": ("ttasr_ln_q_cross_int8", x5, lay["lnc_s"], lay["lnc_b"], *cross, *kv4,
+                             e(5, D), e(5, D), 1, 5, D, D, S, SR, 1),
+        "B4 R=5": ("ttasr_mlp_crossout_int8", x5, a5, lay["woc"], lay["woc_s"], lay["boc"],
+                   lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"], lay["b1"], lay["w2"],
+                   lay["w2_s"], lay["b2"], e(5, D), e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F),
+        "B14 partial R=5": ("ttasr_mlp_int8", x5, lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"],
+                            lay["b1"], lay["w2"], lay["w2_s"], lay["b2"],
+                            e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F, 1),
+        "B12 R=10": ("ttasr_attnout_ln_q", inp.randn(10, D), inp.randn(10, D), lay["wo"],
+                     lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"], *cross, e(10, D), e(10, D),
+                     10, D, D),
+    }
+
+
+def per_call_ms(cs, fn, reps: int = 20) -> float:
+    """Milliseconds per call of a CUDA graph of ``reps`` calls: back to back
+    on the card, with no host launch between them."""
+    return cs.time_ms(lambda: [fn() for _ in range(reps)]) / reps
+
+
+def device_ms(fn, n: int = 30) -> float:
+    """The kernels' device milliseconds per call, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+
+
+def compare(cs, this, other, card: str) -> None:
+    import torch
+
+    t = torch.zeros(1, device="cuda")
+    print(f"time_ms floor (a 1-element add per replay): {cs.time_ms_floor():.4f} ms; "
+          f"per call in a graph of 20: {per_call_ms(cs, lambda: t.add_(1.0)):.4f} ms ({card})",
+          flush=True)
+    for label, (entry, *args) in cases(cs).items():
+        out = [a for a in args if isinstance(a, torch.Tensor)][-1]
+        res = {}
+        for tag, dll in (("other", other), ("this", this)):
+            call(dll, entry, *args)
+            torch.cuda.synchronize()
+            res[tag] = out.float().clone()
+        diff = (res["other"] - res["this"]).abs().max().item()
+        times = {"other": [], "this": []}
+        for tag in ("other", "this", "this", "other"):
+            dll = other if tag == "other" else this
+            fn = (lambda d=dll: call(d, entry, *args))
+            times[tag].append((cs.time_ms(fn), per_call_ms(cs, fn), device_ms(fn)))
+        mean = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
+        print(f"{label}: " + "; ".join(
+            f"{k} time_ms {m[0]:.4f}, in a graph of 20 {m[1]:.4f}, device {m[2]:.4f}"
+            for k, m in mean.items()) + f" ms; max|this - other| {diff:.3e} ({card})", flush=True)
+
+    inp = cs.Inputs(2)
+    x = inp.randn(5, cs.D, scale=0.5)
+    out = torch.empty(5, cs.D, device="cuda")
+    weights = [inp.weight(cs.D, cs.D) for _ in range(2 * cs.N_LAYERS)]
+    bf16 = [w.to(torch.bfloat16) for w, _ in weights]
+
+    def b15(dll):
+        return [lambda w=w: call(dll, "ttasr_matmul_int8_partial", x, *w, out, 5, cs.D, cs.D)
+                for w in weights]
+
+    library = [lambda w=w: torch.matmul(x.to(torch.bfloat16), w) for w in bf16]
+    for label, fns in (("other", b15(other)), ("this", b15(this)), ("library", library),
+                       ("library", library), ("this", b15(this)), ("other", b15(other))):
+        print(f"B15 cold, {label}: {cs.time_cold_ms(fns):.4f} ms per call (a graph over "
+              f"{len(fns)} weights) ({card})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# --phases: %globaltimer at the kernels' phase points
+# ---------------------------------------------------------------------------
+
+PHASE_DEF = """__device__ unsigned long long g_phase[2][4096][12];
+__device__ __forceinline__ void phase_mark(int kind, int i) {
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_phase[kind][blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)][i] = t;
+  }
+}
+
+"""
+READ = """
+extern "C" int ttasr_phase_clear() {
+  void* p = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&p, ttasr::g_phase);
+  return (int)(err != cudaSuccess ? err : cudaMemset(p, 0, sizeof(ttasr::g_phase)));
+}
+
+extern "C" int ttasr_phase_read(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, ttasr::g_phase, sizeof(ttasr::g_phase));
+}
+"""
+GEMM_PHASES = ["start", "slab issued", "prologue", "slab here", "summed", "pushed", "synced",
+               "end"]
+CROSS_PHASES = ["start", "rows issued", "queries", "scores", "max exchanged", "sums exchanged",
+                "probabilities", "outputs exchanged", "end"]
+# (file, text, the text with a mark): each text must occur once
+MARKS = [
+    ("skinny_gemm.cuh", "// The cluster barrier split in two", PHASE_DEF + "// The cluster barrier split in two"),
+    ("skinny_gemm.cuh", "  const int n0 = blockIdx.x * kTileCols;\n",
+     "  const int n0 = blockIdx.x * kTileCols;\n  phase_mark(0, 0);\n"),
+    ("skinny_gemm.cuh", "  __syncthreads();  // no thread waits on the barrier before its init\n",
+     "  __syncthreads();  // no thread waits on the barrier before its init\n  phase_mark(0, 1);\n"),
+    ("skinny_gemm.cuh", "    // the block's K range of the chunk's rows, bf16-rounded",
+     "    phase_mark(0, 2);\n    // the block's K range of the chunk's rows, bf16-rounded"),
+    ("skinny_gemm.cuh", "    if (chunk == 0 && kr > 0) mbar_wait(bar, 0);\n    __syncthreads();\n",
+     "    if (chunk == 0 && kr > 0) mbar_wait(bar, 0);\n    __syncthreads();\n    phase_mark(0, 3);\n"),
+    ("skinny_gemm.cuh", "      if (chunk == 0) cluster_wait();\n",
+     "      phase_mark(0, 4);\n      if (chunk == 0) cluster_wait();\n"),
+    ("skinny_gemm.cuh", "    cluster.sync();\n    if (out_here) {",
+     "    phase_mark(0, 5);\n    cluster.sync();\n    phase_mark(0, 6);\n    if (out_here) {"),
+    ("skinny_gemm.cuh", "        static_cast<float*>(g.out)[oi] = vs;\n      }\n    }\n  }\n}\n",
+     "        static_cast<float*>(g.out)[oi] = vs;\n      }\n    }\n    phase_mark(0, 7);\n  }\n}\n"),
+    ("cross_attention.cuh", "  const float* vs_row = cvs + ((size_t)b * H + h) * S;\n",
+     "  const float* vs_row = cvs + ((size_t)b * H + h) * S;\n  phase_mark(1, 0);\n"),
+    ("cross_attention.cuh", "  cp_async_commit();\n  griddep_launch_dependents();\n",
+     "  cp_async_commit();\n  phase_mark(1, 1);\n  griddep_launch_dependents();\n"),
+    ("cross_attention.cuh", "  // pass 1: scores", "  phase_mark(1, 2);\n  // pass 1: scores"),
+    ("cross_attention.cuh", "  // the softmax over the cluster", "  phase_mark(1, 3);\n  // the softmax over the cluster"),
+    ("cross_attention.cuh", "[kStatMaxes + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n",
+     "[kStatMaxes + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n  phase_mark(1, 4);\n"),
+    ("cross_attention.cuh", "[kStatSums + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n",
+     "[kStatSums + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n  phase_mark(1, 5);\n"),
+    ("cross_attention.cuh", "  // pass 2: out[r, d]", "  phase_mark(1, 6);\n  // pass 2: out[r, d]"),
+    ("cross_attention.cuh", "  cluster.sync();  // the last access to a peer's shared memory is before this\n",
+     "  cluster.sync();  // the last access to a peer's shared memory is before this\n  phase_mark(1, 7);\n"),
+    ("cross_attention.cuh", "    cross[((size_t)b * K + r) * D + h * kDh + d] = v;\n  }\n}\n",
+     "    cross[((size_t)b * K + r) * D + h * kDh + d] = v;\n  }\n  phase_mark(1, 8);\n}\n"),
+]
+
+
+def instrumented(out_dir: str) -> str:
+    """A copy of this checkout's csrc/ with the phase marks."""
+    dst = os.path.join(out_dir, "csrc_phases")
+    shutil.copytree(CSRC, dst)
+    for fname, old, new in MARKS:
+        path = os.path.join(dst, fname)
+        text = open(path).read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"--phases: {fname} no longer holds {old[:50]!r} once")
+        open(path, "w").write(text.replace(old, new))
+    with open(os.path.join(dst, "decoder_blocks.cu"), "a") as f:
+        f.write(READ)
+    return dst
+
+
+def phases(cs, dll, card: str) -> None:
+    import torch
+
+    dll.ttasr_phase_read.argtypes = [ctypes.c_void_p]
+    all_cases = cases(cs)
+    buf = np.zeros((2, 4096, 12), dtype=np.uint64)
+    for label in ("B15 R=5 (DL=1280)", "LayerNorm GEMM R=5 (B1's entry at N=1280)", "B1 R=5",
+                  "B3 B=1 K=5 int4"):
+        entry, *args = all_cases[label]
+        for _ in range(2):  # warm up, then stamp one call's blocks
+            call(dll, entry, *args)
+        torch.cuda.synchronize()
+        if dll.ttasr_phase_clear():
+            raise RuntimeError("phase clear failed")
+        call(dll, entry, *args)
+        torch.cuda.synchronize()
+        if dll.ttasr_phase_read(buf.ctypes.data):
+            raise RuntimeError("phase read failed")
+        kinds = [k for k in (0, 1) if buf[k, :, 0].any()]
+        t0 = min(int(buf[k, buf[k, :, 0] > 0, 0].min()) for k in kinds)
+        for kind in kinds:
+            names = GEMM_PHASES if kind == 0 else CROSS_PHASES
+            rows = buf[kind, buf[kind, :, 0] > 0, :len(names)]
+            t = (rows.astype(np.int64) - t0) / 1e3
+            what = "the last skinny GEMM" if kind == 0 else "the cross-attention"
+            print(f"{label}, {what} ({len(rows)} blocks), us from the first block's start, "
+                  "median/latest: " + ", ".join(
+                      f"{nm} {np.median(t[:, i]):.2f}/{t[:, i].max():.2f}"
+                      for i, nm in enumerate(names)) + f" ({card})", flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--other", required=True, help="another copy of ttasr_torch/csrc")
+    parser.add_argument("--phases", action="store_true", help="print the phase timelines too")
+    opts = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from ttasr_torch import resolve_device
+
+    resolve_device("cuda")
+    card = cs.card_line()
+    print(card, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        this = build(CSRC, tmp, "this")
+        other = build(os.path.abspath(opts.other), tmp, "other")
+        compare(cs, this, other, card)
+        if opts.phases:
+            phases(cs, build(instrumented(tmp), tmp, "phases"), card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

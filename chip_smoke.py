@@ -8,7 +8,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 1. the device: CUDA must be available; prints the card's name and power
    limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``ttasr_torch/csrc`` with nvcc
-   (one process per source, in parallel);
+   (one process per source, in parallel), and prints the floor of
+   ``time_ms`` (a 1-element add per CUDA graph replay: the host's launch
+   rate, which a kernel time near it reflects);
 3. holds the encoder-attention kernel (B11) against its plain PyTorch
    version at large-v3 shapes (bf16 and float32, full and ragged
    ``t_real``); prints its TFLOP/s and share of the bound beside
@@ -22,7 +24,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    its plain version, and one decoder layer's chain B1 -> B2 -> B3 -> B4
    against the plain chain, are timed in turns (plain, kernel, kernel,
    plain) with CUDA events over replays of a CUDA graph of the call, so
-   the host's launch overhead is out of both numbers;
+   the host's launch overhead is out of both numbers; B3 also with an
+   ``s_real`` that masks a whole split of its cross-attention's cluster
+   (finite, within the same bound), twice on one input (the same bits), and
+   cold: a graph over 32 layers' distinct weights and cross-KV caches;
 5. holds the s8 x s8 encoder's kernels against their plain versions at
    large-v3 shapes (B = 1 and 2, T = 1500): B5 ``ln_quant``, B7
    ``quant_only``, B8 ``add_ln_quant`` (D = 1280) and B9 ``gelu_quant`` (F =
@@ -39,7 +44,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 6. holds the kernels of the decode's other branches against their plain
    versions at large-v3 shapes: B12 ``attnout_ln_q_fused`` at 5 and 10
    rows and B13 ``cross_attention_int8`` at (B, K) = (1, 5), (5, 1) and
-   (1, 8) over int8 and int4 cross-KV, within the bound of B1-B4; B17
+   (1, 8) over int8 and int4 cross-KV, and at (1, 5) with a whole split of
+   the cache masked, within the bound of B1-B4; B17
    ``gather_cache_rows`` (32 layers, 5 rows, len 480, int4 and int8 codes,
    a top-k's index and a permutation) byte for byte; timed as in phase 4,
    B17 on the permutation beside its library call (four ``index_select``
@@ -49,8 +55,12 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    (DL = 1280 and 640, 5 and 10 rows), B14 ``mlp_int8_fused`` (partial
    and full, F = 5120 and 2560, 5 and 8 rows) and B16 ``ln_q_cross_int8``
    (20 and 10 local heads, (B, K) = (1, 5) and (5, 1), int4 and int8
-   cross-KV), within the bound of B1-B4; timed as in phase 4, B15 beside
-   its library call (a bf16 matmul on a weight cast beforehand);
+   cross-KV, and at n = 1, (1, 5) with a whole split of the cache masked),
+   within the bound of B1-B4; B15 twice on one input (the same bits);
+   timed as in phase 4, B15 beside its library call (a bf16 matmul on a
+   weight cast beforehand), warm and cold (a graph over the 64 distinct
+   weights of a tensor-parallel step's wo and wo_c, the library call over
+   the same weights in bf16), with the ``time_ms`` floor beside them;
 8. drives B18 ``log_mel_spectrogram_fused`` and B19
    ``encoder_self_attention``, which no engine path calls (in either
    package), through their entry points as the JAX golden test drives the
@@ -93,8 +103,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    B13), and one 20 s file through the engine's ``transcribe`` with
    ``beam_size=10`` (B12 and the quantized cross-attention's XLA branch);
    each with exact launch counts, finite logits and its ms per step; the
-   unfused beam leg once more over ``PROFILE_STEPS`` tokens under
-   ``torch.profiler`` (device ms, kernels and busy share per step);
+   main-path leg and the unfused beam leg once more over
+   ``PROFILE_STEPS`` tokens under ``torch.profiler`` (device ms, kernels
+   and busy share per step);
 12. drives the tensor-parallel decode (``ttasr_torch.parallel``) on the
    same window: ``TPDecoder(..., create_mesh(1, 1), row_parallel=True)``
    on a one-rank NCCL group (TP v2: B15 twice, B16 and B14 per layer),
@@ -212,6 +223,39 @@ def in_turns(kernel_fn, plain_fn):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def time_ms_floor() -> float:
+    """``time_ms`` of one 1-element add: the floor that the host's graph
+    launches put under every ``time_ms`` reading; a kernel near it is
+    launch-bound in that reading, not device-bound."""
+    import torch
+
+    t = torch.zeros(1, device="cuda")
+    return time_ms(lambda: t.add_(1.0))
+
+
+def time_cold_ms(fns, iters: int = 5) -> float:
+    """Device milliseconds per call of a CUDA graph that calls every ``fns``
+    in turn once: each call meets its operands cold (their sum far beyond
+    the 50 MB L2), as one decode step meets its 32 layers' weights."""
+    return time_ms(lambda: [fn() for fn in fns], iters=iters) / len(fns)
+
+
+def _same_bits(name, fn) -> None:
+    """``fn()`` twice on the same input gives the same bits (fixed-order
+    sums, no atomics)."""
+    import torch
+
+    outs = []
+    for _ in range(2):
+        out = fn()
+        outs.append([t.clone() for t in (out if isinstance(out, tuple) else (out,))])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(*outs))
+    print(f"{name}: the same bits on two calls with the same input: {same}")
+    check(same, f"{name} gave other bits on a second call with the same input")
+
+
 def _max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
@@ -322,6 +366,10 @@ def check_encoder_attention(card: str) -> dict:
 
 D, H, FFN, S_PAD, S_REAL = 1280, 20, 5120, 1504, 1500
 HP = 24  # ceil(H / 8) * 8 scale rows
+# an s_real that masks every slot of the last of the 7 blocks that split a
+# (head, audio) of beam 5 (cross_attention.cuh: int4 packed rows 648-751,
+# slots 648-751 and 1400-1503; int8 slots 1290-1503)
+MASKED_S_REAL = 600
 
 
 class Inputs:
@@ -451,8 +499,31 @@ def check_decode_kernels(card: str) -> dict:
             worst = _hold("attnout_ln_q_cross_int8", case + " cross", got[1], want[1], worst)
             if (b, k, int4) == (1, 5, True):
                 main_b3 = args
+    # beam 5 of one audio with a whole split of the cache masked
+    for int4 in (True, False):
+        args = main_b3[:10] + tuple(inp.cross_kv(1, int4)) + (MASKED_S_REAL,)
+        got = blk.attnout_ln_q_cross_int8(*args)
+        want = blk.attnout_ln_q_cross_int8_ref(*args)
+        case = (f"B=1 K=5 {'int4' if int4 else 'int8'} cross-KV s_real={MASKED_S_REAL} "
+                f"(a whole split masked)")
+        check(bool(torch.isfinite(got[1]).all()), f"attnout_ln_q_cross_int8 {case}: not finite")
+        worst = _hold("attnout_ln_q_cross_int8", case + " x'", got[0], want[0], worst)
+        worst = _hold("attnout_ln_q_cross_int8", case + " cross", got[1], want[1], worst)
+    _same_bits("attnout_ln_q_cross_int8 B=1 K=5 int4",
+               lambda: blk.attnout_ln_q_cross_int8(*main_b3))
     ms, plain_ms = in_turns(lambda: blk.attnout_ln_q_cross_int8(*main_b3),
                             lambda: blk.attnout_ln_q_cross_int8_ref(*main_b3))
+    # cold: 32 layers' wo, cross query and cross-KV, one call each
+    cold = []
+    for _ in range(N_LAYERS):
+        (wo, wo_s), (wqc, wqc_s) = inp.weight(D, D), inp.weight(D, D)
+        layer = (main_b3[0], main_b3[1], wo, wo_s, lay["bo"], lay["lnc_s"], lay["lnc_b"],
+                 wqc, wqc_s, lay["bqc"], *inp.cross_kv(1, True), S_REAL)
+        cold.append(lambda a=layer: blk.attnout_ln_q_cross_int8(*a))
+    cold_ms = time_cold_ms(cold)
+    print(f"attnout_ln_q_cross_int8 B=1 K=5 int4: warm {ms:.4f} ms, cold {cold_ms:.4f} ms "
+          f"(a graph over {N_LAYERS} layers' weights and cross-KV) ({card})")
+    del cold
     # wo and the cross query (2 x 2 R D^2), scores and values over S_REAL
     b3_ops = 2.0 * 2 * 5 * D * D + 2.0 * 2 * 5 * S_REAL * D
     res["attnout_ln_q_cross_int8"] = dict(
@@ -799,6 +870,13 @@ def check_branch_kernels(card: str) -> dict:
                           ca.cross_attention_int8_ref(*b13), worst)
             if (b, k, int4) == (1, 5, False):  # the unfused beam leg's shape
                 main = b13
+    for int4 in (False, True):  # a whole split of the cache masked
+        b13 = (main[0], *inp.cross_kv(1, int4), MASKED_S_REAL)
+        got = ca.cross_attention_int8(*b13)
+        case = (f"B=1 K=5 {'int4' if int4 else 'int8'} cross-KV s_real={MASKED_S_REAL} "
+                f"(a whole split masked)")
+        check(bool(torch.isfinite(got).all()), f"cross_attention_int8 {case}: not finite")
+        worst = _hold("cross_attention_int8", case, got, ca.cross_attention_int8_ref(*b13), worst)
     ms, plain_ms = in_turns(lambda: ca.cross_attention_int8(*main),
                             lambda: ca.cross_attention_int8_ref(*main))
     # scores and values of 5 rows over the S_REAL valid slots
@@ -876,15 +954,27 @@ def check_tp_kernels(card: str) -> dict:
                           blk.matmul_int8_partial_ref(*b15), worst)
             if (n, r) == (1, 5):
                 main = b15
+    _same_bits("matmul_int8_partial n=1 R=5", lambda: blk.matmul_int8_partial(*main))
     ms, plain_ms = in_turns(lambda: blk.matmul_int8_partial(*main),
                             lambda: blk.matmul_int8_partial_ref(*main))
     x, wq, ws = main
     w_bf16 = wq.to(torch.bfloat16)  # cast once, outside the timed call
+    library_ms = time_ms(lambda: torch.matmul(x.to(torch.bfloat16), w_bf16))
     res["matmul_int8_partial"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        library_ms=time_ms(lambda: torch.matmul(x.to(torch.bfloat16), w_bf16)),
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         **bound(_tensors(main, blk.matmul_int8_partial(*main)),
                 2.0 * 5 * D * D, "bf16"))
+    # cold: the 64 row-split projections of a TP v2 step (wo, wo_c per
+    # layer), and the library call over the same weights cast to bf16
+    weights = [inp.weight(D, D) for _ in range(2 * N_LAYERS)]
+    cold_ms = time_cold_ms([lambda w=w: blk.matmul_int8_partial(x, *w) for w in weights])
+    cold_bf16 = [w.to(torch.bfloat16) for w, _ in weights]
+    cold_library_ms = time_cold_ms(
+        [lambda w=w: torch.matmul(x.to(torch.bfloat16), w) for w in cold_bf16])
+    del weights, cold_bf16
+    print(f"matmul_int8_partial R=5 DL=1280: warm {ms:.4f} ms, library {library_ms:.4f}; "
+          f"cold {cold_ms:.4f}, library cold {cold_library_ms:.4f} (a graph over "
+          f"{2 * N_LAYERS} weights); time_ms floor {time_ms_floor():.4f} ms ({card})")
 
     # B14: F / n hidden columns, partial (TP v2) and full, 5 and 8 rows
     worst, main = 0.0, None
@@ -928,6 +1018,13 @@ def check_tp_kernels(card: str) -> dict:
                               blk.ln_q_cross_int8_ref(*b16), worst)
                 if (n, b, k, int4) == (1, 1, 5, True):
                     main = b16
+    for int4 in (True, False):  # n = 1, beam 5, a whole split of the cache masked
+        b16 = main[:6] + tuple(inp.cross_kv(1, int4)) + (MASKED_S_REAL,)
+        got = blk.ln_q_cross_int8(*b16)
+        case = (f"n=1 B=1 K=5 {'int4' if int4 else 'int8'} cross-KV s_real={MASKED_S_REAL} "
+                f"(a whole split masked)")
+        check(bool(torch.isfinite(got).all()), f"ln_q_cross_int8 {case}: not finite")
+        worst = _hold("ln_q_cross_int8", case, got, blk.ln_q_cross_int8_ref(*b16), worst)
     ms, plain_ms = in_turns(lambda: blk.ln_q_cross_int8(*main),
                             lambda: blk.ln_q_cross_int8_ref(*main))
     # the cross query (2 R D DC), scores and values over S_REAL
@@ -1429,10 +1526,11 @@ def _unfused_decoder(params):
     return dict(params, decoder=dict(dec, blocks=blocks))
 
 
-PROFILE_STEPS = 16  # tokens of the profiled decode of PROFILED_LEG
-# the one leg decoded once more under torch.profiler: the slice's heaviest
-# step, with B13 in it
-PROFILED_LEG = "unfused int8 graph beam 5 (B13, 5-D cache)"
+PROFILE_STEPS = 16  # tokens of the profiled decodes of PROFILED_LEGS
+# the legs decoded once more under torch.profiler: the main path's step
+# (B1 -> B2 -> B3 -> B4) and the slice's heaviest, with B13 in it
+MAIN_LEG = "main path beam 5 (B3, ancestry map)"
+PROFILED_LEGS = (MAIN_LEG, "unfused int8 graph beam 5 (B13, 5-D cache)")
 
 
 def _profile_decode(run) -> dict:
@@ -1604,7 +1702,7 @@ def run_branch_paths(engine, audio, card: str):
         print(f"{label}: {steps} steps, {1e3 * wall / steps:.2f} ms per step "
               f"(decode wall {wall:.2f} s, prefill included) ({card})")
         print(f"{label} launches: {json.dumps({k: v for k, v in counts.items() if v})}")
-        if label == PROFILED_LEG:
+        if label in PROFILED_LEGS:
             prof = _profile_decode(lambda: decode(fn, params, rows, dict(
                 kw, sample_len=PROFILE_STEPS)))
             legs[label]["profile"] = prof
@@ -1618,9 +1716,8 @@ def run_branch_paths(engine, audio, card: str):
 
     L = N_LAYERS
     with _step_logits() as main_logits:
-        main, s = leg("main path beam 5 (B3, ancestry map)", beam_decode,
-                      engine.params)
-    _expect("main path leg", legs["main path beam 5 (B3, ancestry map)"]["counts"], {
+        main, s = leg(MAIN_LEG, beam_decode, engine.params)
+    _expect("main path leg", legs[MAIN_LEG]["counts"], {
         "qkv_int8_fused": L * s, "self_attn_step_indirect_int8": L * s,
         "attnout_ln_q_cross_int8": L * s, "mlp_with_crossout_int8": L * s})
 
@@ -2118,6 +2215,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    print(f"time_ms floor (one 1-element add per CUDA graph replay): "
+          f"{time_ms_floor():.4f} ms; a kernel time near it is the host's graph "
+          f"launch rate, not the kernel's ({card})")
 
     measured = {"encoder_attention_merged": check_encoder_attention(card)}
     measured.update(check_decode_kernels(card))

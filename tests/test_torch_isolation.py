@@ -100,6 +100,37 @@ def test_port_sources_never_import_ttasr():
                 assert not _IMPORT_TTASR.match(line), f"{path}:{i}: {line}"
 
 
+def test_chip_compare_imports_nothing_of_jax_or_ttasr():
+    """``chip_compare.py``, the kernel timing tool beside ``chip_smoke.py``,
+    loads with jax and the JAX package blocked, and its source names
+    neither."""
+    path = os.path.join(REPO_ROOT, "chip_compare.py")
+    with open(path, encoding="utf-8") as fh:
+        for i, line in enumerate(fh, 1):
+            assert not _IMPORT_TTASR.match(line), f"{path}:{i}: {line}"
+    code = textwrap.dedent(f"""
+        import importlib.abc, importlib.util, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in {BLOCKED!r}:
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {REPO_ROOT!r})
+        spec = importlib.util.spec_from_file_location("chip_compare", {path!r})
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        assert module.MARKS and callable(module.main)
+        print("ok")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO_ROOT, env=env, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 def _bpe_tokenizer_json(tmp_path):
     """A small byte-level BPE: the 256 byte tokens, merges for "th", "the",
     "in", "ing" and the first two bytes of 你 and 們, and the specials of

@@ -11,9 +11,10 @@
 // token and layer.  The queries arrive pre-scaled by dh^-0.5 in f32, as the
 // TPU kernel takes them; the kernel rounds them to bf16.
 //
-// What bounds it, and the design: cross_attention.cuh, which B3 launches
-// too -- one block per (head, audio) over all K beam rows, each K/V byte
-// read once per step.
+// What bounds it, and the design: cross_attention.cuh, which B3 and B16
+// launch too -- a cluster of blocks per (head, audio) splitting the cache
+// rows, each K/V byte read once per step for all K beam rows, an exact
+// softmax across the cluster.
 //
 // Built by ttasr_torch/ops/_build.py (nvcc -gencode arch=compute_90a,
 // code=sm_90a) and called through ctypes.

@@ -27,18 +27,27 @@
 // the int8 weights (B1 4.9 MB, B3 and B12 3.3 MB at large-v3) and the
 // cross-KV cache (1.9 MB per audio at int4) once per step, and at these
 // sizes by latency as much as bandwidth.  The design:
-//   * the weight products are the skinny GEMM of skinny_gemm.cuh (one block
-//     per 32 output columns, int8 streamed once, bf16 activations in shared
-//     memory, f32 sums in a fixed order, any row count in chunks of 8);
+//   * the weight products are the skinny GEMM of skinny_gemm.cuh: K split
+//     over a thread-block cluster so (N / 32) x splits blocks cover the 132
+//     SMs (wo and the cross query at large-v3: 40 tiles x 4), each block's
+//     int8 slab in flight by TMA before its prologue and read from shared
+//     memory by every row chunk, f32 sums in a fixed order (the cluster's
+//     blocks added in rank order through distributed shared memory), the
+//     order a function of (K, N) alone;
+//   * a call's second and third launch start early (programmatic dependent
+//     launch) and fetch their weights or cache rows while the launch
+//     before runs; the first launch of a call waits for all earlier work;
 //   * B12 is two launches from one C call: x' (which the LayerNorm needs
 //     whole before any cross query exists -- the TPU's sequential grid gave
 //     it that for free), then qc; B3 is the same two launches with the query
 //     pre-scale, then the cross-attention of cross_attention.cuh (shared
-//     with B13).  No atomics: the same input decodes to the same bits on
-//     every run;
+//     with B13 and B16: S split over a cluster per (head, audio), an exact
+//     softmax across it).  No atomics: the same input decodes to the same
+//     bits on every run;
 //   * B15 is one launch of the skinny GEMM with the f32 -> bf16 cast
 //     prologue and a scale-only epilogue (1.6 MB of W at n = 1): the bias
-//     is not partial-summable, so the caller adds it once after the sum;
+//     is not partial-summable, so the caller adds it once after the sum.
+//     Its products are B3's wo products bit for bit (same K, N, order);
 //   * B16 is B3's second and third launches: the LayerNorm query GEMM with
 //     the 64^-0.5 pre-scale, then cross_attention.cuh over the local heads,
 //     so B3, B13 and B16 share one attention and cannot drift apart.
@@ -82,7 +91,7 @@ cudaError_t attnout_ln_q(const void* x, const void* attn, const void* wo, const 
   GemmArgs g2{xo, static_cast<const float*>(lnc_s), static_cast<const float*>(lnc_b),
               static_cast<const int8_t*>(wqc), static_cast<const float*>(wqc_s),
               static_cast<const float*>(bqc), nullptr, qc, R, D, DC, qscale};
-  return ttasr::launch_skinny_gemm<ttasr::kLayerNorm, ttasr::kQScale>(g2, st);
+  return ttasr::launch_skinny_gemm<ttasr::kLayerNorm, ttasr::kQScale>(g2, st, true);
 }
 
 }  // namespace
@@ -101,6 +110,7 @@ namespace {
 
 // cross (B*K, DC) = per-head cross-attention of the pre-scaled queries qc
 // (B*K, DC) over the quantized cross-KV (B, S or S/2, DC).
+// The launch before it on `st` is the query GEMM of the same call.
 cudaError_t cross_of(const void* qc, const void* ck, const void* cks, const void* cv,
                      const void* cvs, void* cross, int B, int K, int DC, int S, int s_real,
                      int packed, cudaStream_t st) {
@@ -108,7 +118,7 @@ cudaError_t cross_of(const void* qc, const void* ck, const void* cks, const void
       static_cast<const float*>(qc), static_cast<const uint8_t*>(ck),
       static_cast<const float*>(cks), static_cast<const uint8_t*>(cv),
       static_cast<const float*>(cvs), static_cast<float*>(cross), B, K, DC, S, s_real, packed,
-      st);
+      st, true);
 }
 
 }  // namespace

@@ -20,17 +20,24 @@
 // R <= 16 rows, a few FLOP per byte against the H100's ~295 FLOP/byte bf16
 // balance point: it is bound by streaming the weights once per step.  The
 // design: three launches of the skinny GEMM (skinny_gemm.cuh) from one C
-// call.  The TPU kernel carries x' in VMEM scratch and accumulates the ffn
-// tiles into its output across its sequential grid; CUDA blocks run
+// call, each with K split over a thread-block cluster so the grid covers
+// the 132 SMs (wo_c 40 column tiles x 4, W1 160 x 2, W2 40 x 8 blocks of
+// 640 K rows at large-v3), each block's weight slab in flight at once, the
+// second and third launch started early (programmatic dependent launch) so
+// their weights arrive while the launch before runs.
+// The TPU kernel carries x' in VMEM scratch and accumulates the ffn tiles
+// into its output across its sequential grid; CUDA blocks run
 // concurrently, so x' and the (R, F) bf16 hidden activations go through
 // small device buffers the wrapper allocates, and every sum runs in a
-// fixed order inside one block (no atomics, the same bits on every run).
+// fixed order (inside a block, then over the cluster in rank order; no
+// atomics, the same bits on every run).
 //
 // B14 is B4 without its wo_c launch: the LayerNorm + GELU GEMM into the
 // bf16 hidden scratch, then the W2 GEMM with the scale-only epilogue
 // (partial) or the residual + bias one.  The TPU kernel sums its ffn tiles
-// in grid order into f32; here every column's sum runs in one block in a
-// fixed order, so the two differ only by reassociation.
+// in grid order into f32; here every column's sum runs in one cluster in a
+// fixed order, so the two differ only by reassociation.  B14's products
+// are B4's bit for bit at the same shapes.
 //
 // Built by ttasr_torch/ops/_build.py (nvcc -gencode arch=compute_90a,
 // code=sm_90a) and called through ctypes.
@@ -56,12 +63,12 @@ extern "C" int ttasr_mlp_crossout_int8(
   GemmArgs g2{x_mid, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
               static_cast<const int8_t*>(w1), static_cast<const float*>(w1_s),
               static_cast<const float*>(b1), nullptr, h, R, D, F, 1.f};
-  err = ttasr::launch_skinny_gemm<ttasr::kLayerNorm, ttasr::kGelu>(g2, st);
+  err = ttasr::launch_skinny_gemm<ttasr::kLayerNorm, ttasr::kGelu>(g2, st, true);
   if (err != cudaSuccess) return (int)err;
   GemmArgs g3{h, nullptr, nullptr, static_cast<const int8_t*>(w2),
               static_cast<const float*>(w2_s), static_cast<const float*>(b2),
               static_cast<const float*>(x_mid), out, R, F, D, 1.f};
-  return (int)ttasr::launch_skinny_gemm<ttasr::kBf16, ttasr::kResidualBias>(g3, st);
+  return (int)ttasr::launch_skinny_gemm<ttasr::kBf16, ttasr::kResidualBias>(g3, st, true);
 }
 
 // B14: h (scratch, R x F) = bf16(GELU(LN2(x) @ W1 * s1 + b1)); out (R, D) =
@@ -81,6 +88,6 @@ extern "C" int ttasr_mlp_int8(const void* x, const void* ln_s, const void* ln_b,
   GemmArgs g2{h, nullptr, nullptr, static_cast<const int8_t*>(w2),
               static_cast<const float*>(w2_s), static_cast<const float*>(b2),
               static_cast<const float*>(x), out, R, F, D, 1.f};
-  if (partial) return (int)ttasr::launch_skinny_gemm<ttasr::kBf16, ttasr::kScale>(g2, st);
-  return (int)ttasr::launch_skinny_gemm<ttasr::kBf16, ttasr::kResidualBias>(g2, st);
+  if (partial) return (int)ttasr::launch_skinny_gemm<ttasr::kBf16, ttasr::kScale>(g2, st, true);
+  return (int)ttasr::launch_skinny_gemm<ttasr::kBf16, ttasr::kResidualBias>(g2, st, true);
 }

@@ -3,47 +3,90 @@
 //
 //   out[r, n] = epilogue( sum_k bf16(prologue(a))[r, k] * W[k, n] * s[n] )
 //
-// for R <= ~16 activation rows against an int8 (K, N) weight with one f32
-// scale per output column.  At these row counts every FLOP is paid for by
-// ~1 byte of weight, far below the H100's ~295 FLOP/byte bf16 balance
-// point: the kernel is bound by streaming the int8 weight once.  So:
-//   * one block per 32 output columns; 256 threads = 64 K-groups x 4
-//     column threads, each thread streaming 8 int8 codes (one 8-byte load)
-//     per K row it owns, so a warp reads 8 whole 32-byte sectors per step;
-//   * the activation rows (after the prologue: a cast, a LayerNorm, or
-//     already bf16) sit in shared memory as bf16, rounded exactly where
-//     the TPU kernels round them, and are read as warp broadcasts;
-//   * bf16 values times int8 codes are exact in f32, so products are f32
-//     FMAs; partial sums reduce in a fixed order (warp shuffles, then the
-//     8 warps in index order), never with atomics, so the same input gives
-//     the same bits on every run;
-//   * rows are processed 8 at a time (register accumulators 8 x 8).
+// for a few activation rows (a decode step's beam rows; any R, in chunks of
+// 8) against an int8 (K, N) weight with one f32 scale per output column.
+// At these row counts every FLOP is paid for by ~1 byte of weight, far
+// below the H100's ~295 FLOP/byte bf16 balance point: the kernel is bound
+// by streaming the int8 weight once, and at 1.6-6.6 MB by the latency of
+// that stream more than by its rate.  So:
+//   * split K over a thread-block cluster: the grid is (N / 32 column
+//     tiles) x splits, one cluster of `splits` blocks per tile along K,
+//     each block owning a contiguous K range; gemm_splits() picks splits
+//     from (K, N) alone -- enough blocks for the 132 SMs, at most 640 K
+//     rows per block, at most 8 blocks per cluster (the portable size);
+//   * every weight byte of a block is in flight at once: one thread issues
+//     the block's whole (K range x 32 columns) slab as 2-D TMA boxes into
+//     shared memory before anything else (the tensor map is encoded once
+//     per weight and kept), the prologue overlaps its flight, and every row
+//     chunk reads it from there, so the weight leaves device memory once
+//     per call whatever R is;
+//   * the prologue (a cast, a LayerNorm, or already bf16) fills the block's
+//     K range of 8 activation rows in shared memory, bf16-rounded exactly
+//     where the TPU kernels round them and kept as f32, k-major, each
+//     thread's global loads issued in batches (one L2 round trip for a
+//     batch, where a plain loop pays one per element -- measured to hold
+//     every block back longer than the slab's whole flight); the
+//     LayerNorm's mean and variance take the whole row, which every block
+//     reads (from L2, the whole block at once) into shared memory for the
+//     two passes of the TPU's _ln_f32 (a warp per row) -- measured cheaper
+//     than exchanging per-range sums over the cluster, which costs two
+//     cluster barriers;
+//   * 256 threads = 32 K-groups x 8 column threads of 4 columns, the inner
+//     loop instantiated for 1, 2, 4, 5 or 8 rows; bf16 values times int8
+//     codes are exact in f32, so products are f32 FMAs, the codes turned
+//     into f32 by a byte permute and one subtraction (int8_code); a thread
+//     sums its K rows in order, a warp's 4 K-groups pair by two shuffles,
+//     the 8 warps add in index order, then the cluster's blocks in rank
+//     order: each block writes its sums into the shared memory of the rank
+//     that owns them (one cluster barrier per row chunk) -- no atomics, so
+//     the same input gives the same bits on every run, and since the order
+//     depends on (K, N) only, every prologue and epilogue gets the same
+//     bits of the dot product (B3's wo equals B15's, B16's query B3's,
+//     B14's W1/W2 B4's);
+//   * a call's second and third launch start early (programmatic
+//     dependent launch): they fetch their slab, then wait for the launch
+//     before only where they read what it wrote.
 // The epilogue applies the column scale and, per kernel, the bias, the
 // residual, the query pre-scale or the GELU -- or nothing more: the
-// tensor-parallel partial sums (B14, B15) leave the bias to the caller.  Every multiply and add of an
-// epilogue is an explicit _rn operation (no FMA contraction), in the order
-// of the TPU kernel's expression.
+// tensor-parallel partial sums (B14, B15) leave the bias to the caller.
+// Every multiply and add of an epilogue is an explicit _rn operation (no
+// FMA contraction), in the order of the TPU kernel's expression.
 
 #pragma once
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (types only: nothing links libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
+#include <unordered_map>
+
 namespace ttasr {
 // internal linkage: each .cu that includes this gets its own instantiations
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kGemmThreads = 256;
-constexpr int kColsPerThread = 8;
+constexpr int kColsPerThread = 4;
 constexpr int kTileCols = 32;
-constexpr int kColThreads = kTileCols / kColsPerThread;  // 4
-constexpr int kKGroups = kGemmThreads / kColThreads;     // 64
+constexpr int kColThreads = kTileCols / kColsPerThread;  // 8
+constexpr int kKGroups = kGemmThreads / kColThreads;     // 32
 constexpr int kRowChunk = 8;
 constexpr int kGemmWarps = kGemmThreads / 32;
+constexpr int kMaxSplits = 8;         // the portable cluster size
+constexpr int kMaxKPerBlock = 640;    // K rows one block streams, at most
+constexpr int kTargetBlocks = 132;    // the H100 SXM's SMs
+constexpr int kMaxBoxRows = 256;      // a TMA box's largest dimension
+constexpr int kLoadBatch = 8;         // global loads a thread keeps in flight together
+constexpr int kRowBatch = 32;         // the same for the LayerNorm's whole rows
+constexpr size_t kMaxSmem = 232448;   // a block's shared memory on sm_90
 constexpr float kLnEps = 1e-5f;
-static_assert(kRowChunk * kTileCols == kGemmThreads, "one epilogue output per thread");
+static_assert(kRowChunk * kTileCols == kGemmThreads, "a thread per output of a chunk");
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -59,6 +102,76 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to the TMA unit
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One (32 columns, box rows) box of a 2-D tensor map at (c0, c1) into
+// shared memory at `dst`; completes `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Programmatic dependent launch: a kernel lets the next one in its stream
+// start (launch_dependents), and the next one, launched with the
+// programmatic-serialization attribute, waits for this one's completion and
+// memory (wait) only where it first reads what this one wrote.  Without the
+// attribute, or without a predecessor, both are no-ops.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The cluster barrier split in two: every block arrives at its start and
+// waits before its first write to a peer's shared memory, which is legal
+// only once every block of the cluster runs.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// int8 code j (0..3) of u = word ^ 0x80808080 as f32, exactly: the biased
+// byte becomes the low mantissa bits of 2^23 (a byte permute), and one
+// subtraction takes the bias off -- two full-rate instructions where I2F
+// runs at an eighth of the FMA rate
+__device__ __forceinline__ float int8_code(uint32_t u, int j) {
+  return __fadd_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | j)), -8388736.f);
 }
 
 // Abramowitz-Stegun 7.1.26 erf, the TPU kernel's GELU (decoder_mlp_pallas.py)
@@ -92,7 +205,7 @@ struct GemmArgs {
   const void* a;         // (R, K) f32 or bf16
   const float* ln_s;     // (K,) for kLayerNorm
   const float* ln_b;
-  const int8_t* w;       // (K, N)
+  const int8_t* w;       // (K, N), 16-byte aligned
   const float* w_scale;  // (N,)
   const float* bias;     // (N,); unused by kScale
   const float* resid;    // (R, N) for the residual epilogues
@@ -101,26 +214,174 @@ struct GemmArgs {
   float qscale;
 };
 
+// Blocks per cluster along K for a (K, N) weight, a function of the shape
+// alone so that every user of one shape sums in one order: enough blocks
+// for the 132 SMs, at most 640 K rows per block, at most 8.  At large-v3:
+// 4 for B15, wo, wo_c and the cross query (160 blocks), 2 for B1 and W1, 8
+// for W2.
+inline int gemm_splits(int K, int N) {
+  const int tiles = N / kTileCols;
+  const int s =
+      std::max((kTargetBlocks + tiles - 1) / tiles, (K + kMaxKPerBlock - 1) / kMaxKPerBlock);
+  return std::max(1, std::min(s, std::min(kMaxSplits, K)));
+}
+
+// A block's K range and the TMA boxes that bring it: n_box boxes of
+// box_rows rows (a multiple of 8, at most 256) cover the kper rows
+struct Slab {
+  int kper, box_rows, n_box;
+};
+
+__host__ __device__ inline Slab slab_of(int K, int splits) {
+  const int kper = (K + splits - 1) / splits;
+  const int n_box = (kper + kMaxBoxRows - 1) / kMaxBoxRows;
+  const int per_box = (kper + n_box - 1) / n_box;
+  return Slab{kper, (per_box + 7) / 8 * 8, n_box};
+}
+
+// s_w (the slab's rows x 32 codes), its mbarrier, s_a (kper x 8 f32),
+// s_red, s_gather (2 chunks x splits x 256), the LayerNorm statistics and,
+// for the LayerNorm, s_x (the chunk's rows, at most 8 x K f32)
+inline size_t gemm_smem_bytes(int K, int splits, int R, bool layer_norm) {
+  const Slab sl = slab_of(K, splits);
+  const size_t rows = std::min(R, kRowChunk);
+  return (size_t)sl.n_box * sl.box_rows * kTileCols + 16 +
+         sizeof(float) * ((size_t)sl.kper * kRowChunk + kGemmWarps * kRowChunk * kTileCols +
+                          2 * (size_t)splits * kGemmThreads + 2 * kRowChunk +
+                          (layer_norm ? rows * K : 0));
+}
+
+// Rows of a chunk the inner loop is unrolled for: 1, 2, 4, 5 or 8
+__device__ __forceinline__ int padded_rows(int rc) {
+  return rc <= 2 ? rc : rc <= 4 ? 4 : rc == 5 ? 5 : kRowChunk;
+}
+
+// The block's sums of a chunk's ROWS rows over its K range into s_red (8
+// warps x 8 rows x 32 columns): thread (kg, ct) takes every 32nd K row of
+// the range in order, then a warp's 4 K-groups pair by two shuffles
+template <int ROWS>
+__device__ __forceinline__ void chunk_sums(const int8_t* s_w, const float* s_a, float* s_red,
+                                           int kr, int kg, int ct, int lane, int warp) {
+  float acc[ROWS][kColsPerThread];
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+    for (int c = 0; c < kColsPerThread; ++c) acc[rr][c] = 0.f;
+
+#pragma unroll 4
+  for (int k = kg; k < kr; k += kKGroups) {
+    const uint32_t u =
+        *reinterpret_cast<const uint32_t*>(s_w + k * kTileCols + ct * kColsPerThread) ^
+        0x80808080u;
+    float a[ROWS];
+    if (ROWS >= 4) {
+      const float4 a4 = *reinterpret_cast<const float4*>(s_a + k * kRowChunk);
+      a[0] = a4.x, a[1] = a4.y, a[2] = a4.z, a[3] = a4.w;
+    }
+    if (ROWS == 8) {
+      const float4 a4 = *reinterpret_cast<const float4*>(s_a + k * kRowChunk + 4);
+      a[4] = a4.x, a[5] = a4.y, a[6] = a4.z, a[7] = a4.w;
+    }
+    if (ROWS == 5) a[4] = s_a[k * kRowChunk + 4];
+    if (ROWS < 4) {
+#pragma unroll
+      for (int rr = 0; rr < ROWS; ++rr) a[rr] = s_a[k * kRowChunk + rr];
+    }
+    float wf[kColsPerThread];
+#pragma unroll
+    for (int c = 0; c < kColsPerThread; ++c) wf[c] = int8_code(u, c);
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+      for (int c = 0; c < kColsPerThread; ++c) acc[rr][c] = fmaf(a[rr], wf[c], acc[rr][c]);
+  }
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+    for (int c = 0; c < kColsPerThread; ++c) {
+      float v = acc[rr][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[rr][c] = v;
+    }
+  if (lane < kColThreads) {
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+      for (int c = 0; c < kColsPerThread; ++c)
+        s_red[(warp * kRowChunk + rr) * kTileCols + lane * kColsPerThread + c] = acc[rr][c];
+  }
+}
+
 template <int P, int E>
-__global__ void __launch_bounds__(kGemmThreads) skinny_gemm_kernel(GemmArgs g) {
-  extern __shared__ __align__(16) unsigned char gemm_smem[];
-  __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(gemm_smem);  // kRowChunk x K
-  float* s_red = reinterpret_cast<float*>(gemm_smem + sizeof(__nv_bfloat16) * kRowChunk * g.K);
-  float* s_stats = s_red + kGemmWarps * kRowChunk * kTileCols;  // mean, rstd per row
+__global__ void __launch_bounds__(kGemmThreads)
+    skinny_gemm_kernel(const __grid_constant__ CUtensorMap w_map, GemmArgs g) {
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();
+  const int splits = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int K = g.K, N = g.N;
+  const Slab sl = slab_of(K, splits);
+  const int kper = sl.kper;
+  const int k_lo = min(K, rank * kper), kr = min(K, k_lo + kper) - k_lo;
+  const int slab_bytes = sl.n_box * sl.box_rows * kTileCols;
+  int8_t* s_w = reinterpret_cast<int8_t*>(gemm_smem);  // slab rows x 32 weight codes
+  const uint32_t bar = smem_u32(gemm_smem + slab_bytes);
+  float* s_a = reinterpret_cast<float*>(gemm_smem + slab_bytes + 16);  // kper x 8, k-major
+  float* s_red = s_a + (size_t)kper * kRowChunk;               // 8 warps x 8 rows x 32 columns
+  float* s_gather = s_red + kGemmWarps * kRowChunk * kTileCols;  // 2 x splits x 256 block sums
+  float* s_stats = s_gather + 2 * splits * kGemmThreads;         // per row: mean, rstd
+  float* s_x = s_stats + 2 * kRowChunk;                          // LayerNorm: the chunk's rows
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kg = tid / kColThreads, ct = tid % kColThreads;
-  const int col0 = blockIdx.x * kTileCols + ct * kColsPerThread;
-  const int K = g.K, N = g.N;
+  const int n0 = blockIdx.x * kTileCols;
 
-  for (int r0 = 0; r0 < g.R; r0 += kRowChunk) {
-    const int rc = min(kRowChunk, g.R - r0);
+  // the block's weight slab, all of it in flight by TMA before the prologue
+  if (tid == 0 && kr > 0) {
+    mbar_init(bar, 1);
+    mbar_expect_tx(bar, slab_bytes);
+    for (int j = 0; j < sl.n_box; ++j)
+      tma_load_2d(smem_u32(s_w + j * sl.box_rows * kTileCols), &w_map, bar, n0,
+                  k_lo + j * sl.box_rows);
+  }
+  __syncthreads();  // no thread waits on the barrier before its init
+  griddep_launch_dependents();
+
+  // rank q owns the outputs o = q + splits * j of a row chunk's 8 x 32; the
+  // epilogue's column vectors are fetched while the slab is in flight
+  const int o = rank + splits * tid;
+  const bool has_out = o < kGemmThreads;
+  const int o_rr = o / kTileCols, n = n0 + o % kTileCols;
+  const float col_scale = has_out ? g.w_scale[n] : 0.f;
+  const float col_bias = (has_out && E != kScale) ? g.bias[n] : 0.f;
+  griddep_wait();  // the activations and the residual may come from the launch before
+
+  for (int r0 = 0, chunk = 0; r0 < g.R; r0 += kRowChunk, ++chunk) {
+    const int rc = min(kRowChunk, g.R - r0), rows = padded_rows(rc);
+    const bool out_here = has_out && o_rr < rc;
+    const size_t oi = (size_t)(r0 + o_rr) * N + n;
+    const float resid = (out_here && (E == kResidual || E == kResidualBias)) ? g.resid[oi] : 0.f;
     if (P == kLayerNorm) {
-      // warp w: mean and biased variance of row w (two passes, as the TPU's
-      // _ln_f32), reduced in a fixed order
-      const float* x = static_cast<const float*>(g.a);
+      // the chunk's whole rows, read by the whole block (from L2, while the
+      // slab is in flight); then warp w: row w's mean and biased variance
+      // over all K in two passes, as the TPU's _ln_f32, in a fixed order
+      const float* x = static_cast<const float*>(g.a) + (size_t)r0 * K;
+      const int n = rc * K;
+      for (int i0 = tid; i0 < n; i0 += kRowBatch * kGemmThreads) {
+        float v[kRowBatch];  // every load of a batch in flight before the first store
+#pragma unroll
+        for (int j = 0; j < kRowBatch; ++j) {
+          const int i = i0 + j * kGemmThreads;
+          v[j] = i < n ? x[i] : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < kRowBatch; ++j)
+          if (i0 + j * kGemmThreads < n) s_x[i0 + j * kGemmThreads] = v[j];
+      }
+      __syncthreads();
       if (warp < rc) {
-        const float* row = x + (size_t)(r0 + warp) * K;
+        const float* row = s_x + warp * K;
         float s = 0.f;
         for (int k = lane; k < K; k += 32) s += row[k];
         const float mean = __fdiv_rn(warp_sum(s), (float)K);
@@ -137,99 +398,90 @@ __global__ void __launch_bounds__(kGemmThreads) skinny_gemm_kernel(GemmArgs g) {
       }
       __syncthreads();
     }
-    for (int i = tid; i < kRowChunk * K; i += kGemmThreads) {
-      const int rr = i / K, k = i - rr * K;
-      float v = 0.f;
-      if (rr < rc) {
-        const size_t src = (size_t)(r0 + rr) * K + k;
-        if (P == kBf16) {
-          v = __bfloat162float(static_cast<const __nv_bfloat16*>(g.a)[src]);
-        } else if (P == kCast) {
-          v = static_cast<const float*>(g.a)[src];
-        } else {
-          const float xv = static_cast<const float*>(g.a)[src];
-          const float n = __fmul_rn(__fsub_rn(xv, s_stats[2 * rr]), s_stats[2 * rr + 1]);
-          v = __fadd_rn(__fmul_rn(n, g.ln_s[k]), g.ln_b[k]);
+    // the block's K range of the chunk's rows, bf16-rounded, k-major; each
+    // thread's loads of a batch go out together (one round trip, not one
+    // per element)
+    for (int i0 = tid; i0 < rows * kr; i0 += kLoadBatch * kGemmThreads) {
+      float v[kLoadBatch], ls[kLoadBatch], lb[kLoadBatch];
+#pragma unroll
+      for (int j = 0; j < kLoadBatch; ++j) {
+        const int i = i0 + j * kGemmThreads, rr = i / kr, k = i - rr * kr;
+        v[j] = ls[j] = lb[j] = 0.f;
+        if (i < rows * kr && rr < rc) {
+          const size_t src = (size_t)(r0 + rr) * K + k_lo + k;
+          if (P == kBf16) {
+            v[j] = __bfloat162float(static_cast<const __nv_bfloat16*>(g.a)[src]);
+          } else if (P == kCast) {
+            v[j] = static_cast<const float*>(g.a)[src];
+          } else {
+            v[j] = s_x[rr * K + k_lo + k];
+            ls[j] = g.ln_s[k_lo + k];
+            lb[j] = g.ln_b[k_lo + k];
+          }
         }
       }
-      s_a[i] = __float2bfloat16_rn(v);
+#pragma unroll
+      for (int j = 0; j < kLoadBatch; ++j) {
+        const int i = i0 + j * kGemmThreads, rr = i / kr, k = i - rr * kr;
+        if (i >= rows * kr) continue;
+        float val = v[j];
+        if (P == kLayerNorm && rr < rc) {
+          const float nv = __fmul_rn(__fsub_rn(val, s_stats[2 * rr]), s_stats[2 * rr + 1]);
+          val = __fadd_rn(__fmul_rn(nv, ls[j]), lb[j]);
+        }
+        s_a[k * kRowChunk + rr] = bf16_round(val);
+      }
     }
+    if (chunk == 0 && kr > 0) mbar_wait(bar, 0);
     __syncthreads();
 
-    float acc[kRowChunk][kColsPerThread];
-#pragma unroll
-    for (int rr = 0; rr < kRowChunk; ++rr)
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) acc[rr][c] = 0.f;
-
-    const int8_t* wp = g.w + col0;
-#pragma unroll 4
-    for (int k = kg; k < K; k += kKGroups) {
-      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(wp + (size_t)k * N));
-      float wf[kColsPerThread];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        wf[c] = (float)(int8_t)(raw.x >> (8 * c));
-        wf[c + 4] = (float)(int8_t)(raw.y >> (8 * c));
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRowChunk; ++rr) {
-        const float av = __bfloat162float(s_a[rr * K + k]);
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c) acc[rr][c] = fmaf(av, wf[c], acc[rr][c]);
-      }
-    }
-    // reduce the 8 K-groups of each warp (lanes with the same column thread)
-#pragma unroll
-    for (int rr = 0; rr < kRowChunk; ++rr)
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        float v = acc[rr][c];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        acc[rr][c] = v;
-      }
-    if (lane < kColThreads) {
-#pragma unroll
-      for (int rr = 0; rr < kRowChunk; ++rr)
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c)
-          s_red[(warp * kRowChunk + rr) * kTileCols + lane * kColsPerThread + c] = acc[rr][c];
+    switch (rows) {
+      case 1: chunk_sums<1>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+      case 2: chunk_sums<2>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+      case 4: chunk_sums<4>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+      case 5: chunk_sums<5>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+      default: chunk_sums<kRowChunk>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
     }
     __syncthreads();
     {
-      const int rr = tid / kTileCols, c = tid % kTileCols;  // 8 x 32 = 256 outputs
+      // the block's sum of output tid (8 x 32 = 256), the warps in order,
+      // written into the shared memory of the rank that owns it
+      const int rr = tid / kTileCols, c = tid % kTileCols;
       float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kGemmWarps; ++w) v += s_red[(w * kRowChunk + rr) * kTileCols + c];
       if (rr < rc) {
-        const int r = r0 + rr, n = blockIdx.x * kTileCols + c;
-        const size_t o = (size_t)r * N + n;
-        const float vs = __fmul_rn(v, g.w_scale[n]);
-        if (E == kBias) {
-          static_cast<float*>(g.out)[o] = __fadd_rn(vs, g.bias[n]);
-        } else if (E == kResidual) {
-          static_cast<float*>(g.out)[o] = __fadd_rn(__fadd_rn(g.resid[o], vs), g.bias[n]);
-        } else if (E == kQScale) {
-          static_cast<float*>(g.out)[o] = __fmul_rn(__fadd_rn(vs, g.bias[n]), g.qscale);
-        } else if (E == kGelu) {
-          static_cast<__nv_bfloat16*>(g.out)[o] =
-              __float2bfloat16_rn(gelu_as(__fadd_rn(vs, g.bias[n])));
-        } else if (E == kResidualBias) {
-          static_cast<float*>(g.out)[o] = __fadd_rn(__fadd_rn(g.resid[o], g.bias[n]), vs);
-        } else {
-          static_cast<float*>(g.out)[o] = vs;
-        }
+#pragma unroll
+        for (int w = 0; w < kGemmWarps; ++w) v += s_red[(w * kRowChunk + rr) * kTileCols + c];
+      }
+      if (chunk == 0) cluster_wait();
+      cluster.map_shared_rank(s_gather, tid % splits)[((chunk & 1) * splits + rank) * kGemmThreads +
+                                                       tid] = v;
+    }
+    // every push of this chunk is visible to its owner; a push of the next
+    // chunk goes to the other half of s_gather, and one two chunks on waits
+    // for this barrier's successor, which its owner reaches only after
+    // reading this one
+    cluster.sync();
+    if (out_here) {  // the cluster's sums in rank order, then the epilogue
+      const float* part = s_gather + (chunk & 1) * splits * kGemmThreads + o;
+      float v = 0.f;
+      for (int q = 0; q < splits; ++q) v += part[q * kGemmThreads];
+      const float vs = __fmul_rn(v, col_scale);
+      if (E == kBias) {
+        static_cast<float*>(g.out)[oi] = __fadd_rn(vs, col_bias);
+      } else if (E == kResidual) {
+        static_cast<float*>(g.out)[oi] = __fadd_rn(__fadd_rn(resid, vs), col_bias);
+      } else if (E == kQScale) {
+        static_cast<float*>(g.out)[oi] = __fmul_rn(__fadd_rn(vs, col_bias), g.qscale);
+      } else if (E == kGelu) {
+        static_cast<__nv_bfloat16*>(g.out)[oi] =
+            __float2bfloat16_rn(gelu_as(__fadd_rn(vs, col_bias)));
+      } else if (E == kResidualBias) {
+        static_cast<float*>(g.out)[oi] = __fadd_rn(__fadd_rn(resid, col_bias), vs);
+      } else {
+        static_cast<float*>(g.out)[oi] = vs;
       }
     }
-    __syncthreads();  // s_a and s_red are reused by the next row chunk
   }
-}
-
-inline size_t gemm_smem_bytes(int K) {
-  return sizeof(__nv_bfloat16) * kRowChunk * K +
-         sizeof(float) * (kGemmWarps * kRowChunk * kTileCols + 2 * kRowChunk);
 }
 
 // Raise `kernel`'s dynamic shared-memory limit to at least `bytes`; the
@@ -244,15 +496,110 @@ cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* limit) {
   return err;
 }
 
+// Launch `kernel` on `st` over `grid` in clusters of `cluster` blocks of
+// `threads`; a refused launch returns its error.  `after_own`: the launch
+// before it on `st` is a kernel of the same C call, so this one may start
+// early (programmatic dependent launch) -- never for a call's first launch,
+// whose inputs, weights included, may come from any earlier work.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 cluster, int threads,
+                           size_t smem, cudaStream_t st, bool after_own, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = after_own ? 2 : 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched once through the runtime (nothing links
+// libcuda)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The (K, N) int8 weight as a 2-D tensor map of (32 columns, box_rows)
+// boxes, rows past K read as zeros.  A decode launches every weight every
+// step, so each map is encoded once per (address, shape, box) and kept: it
+// holds only those, so it stays right for whatever tensor later lies there.
+inline bool weight_map(CUtensorMap* map, const int8_t* w, int K, int N, int box_rows) {
+  struct Key {
+    const void* w;
+    int K, N, box;
+    bool operator==(const Key& o) const { return w == o.w && K == o.K && N == o.N && box == o.box; }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<const void*>()(k.w) ^ ((size_t)k.K << 16) ^ ((size_t)k.N << 36) ^
+             ((size_t)k.box << 56);
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> maps;
+  const Key key{w, K, N, box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = maps.find(key);
+  if (it != maps.end()) {
+    *map = it->second;
+    return true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {(cuuint32_t)kTileCols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims, strides, box,
+             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (maps.size() >= 4096) maps.clear();
+  maps.emplace(key, *map);
+  return true;
+}
+
 // Launch on `st`; N must be a multiple of kTileCols (the wrappers check).
+// `after_own`: see launch_cluster.
 template <int P, int E>
-cudaError_t launch_skinny_gemm(const GemmArgs& g, cudaStream_t st) {
+cudaError_t launch_skinny_gemm(const GemmArgs& g, cudaStream_t st, bool after_own = false) {
+  if (g.R < 1 || g.K < 1 || g.N < kTileCols || g.N % kTileCols ||
+      reinterpret_cast<uintptr_t>(g.w) % 16)
+    return cudaErrorInvalidValue;
   static size_t limit = 0;
-  const size_t smem = gemm_smem_bytes(g.K);
+  const int splits = gemm_splits(g.K, g.N);
+  const size_t smem = gemm_smem_bytes(g.K, splits, g.R, P == kLayerNorm);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!weight_map(&map, g.w, g.K, g.N, slab_of(g.K, splits).box_rows))
+    return cudaErrorInvalidValue;
   const cudaError_t err = reserve_smem(skinny_gemm_kernel<P, E>, smem, &limit);
   if (err != cudaSuccess) return err;
-  skinny_gemm_kernel<P, E><<<g.N / kTileCols, kGemmThreads, smem, st>>>(g);
-  return cudaGetLastError();
+  return launch_cluster(skinny_gemm_kernel<P, E>, dim3(g.N / kTileCols, splits),
+                        dim3(1, splits, 1), kGemmThreads, smem, st, after_own, map, g);
 }
 
 }  // namespace
