@@ -9,20 +9,26 @@ DIR holds the other sources, for instance the parent commit's
 are built with nvcc into separate libraries and called through the same C
 entry points on the same seeded large-v3 inputs (``chip_smoke.Inputs``):
 B15, the LayerNorm GEMM alone (B1's entry at N = 1280), B1, B13 (int4 and
-int8), B3, B16, B4, B14 and B12.  For each, the two builds in turns (other,
-this, this, other), it prints ``chip_smoke.time_ms`` (one call per CUDA
-graph replay, whose floor it prints too), the time per call of a graph of
-20 calls (no host launch floor) and the kernels' device time from
-``torch.profiler``, and how far the other build's output lies from this
-one's; then B15, the other build's B15 and B15's library call (a bf16
-matmul) cold, over the 64 distinct weights of a tensor-parallel step.
+int8), B3, B16, B4, B14, B12, and the self-attention step B2 (beam 5 of one
+audio, through a random ancestry map) and B10 (5 audios x 1 row), int4, at
+cache lengths 480, 288 and 64 (slots 477, 285, 40).  For each, the two
+builds in turns (other, this, this, other), it prints ``chip_smoke.time_ms``
+(one call per CUDA graph replay, whose floor it prints too), the time per
+call of a graph of 20 calls (no host launch floor) and the kernels' device
+time from ``torch.profiler``, and how far the other build's output lies
+from this one's; then B15, the other build's B15 and B15's library call (a
+bf16 matmul) cold, over the 64 distinct weights of a tensor-parallel step.
+Then B2 and B10 at int4: this build and the other cold, over 32 layers'
+distinct caches; and, as a yardstick that is not the same function, ``scaled_dot_product_attention``
+on 5 query rows and bf16 K/V of the dequantized cache's shape (2-4x the
+bytes, no quantization, no ancestry lookup).
 
 ``--phases`` also builds an instrumented copy of this checkout's kernels:
-thread 0 of every block stamps ``%globaltimer`` at the skinny GEMM's and
-the cross-attention's phase points, and the script prints, per phase, the
-median and the latest block's microseconds from the first block's start.
-The instrumentation is text inserted at fixed places of the sources and
-fails loudly when they change.
+thread 0 of every block stamps ``%globaltimer`` at the skinny GEMM's, the
+cross-attention's and the self-attention step's phase points, and the
+script prints, per phase, the median and the latest block's microseconds
+from the first block's start.  The instrumentation is text inserted at
+fixed places of the sources and fails loudly when they change.
 
 Imports nothing of jax and nothing of the JAX package.
 """
@@ -40,7 +46,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "ttasr_torch", "csrc")
-SOURCES = ("decoder_blocks.cu", "decoder_mlp.cu", "cross_attention.cu")
+SOURCES = ("decoder_blocks.cu", "decoder_mlp.cu", "cross_attention.cu", "self_attention.cu")
 
 
 def build(src_dir: str, out_dir: str, tag: str) -> ctypes.CDLL:
@@ -71,9 +77,46 @@ def call(dll, entry, *args) -> None:
         raise RuntimeError(f"{entry}: cudaError {err}")
 
 
+def case(entry, *args):
+    """(entry point, the output that is compared, args...): the output is
+    the last tensor argument."""
+    import torch
+
+    return (entry, [a for a in args if isinstance(a, torch.Tensor)][-1], *args)
+
+
+def self_attn_case(cs, inp, b, k, length, slot, int4=True):
+    """B2 (k > 1, a random ancestry map) or B10 (k = 1) at one length:
+    (entry point, attn, the C entry point's arguments)."""
+    import torch
+
+    kc, ks, vc, vs = inp.self_kv(b, k, length, int4)
+    d_store = cs.D // 2 if int4 else cs.D
+    kv_dtype = torch.uint8 if int4 else torch.int8
+    anc = (torch.randint(0, k, (b, k, length), generator=inp.gen, device="cuda",
+                         dtype=torch.int32) if k > 1 else None)
+
+    def e(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="cuda", dtype=dtype)
+
+    attn = e(b, k, cs.D)
+    return ("ttasr_self_attn_step", attn, inp.randn(b, k, 3 * cs.D, scale=0.5), kc, ks, vc, vs,
+            anc, torch.zeros((b, k), dtype=torch.int32, device="cuda"), attn,
+            e(b, k, d_store, dtype=kv_dtype), e(b, k, cs.H), e(b, k, d_store, dtype=kv_dtype),
+            e(b, k, cs.H), b, k, cs.H, length, cs.HP, slot, int(int4))
+
+
+def self_cases(cs):
+    """{label: (entry point, output, args...)} of B2 and B10 at the timed
+    lengths, int4."""
+    inp = cs.Inputs(3)
+    return {f"{name} len={length} slot={slot} int4": self_attn_case(cs, inp, b, k, length, slot)
+            for length, slot in cs.SELF_LENGTHS
+            for name, b, k in (("B2 B=1 K=5", 1, 5), ("B10 B=5 K=1", 5, 1))}
+
+
 def cases(cs):
-    """{label: (entry point, args...)}: the last tensor argument is the
-    output that is compared."""
+    """{label: (entry point, the output that is compared, args...)}."""
     import torch
 
     D, F, S, SR = cs.D, cs.FFN, cs.S_PAD, cs.S_REAL
@@ -87,34 +130,38 @@ def cases(cs):
     kv4, kv8 = inp.cross_kv(1, True), inp.cross_kv(1, False)
     cross = (lay["wqc"], lay["wqc_s"], lay["bqc"])
     return {
-        "B15 R=5 (DL=1280)": ("ttasr_matmul_int8_partial", x5, lay["wo"], lay["wo_s"], e(5, D), 5, D, D),
-        "LayerNorm GEMM R=5 (B1's entry at N=1280)": (
+        "B15 R=5 (DL=1280)": case(
+            "ttasr_matmul_int8_partial", x5, lay["wo"], lay["wo_s"], e(5, D), 5, D, D),
+        "LayerNorm GEMM R=5 (B1's entry at N=1280)": case(
             "ttasr_qkv_int8", x5, lay["lnc_s"], lay["lnc_b"], *cross, e(5, D), 5, D, D),
-        "B1 R=5": ("ttasr_qkv_int8", x5, lay["ln1_s"], lay["ln1_b"], lay["wqkv"], lay["wqkv_s"],
-                   lay["bqkv"], e(5, 3 * D), 5, D, 3 * D),
-        "B13 B=1 K=5 int4": ("ttasr_cross_attention_int8", q, *kv4, e(1, 5, D), 1, 5, D, S, SR, 1),
-        "B13 B=1 K=5 int8": ("ttasr_cross_attention_int8", q, *kv8, e(1, 5, D), 1, 5, D, S, SR, 0),
-        "B3 B=1 K=5 int4": ("ttasr_attnout_cross_int8", x5, a5, lay["wo"], lay["wo_s"], lay["bo"],
-                            lay["lnc_s"], lay["lnc_b"], *cross, *kv4, e(5, D), e(5, D), e(5, D),
-                            1, 5, D, D, S, SR, 1),
-        "B16 B=1 K=5 int4": ("ttasr_ln_q_cross_int8", x5, lay["lnc_s"], lay["lnc_b"], *cross, *kv4,
-                             e(5, D), e(5, D), 1, 5, D, D, S, SR, 1),
-        "B4 R=5": ("ttasr_mlp_crossout_int8", x5, a5, lay["woc"], lay["woc_s"], lay["boc"],
-                   lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"], lay["b1"], lay["w2"],
-                   lay["w2_s"], lay["b2"], e(5, D), e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F),
-        "B14 partial R=5": ("ttasr_mlp_int8", x5, lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"],
-                            lay["b1"], lay["w2"], lay["w2_s"], lay["b2"],
-                            e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F, 1),
-        "B12 R=10": ("ttasr_attnout_ln_q", inp.randn(10, D), inp.randn(10, D), lay["wo"],
-                     lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"], *cross, e(10, D), e(10, D),
-                     10, D, D),
+        "B1 R=5": case(
+            "ttasr_qkv_int8", x5, lay["ln1_s"], lay["ln1_b"], lay["wqkv"], lay["wqkv_s"],
+            lay["bqkv"], e(5, 3 * D), 5, D, 3 * D),
+        "B13 B=1 K=5 int4": case(
+            "ttasr_cross_attention_int8", q, *kv4, e(1, 5, D), 1, 5, D, S, SR, 1),
+        "B13 B=1 K=5 int8": case(
+            "ttasr_cross_attention_int8", q, *kv8, e(1, 5, D), 1, 5, D, S, SR, 0),
+        "B3 B=1 K=5 int4": case(
+            "ttasr_attnout_cross_int8", x5, a5, lay["wo"], lay["wo_s"], lay["bo"],
+            lay["lnc_s"], lay["lnc_b"], *cross, *kv4, e(5, D), e(5, D), e(5, D),
+            1, 5, D, D, S, SR, 1),
+        "B16 B=1 K=5 int4": case(
+            "ttasr_ln_q_cross_int8", x5, lay["lnc_s"], lay["lnc_b"], *cross, *kv4,
+            e(5, D), e(5, D), 1, 5, D, D, S, SR, 1),
+        "B4 R=5": case(
+            "ttasr_mlp_crossout_int8", x5, a5, lay["woc"], lay["woc_s"], lay["boc"],
+            lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"], lay["b1"], lay["w2"],
+            lay["w2_s"], lay["b2"], e(5, D), e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F),
+        "B14 partial R=5": case(
+            "ttasr_mlp_int8", x5, lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"],
+            lay["b1"], lay["w2"], lay["w2_s"], lay["b2"],
+            e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F, 1),
+        "B12 R=10": case(
+            "ttasr_attnout_ln_q", inp.randn(10, D), inp.randn(10, D), lay["wo"],
+            lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"], *cross, e(10, D), e(10, D),
+            10, D, D),
+        **self_cases(cs),
     }
-
-
-def per_call_ms(cs, fn, reps: int = 20) -> float:
-    """Milliseconds per call of a CUDA graph of ``reps`` calls: back to back
-    on the card, with no host launch between them."""
-    return cs.time_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
 def device_ms(fn, n: int = 30) -> float:
@@ -132,30 +179,70 @@ def device_ms(fn, n: int = 30) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
 
 
+def in_turns(cs, builds: dict, all_cases: dict, card: str) -> None:
+    """Each case through every build (``builds`` in order, then reversed;
+    the last is "this"): time_ms, per call in a graph of 20, device ms, and
+    each build's output gap to this one's."""
+    import torch
+
+    for label, (entry, out, *args) in all_cases.items():
+        res = {}
+        for tag, dll in builds.items():
+            call(dll, entry, *args)
+            torch.cuda.synchronize()
+            res[tag] = out.float().clone()
+        times = {tag: [] for tag in builds}
+        for tag in list(builds) + list(reversed(builds)):
+            fn = (lambda d=builds[tag]: call(d, entry, *args))
+            times[tag].append((cs.time_ms(fn), cs.per_call_ms(fn), device_ms(fn)))
+        mean = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
+        gaps = "; ".join(f"max|this - {tag}| {(res[tag] - res['this']).abs().max().item():.3e}"
+                         for tag in builds if tag != "this")
+        print(f"{label}: " + "; ".join(
+            f"{k} time_ms {m[0]:.4f}, in a graph of 20 {m[1]:.4f}, device {m[2]:.4f}"
+            for k, m in mean.items()) + f" ms; {gaps} ({card})", flush=True)
+
+
+def self_cold(cs, builds: dict, card: str) -> None:
+    """B2 and B10 at len 480, int4, cold: a CUDA graph over 32 layers'
+    distinct caches (~3.5 MB each, beyond the 50 MB L2 together), as one
+    decode step meets them, each build in turns."""
+    for name, b, k in (("B2 B=1 K=5", 1, 5), ("B10 B=5 K=1", 5, 1)):
+        inp = cs.Inputs(5)
+        layers = [self_attn_case(cs, inp, b, k, 480, 477) for _ in range(cs.N_LAYERS)]
+        for tag in list(builds) + list(reversed(builds)):
+            fns = [lambda c=c, d=builds[tag]: call(d, c[0], *c[2:]) for c in layers]
+            print(f"{name} len=480 slot=477 int4 cold, {tag}: {cs.time_cold_ms(fns):.4f} ms "
+                  f"per call (a graph over {len(fns)} layers' caches) ({card})", flush=True)
+
+
+def sdpa_yardstick(cs, card: str) -> None:
+    """``scaled_dot_product_attention`` on 5 query rows and bf16 K/V of the
+    dequantized cache's shape, positions >= slot masked: not the same
+    function (2-4x the bytes, no quantization, no ancestry lookup)."""
+    import torch
+    import torch.nn.functional as F
+
+    inp = cs.Inputs(4)
+    for length, slot in cs.SELF_LENGTHS:
+        q = inp.randn(5, cs.H, 1, 64, scale=0.1).to(torch.bfloat16)
+        k, v = (inp.randn(5, cs.H, length, 64).to(torch.bfloat16) for _ in range(2))
+        mask = (torch.arange(length, device="cuda") < slot).view(1, 1, 1, length)
+        fn = (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        print(f"yardstick, not the same function: scaled_dot_product_attention on 5 rows x "
+              f"{cs.H} heads, bf16 K/V of len {length} (slot {slot}): time_ms "
+              f"{cs.time_ms(fn):.4f}, in a graph of 20 {cs.per_call_ms(fn):.4f}, device "
+              f"{device_ms(fn):.4f} ms ({card})", flush=True)
+
+
 def compare(cs, this, other, card: str) -> None:
     import torch
 
     t = torch.zeros(1, device="cuda")
     print(f"time_ms floor (a 1-element add per replay): {cs.time_ms_floor():.4f} ms; "
-          f"per call in a graph of 20: {per_call_ms(cs, lambda: t.add_(1.0)):.4f} ms ({card})",
+          f"per call in a graph of 20: {cs.per_call_ms(lambda: t.add_(1.0)):.4f} ms ({card})",
           flush=True)
-    for label, (entry, *args) in cases(cs).items():
-        out = [a for a in args if isinstance(a, torch.Tensor)][-1]
-        res = {}
-        for tag, dll in (("other", other), ("this", this)):
-            call(dll, entry, *args)
-            torch.cuda.synchronize()
-            res[tag] = out.float().clone()
-        diff = (res["other"] - res["this"]).abs().max().item()
-        times = {"other": [], "this": []}
-        for tag in ("other", "this", "this", "other"):
-            dll = other if tag == "other" else this
-            fn = (lambda d=dll: call(d, entry, *args))
-            times[tag].append((cs.time_ms(fn), per_call_ms(cs, fn), device_ms(fn)))
-        mean = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
-        print(f"{label}: " + "; ".join(
-            f"{k} time_ms {m[0]:.4f}, in a graph of 20 {m[1]:.4f}, device {m[2]:.4f}"
-            for k, m in mean.items()) + f" ms; max|this - other| {diff:.3e} ({card})", flush=True)
+    in_turns(cs, {"other": other, "this": this}, cases(cs), card)
 
     inp = cs.Inputs(2)
     x = inp.randn(5, cs.D, scale=0.5)
@@ -172,13 +259,15 @@ def compare(cs, this, other, card: str) -> None:
                        ("library", library), ("this", b15(this)), ("other", b15(other))):
         print(f"B15 cold, {label}: {cs.time_cold_ms(fns):.4f} ms per call (a graph over "
               f"{len(fns)} weights) ({card})", flush=True)
+    self_cold(cs, {"other": other, "this": this}, card)
+    sdpa_yardstick(cs, card)
 
 
 # ---------------------------------------------------------------------------
 # --phases: %globaltimer at the kernels' phase points
 # ---------------------------------------------------------------------------
 
-PHASE_DEF = """__device__ unsigned long long g_phase[2][4096][12];
+PHASE_DEF = """__device__ unsigned long long g_phase[3][4096][12];
 __device__ __forceinline__ void phase_mark(int kind, int i) {
   if (threadIdx.x == 0) {
     unsigned long long t;
@@ -188,21 +277,28 @@ __device__ __forceinline__ void phase_mark(int kind, int i) {
 }
 
 """
+# each .cu has its own g_phase (internal linkage): decoder_blocks.cu's holds
+# the GEMM's and cross-attention's marks (kinds 0, 1), self_attention.cu's
+# the self-attention step's (kind 2)
 READ = """
-extern "C" int ttasr_phase_clear() {
+extern "C" int ttasr_phase_clear{0}() {{
   void* p = nullptr;
   const cudaError_t err = cudaGetSymbolAddress(&p, ttasr::g_phase);
   return (int)(err != cudaSuccess ? err : cudaMemset(p, 0, sizeof(ttasr::g_phase)));
-}
+}}
 
-extern "C" int ttasr_phase_read(void* dst) {
+extern "C" int ttasr_phase_read{0}(void* dst) {{
   return (int)cudaMemcpyFromSymbol(dst, ttasr::g_phase, sizeof(ttasr::g_phase));
-}
+}}
 """
 GEMM_PHASES = ["start", "slab issued", "prologue", "slab here", "summed", "pushed", "synced",
                "end"]
 CROSS_PHASES = ["start", "rows issued", "queries", "scores", "max exchanged", "sums exchanged",
-                "probabilities", "outputs exchanged", "end"]
+                "probabilities", "end"]
+SELF_PHASES = ["start", "stage issued", "stage landed", "scores", "scores exchanged", "softmax",
+               "P.V", "end"]
+PHASE_NAMES = (GEMM_PHASES, CROSS_PHASES, SELF_PHASES)
+PHASE_WHAT = ("the last skinny GEMM", "the cross-attention", "the self-attention step")
 # (file, text, the text with a mark): each text must occur once
 MARKS = [
     ("skinny_gemm.cuh", "// The cluster barrier split in two", PHASE_DEF + "// The cluster barrier split in two"),
@@ -226,58 +322,80 @@ MARKS = [
      "  cp_async_commit();\n  phase_mark(1, 1);\n  griddep_launch_dependents();\n"),
     ("cross_attention.cuh", "  // pass 1: scores", "  phase_mark(1, 2);\n  // pass 1: scores"),
     ("cross_attention.cuh", "  // the softmax over the cluster", "  phase_mark(1, 3);\n  // the softmax over the cluster"),
-    ("cross_attention.cuh", "[kStatMaxes + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n",
-     "[kStatMaxes + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n  phase_mark(1, 4);\n"),
-    ("cross_attention.cuh", "[kStatSums + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n",
-     "[kStatSums + rank * kMaxBeams + r] = s_stat[kStatBlock + r];\n  }\n  cluster.sync();\n  phase_mark(1, 5);\n"),
+    ("cross_attention.cuh", "[kStatMaxes + rank * kMaxBeams + r] =\n        s_stat[kStatBlock + r];\n  }\n  cluster_barrier(cluster, splits);\n",
+     "[kStatMaxes + rank * kMaxBeams + r] =\n        s_stat[kStatBlock + r];\n  }\n  cluster_barrier(cluster, splits);\n  phase_mark(1, 4);\n"),
+    ("cross_attention.cuh", "[kStatSums + rank * kMaxBeams + r] =\n        s_stat[kStatBlock + r];\n  }\n  cluster_barrier(cluster, splits);\n",
+     "[kStatSums + rank * kMaxBeams + r] =\n        s_stat[kStatBlock + r];\n  }\n  cluster_barrier(cluster, splits);\n  phase_mark(1, 5);\n"),
     ("cross_attention.cuh", "  // pass 2: out[r, d]", "  phase_mark(1, 6);\n  // pass 2: out[r, d]"),
-    ("cross_attention.cuh", "  cluster.sync();  // the last access to a peer's shared memory is before this\n",
-     "  cluster.sync();  // the last access to a peer's shared memory is before this\n  phase_mark(1, 7);\n"),
-    ("cross_attention.cuh", "    cross[((size_t)b * K + r) * D + h * kDh + d] = v;\n  }\n}\n",
-     "    cross[((size_t)b * K + r) * D + h * kDh + d] = v;\n  }\n  phase_mark(1, 8);\n}\n"),
+    ("cross_attention.cuh", "      cross[((size_t)b * K + r) * D + h * kDh + d] = v;\n    });\n  }\n",
+     "      cross[((size_t)b * K + r) * D + h * kDh + d] = v;\n    });\n  }\n  phase_mark(1, 7);\n"),
+    ("self_attention.cu", "  const int pad_j = a.pad[row];",
+     "  phase_mark(2, 0);\n  const int pad_j = a.pad[row];"),
+    ("self_attention.cu", "  issue(false);\n  issue(true);\n",
+     "  issue(false);\n  issue(true);\n  phase_mark(2, 1);\n"),
+    ("self_attention.cu", "  cp_async_wait_group<1>();  // K and ks\n  __syncthreads();\n",
+     "  cp_async_wait_group<1>();  // K and ks\n  __syncthreads();\n  phase_mark(2, 2);\n"),
+    ("self_attention.cu", "  cluster_barrier(cluster, splits);  // every block holds",
+     "  phase_mark(2, 3);\n  cluster_barrier(cluster, splits);  // every block holds"),
+    ("self_attention.cu", "  // the maximum, in every warp", "  phase_mark(2, 4);\n  // the maximum, in every warp"),
+    ("self_attention.cu", "  // pass 2: out[d]", "  phase_mark(2, 5);\n  // pass 2: out[d]"),
+    ("self_attention.cu", "    // the block's partial output into the rank",
+     "    phase_mark(2, 6);\n    // the block's partial output into the rank"),
+    ("self_attention.cu", "s_scale[own + 1];\n    }\n  }\n}\n",
+     "s_scale[own + 1];\n    }\n  }\n  phase_mark(2, 7);\n}\n"),
 ]
+
+
+def edited(out_dir: str, name: str, edits) -> str:
+    """A copy of this checkout's csrc/ with ``edits`` (file, text, new
+    text) applied; each text must occur once."""
+    dst = os.path.join(out_dir, name)
+    shutil.copytree(CSRC, dst)
+    for fname, old, new in edits:
+        path = os.path.join(dst, fname)
+        text = open(path).read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {fname} no longer holds {old[:50]!r} once")
+        open(path, "w").write(text.replace(old, new))
+    return dst
 
 
 def instrumented(out_dir: str) -> str:
     """A copy of this checkout's csrc/ with the phase marks."""
-    dst = os.path.join(out_dir, "csrc_phases")
-    shutil.copytree(CSRC, dst)
-    for fname, old, new in MARKS:
-        path = os.path.join(dst, fname)
-        text = open(path).read()
-        if text.count(old) != 1:
-            raise RuntimeError(f"--phases: {fname} no longer holds {old[:50]!r} once")
-        open(path, "w").write(text.replace(old, new))
-    with open(os.path.join(dst, "decoder_blocks.cu"), "a") as f:
-        f.write(READ)
+    dst = edited(out_dir, "csrc_phases", MARKS)
+    for fname, suffix in (("decoder_blocks.cu", ""), ("self_attention.cu", "_sa")):
+        with open(os.path.join(dst, fname), "a") as f:
+            f.write(READ.format(suffix))
     return dst
 
 
 def phases(cs, dll, card: str) -> None:
     import torch
 
-    dll.ttasr_phase_read.argtypes = [ctypes.c_void_p]
     all_cases = cases(cs)
-    buf = np.zeros((2, 4096, 12), dtype=np.uint64)
+    buf = np.zeros((3, 4096, 12), dtype=np.uint64)
     for label in ("B15 R=5 (DL=1280)", "LayerNorm GEMM R=5 (B1's entry at N=1280)", "B1 R=5",
-                  "B3 B=1 K=5 int4"):
-        entry, *args = all_cases[label]
+                  "B3 B=1 K=5 int4", *self_cases(cs)):
+        entry, _, *args = all_cases[label]
+        suffix = "_sa" if entry == "ttasr_self_attn_step" else ""
+        clear, read = (getattr(dll, f"ttasr_phase_{op}{suffix}") for op in ("clear", "read"))
+        read.argtypes = [ctypes.c_void_p]
         for _ in range(2):  # warm up, then stamp one call's blocks
             call(dll, entry, *args)
         torch.cuda.synchronize()
-        if dll.ttasr_phase_clear():
+        if clear():
             raise RuntimeError("phase clear failed")
         call(dll, entry, *args)
         torch.cuda.synchronize()
-        if dll.ttasr_phase_read(buf.ctypes.data):
+        if read(buf.ctypes.data):
             raise RuntimeError("phase read failed")
-        kinds = [k for k in (0, 1) if buf[k, :, 0].any()]
+        kinds = [k for k in (0, 1, 2) if buf[k, :, 0].any()]
         t0 = min(int(buf[k, buf[k, :, 0] > 0, 0].min()) for k in kinds)
         for kind in kinds:
-            names = GEMM_PHASES if kind == 0 else CROSS_PHASES
+            names = PHASE_NAMES[kind]
             rows = buf[kind, buf[kind, :, 0] > 0, :len(names)]
             t = (rows.astype(np.int64) - t0) / 1e3
-            what = "the last skinny GEMM" if kind == 0 else "the cross-attention"
+            what = PHASE_WHAT[kind]
             print(f"{label}, {what} ({len(rows)} blocks), us from the first block's start, "
                   "median/latest: " + ", ".join(
                       f"{nm} {np.median(t[:, i]):.2f}/{t[:, i].max():.2f}"

@@ -233,6 +233,12 @@ def time_ms_floor() -> float:
     return time_ms(lambda: t.add_(1.0))
 
 
+def per_call_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per call of a CUDA graph of ``reps`` calls: back to back
+    on the card, with no host launch between them (no ``time_ms`` floor)."""
+    return time_ms(lambda: [fn() for _ in range(reps)]) / reps
+
+
 def time_cold_ms(fns, iters: int = 5) -> float:
     """Device milliseconds per call of a CUDA graph that calls every ``fns``
     in turn once: each call meets its operands cold (their sum far beyond
@@ -466,7 +472,6 @@ def check_decode_kernels(card: str) -> dict:
 
     from ttasr_torch.ops import decoder_blocks as blk
     from ttasr_torch.ops import decoder_mlp as mlp
-    from ttasr_torch.ops import self_attention as sa
 
     inp = Inputs(1)
     lay = inp.layer()
@@ -543,43 +548,94 @@ def check_decode_kernels(card: str) -> dict:
         **bound(_tensors(b4, mlp.mlp_with_crossout_int8(*b4)),
                 2.0 * 5 * (D * D + 2 * D * FFN), "bf16"))
 
-    # B2 (beam 5 of one audio, through anc) and B10 (5 audios x 1 row)
+    res.update(check_self_attention(inp, card))
+
+    for name, r in res.items():
+        r["library_ms"] = None  # no single PyTorch call computes these
+        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) ({card})")
+    time_layer_chain(inp, lay, card)
+    return res
+
+
+# B2/B10 cache lengths and slots timed (480: the main path's last growth
+# bucket; 64: an early one), and the longest the wrapper takes: at the 2
+# splits of 100 (head, row) clusters one block's range would not fit
+# shared memory, so the kernel takes more
+SELF_LENGTHS = ((480, 477), (288, 285), (64, 40))
+SELF_LONG = 4096
+
+
+def _self_step(inp: Inputs, b, k, length, slot, pads, int4):
+    """B2's (k > 1, a random ancestry map) or B10's (k = 1) wrapper, plain
+    version and arguments at one length."""
+    import torch
+
+    from ttasr_torch.ops import self_attention as sa
+
+    kc, ks, vc, vs = inp.self_kv(b, k, length, int4)
+    qkv = inp.randn(b, k, 3 * D, scale=0.5)
+    pad = torch.tensor(pads, dtype=torch.int32, device="cuda").reshape(b, k)
+    if k > 1:
+        anc = torch.randint(0, k, (b, k, length), generator=inp.gen, device="cuda",
+                            dtype=torch.int32)
+        return (sa.self_attn_step_indirect_int8, sa.self_attn_step_indirect_int8_ref,
+                (qkv, kc, ks, vc, vs, anc, pad, slot))
+    return sa.self_attn_step_int8, sa.self_attn_step_int8_ref, (qkv, kc, ks, vc, vs, pad, slot)
+
+
+def check_self_attention(inp: Inputs, card: str) -> dict:
+    """B2 (beam 5 of one audio, through anc) and B10 (5 audios x 1 row)
+    against their plain versions: len 288 and 480 with two pad sets, a
+    slot or pads that mask whole splits, len SELF_LONG; int4 and int8; new
+    codes and scales exact, the same bits twice; warm at SELF_LENGTHS (one
+    call per replay and in graphs of 20), cold over 32 layers' caches."""
+    import torch
+
+    res = {}
     for name, b, k in (("self_attn_step_indirect_int8", 1, 5),
                        ("self_attn_step_int8", 5, 1)):
+        # B2: audio-uniform pads (the beams share the prompt); B10: per row
+        pad_sets = [[0] * 5, [100] * 5] if k == 5 else [[0, 3, 100, 7, 250], [41] * 5]
+        cases = [(length, length - 3, pads, "") for length in (288, 480) for pads in pad_sets]
+        # 2 splits of 240 positions at len 480: B2's slot 150 masks rank 1,
+        # B10's pads 330 rank 0
+        cases.append((480, 150, [0] * 5, " (split 2 of 2 masked)") if k == 5
+                     else (480, 477, [330] * 5, " (split 1 of 2 masked)"))
+        cases.append((SELF_LONG, SELF_LONG - 3, pad_sets[0], " (longer than one block's stage)"))
         worst, main = 0.0, None
-        for length in (288, 480):
-            slot = length - 3
-            # B2: audio-uniform pads (the beams share the prompt); B10: per row
-            pad_sets = ([[0] * 5, [100] * 5] if k == 5
-                        else [[0, 3, 100, 7, 250], [41] * 5])
-            for pads in pad_sets:
-                for int4 in (True, False):
-                    kc, ks, vc, vs = inp.self_kv(b, k, length, int4)
-                    qkv = inp.randn(b, k, 3 * D, scale=0.5)
-                    pad = torch.tensor(pads, dtype=torch.int32,
-                                       device="cuda").reshape(b, k)
-                    kw = dict(n_heads=H, int4=int4)
-                    if k > 1:
-                        anc = torch.randint(0, k, (b, k, length), generator=inp.gen,
-                                            device="cuda", dtype=torch.int32)
-                        args = (qkv, kc, ks, vc, vs, anc, pad, slot)
-                        fn, ref = sa.self_attn_step_indirect_int8, \
-                            sa.self_attn_step_indirect_int8_ref
-                    else:
-                        args = (qkv, kc, ks, vc, vs, pad, slot)
-                        fn, ref = sa.self_attn_step_int8, sa.self_attn_step_int8_ref
-                    got, want = fn(*args, **kw), ref(*args, **kw)
-                    case = (f"B={b} K={k} len={length} slot={slot} pad={pads[:2]} "
-                            f"{'int4' if int4 else 'int8'}")
-                    worst = _hold(name, case, got[0], want[0], worst)
-                    for i, what in ((1, "k codes"), (2, "k scales"), (3, "v codes"),
-                                    (4, "v scales")):
-                        check(torch.equal(got[i], want[i]),
-                              f"{name} {case}: new {what} differ from the plain version")
-                    if length == 480 and int4 and main is None:
-                        main = (fn, ref, args, kw)
+        for length, slot, pads, note in cases:
+            for int4 in (True, False):
+                fn, ref, args = _self_step(inp, b, k, length, slot, pads, int4)
+                kw = dict(n_heads=H, int4=int4)
+                got, want = fn(*args, **kw), ref(*args, **kw)
+                case = (f"B={b} K={k} len={length} slot={slot} pad={pads[:2]} "
+                        f"{'int4' if int4 else 'int8'}{note}")
+                check(bool(torch.isfinite(got[0]).all()), f"{name} {case}: not finite")
+                worst = _hold(name, case, got[0], want[0], worst)
+                for i, what in ((1, "k codes"), (2, "k scales"), (3, "v codes"),
+                                (4, "v scales")):
+                    check(torch.equal(got[i], want[i]),
+                          f"{name} {case}: new {what} differ from the plain version")
+                if length == 480 and int4 and main is None:
+                    main = (fn, ref, args, kw)
+        print(f"{name}: new codes and scales exact in every case")
         fn, ref, args, kw = main
+        _same_bits(f"{name} B={b} K={k} len=480 int4", lambda: fn(*args, **kw))
         ms, plain_ms = in_turns(lambda: fn(*args, **kw), lambda: ref(*args, **kw))
+        for length, slot in SELF_LENGTHS:
+            f, _, a = _self_step(inp, b, k, length, slot, [0] * 5, True)
+            call = (lambda f=f, a=a: f(*a, n_heads=H, int4=True))
+            print(f"{name} B={b} K={k} len={length} slot={slot} int4: time_ms "
+                  f"{time_ms(call):.4f}, in a graph of 20 {per_call_ms(call):.4f} ms per "
+                  f"call ({card})")
+        cold = []
+        for _ in range(N_LAYERS):
+            f, _, a = _self_step(inp, b, k, 480, 477, [0] * 5, True)
+            cold.append(lambda f=f, a=a: f(*a, n_heads=H, int4=True))
+        print(f"{name} B={b} K={k} len=480 int4: warm {ms:.4f} ms, cold "
+              f"{time_cold_ms(cold):.4f} ms (a graph over {N_LAYERS} layers' caches) ({card})")
+        del cold
         # scores and values over positions pad..slot of each row (the
         # caches' bytes counted whole)
         pad, slot = args[-2], args[-1]
@@ -587,13 +643,6 @@ def check_decode_kernels(card: str) -> dict:
         res[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                          **bound(_tensors(args, fn(*args, **kw)),
                                  2.0 * 2 * positions * D, "bf16"))
-        print(f"{name}: new codes and scales exact in every case")
-
-    for name, r in res.items():
-        r["library_ms"] = None  # no single PyTorch call computes these
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) ({card})")
-    time_layer_chain(inp, lay, card)
     return res
 
 

@@ -37,8 +37,11 @@
 //     through distributed shared memory, then written once;
 //   * every exchange pushes: a block writes its maxima, sums and partial
 //     outputs into the shared memory of the blocks that need them, and one
-//     cluster barrier per exchange makes them visible (three in all); codes
-//     become f32 by a bit trick (int8_code, int4_code), not by I2F;
+//     cluster barrier per exchange makes them visible (three in all; a
+//     block barrier for a one-block cluster); the partial outputs' exchange
+//     is cluster_add_outputs, which the self-attention step
+//     (self_attention.cu) shares; codes become f32 by a bit trick
+//     (int8_code, int4_code), not by I2F;
 //   * after B3's and B16's query GEMM it starts early (programmatic
 //     dependent launch): the cache rows are in flight before it waits for
 //     the queries.
@@ -90,6 +93,68 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // int4 code j (0..7, low nibble first) of u = word ^ 0x88888888 as f32, exactly
 __device__ __forceinline__ float int4_code(uint32_t u, int j) {
   return __fadd_rn(__uint_as_float(((u >> (4 * j)) & 0xFu) | 0x4B000000u), -8388616.f);
+}
+
+// Rank dst's copy of the shared array p (the block's own, directly)
+template <typename T>
+__device__ __forceinline__ T* cluster_peer(cg::cluster_group& cluster, T* p, int dst, int rank) {
+  return dst == rank ? p : cluster.map_shared_rank(p, dst);
+}
+
+// The cluster barrier where the cluster has peers, else the block's (no
+// release of the block's global writes to wait for)
+__device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster, int splits) {
+  if (splits > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+}
+
+// The blocks' P.V partial outputs (rows x 64 each) added and stored once.
+// acc[r][c] is a thread's sum for column 8 * (tid & 7) + c of row r over
+// its positions (every kThreads / 8-th).  The 4 threads of a warp with the
+// same columns are paired (xor 8, 16), the warps added in order into the
+// rank that owns each element (i % splits), and the owner adds the ranks'
+// parts in rank order and calls store(i, v), i = r * 64 + d.  s_red: warps
+// x rows x 64; s_outg: splits x rows x 64.
+template <int kThreads, int kRows, typename Store>
+__device__ __forceinline__ void cluster_add_outputs(cg::cluster_group& cluster,
+                                                    float (&acc)[kRows][8], int rows,
+                                                    float* s_red, float* s_outg, Store store) {
+  constexpr int kWarps = kThreads / 32;
+  const int splits = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, cgp = tid & 7;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < rows) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float v = acc[r][c];
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        acc[r][c] = v;
+      }
+    }
+  }
+  if (lane < 8) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < rows)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s_red[(warp * rows + r) * kDh + cgp * 8 + c] = acc[r][c];
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * kDh; i += kThreads) {
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += s_red[w * rows * kDh + i];
+    cluster_peer(cluster, s_outg, i % splits, rank)[rank * rows * kDh + i] = v;
+  }
+  cluster_barrier(cluster, splits);  // the last access to a peer's shared memory is before this
+  for (int i = rank + splits * tid; i < rows * kDh; i += splits * kThreads) {
+    float v = 0.f;
+    for (int q = 0; q < splits; ++q) v += s_outg[q * rows * kDh + i];
+    store(i, v);
+  }
 }
 
 __host__ __device__ inline int cross_rows_per_block(int rows, int splits) {
@@ -274,9 +339,10 @@ __global__ void __launch_bounds__(kCrossThreads) cross_attention_kernel(
   cluster_wait();  // every block of the cluster runs: its shared memory may be written
   if (tid < K * splits) {
     const int q = tid / K, r = tid - q * K;
-    cluster.map_shared_rank(s_stat, q)[kStatMaxes + rank * kMaxBeams + r] = s_stat[kStatBlock + r];
+    cluster_peer(cluster, s_stat, q, rank)[kStatMaxes + rank * kMaxBeams + r] =
+        s_stat[kStatBlock + r];
   }
-  cluster.sync();
+  cluster_barrier(cluster, splits);
   if (tid < K) {
     float m = kNegInf;
     for (int q = 0; q < splits; ++q) m = fmaxf(m, s_stat[kStatMaxes + q * kMaxBeams + tid]);
@@ -313,9 +379,10 @@ __global__ void __launch_bounds__(kCrossThreads) cross_attention_kernel(
   __syncthreads();
   if (tid < K * splits) {
     const int q = tid / K, r = tid - q * K;
-    cluster.map_shared_rank(s_stat, q)[kStatSums + rank * kMaxBeams + r] = s_stat[kStatBlock + r];
+    cluster_peer(cluster, s_stat, q, rank)[kStatSums + rank * kMaxBeams + r] =
+        s_stat[kStatBlock + r];
   }
-  cluster.sync();
+  cluster_barrier(cluster, splits);
   if (tid < K) {
     float l = 0.f;
     for (int q = 0; q < splits; ++q) l += s_stat[kStatSums + q * kMaxBeams + tid];
@@ -360,41 +427,11 @@ __global__ void __launch_bounds__(kCrossThreads) cross_attention_kernel(
         }
       }
     }
-    // the 4 rows of each warp with the same column group, then the warps
-#pragma unroll
-    for (int r = 0; r < kMaxBeams; ++r) {
-      if (r < K) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          float v = acc[r][c];
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          acc[r][c] = v;
-        }
-      }
-    }
-    if (lane < 8) {
-#pragma unroll
-      for (int r = 0; r < kMaxBeams; ++r)
-        if (r < K)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) s_red[(warp * K + r) * kDh + cgp * 8 + c] = acc[r][c];
-    }
-  }
-  __syncthreads();
-  // the block's partial output, into the shared memory of the rank that
-  // owns each element (i % splits), then the owners add them in rank order
-  for (int i = tid; i < K * kDh; i += kCrossThreads) {
-    float v = 0.f;
-    for (int w = 0; w < kCrossWarps; ++w) v += s_red[w * K * kDh + i];
-    cluster.map_shared_rank(s_outg, i % splits)[rank * K * kDh + i] = v;
-  }
-  cluster.sync();  // the last access to a peer's shared memory is before this
-  for (int i = rank + splits * tid; i < K * kDh; i += splits * kCrossThreads) {
-    float v = 0.f;
-    for (int q = 0; q < splits; ++q) v += s_outg[q * K * kDh + i];
-    const int r = i / kDh, d = i - r * kDh;
-    cross[((size_t)b * K + r) * D + h * kDh + d] = v;
+    // the rows' partial outputs, added over the warps and the cluster
+    cluster_add_outputs<kCrossThreads>(cluster, acc, K, s_red, s_outg, [&](int i, float v) {
+      const int r = i / kDh, d = i - r * kDh;
+      cross[((size_t)b * K + r) * D + h * kDh + d] = v;
+    });
   }
 }
 

@@ -26,7 +26,10 @@ v_new, vs_new).
 
 The wrappers run the plain versions for CPU tensors and launch
 ``ttasr_torch/csrc/self_attention.cu`` (one template with and without
-``anc``) for CUDA tensors, counting launches in ``<wrapper>.launches``.
+``anc``: the cache positions split over a thread-block cluster, an exact
+softmax across it) for CUDA tensors, counting launches in
+``<wrapper>.launches``.  On the card there is no other path: a refused
+launch raises.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from ttasr_torch.ops.decoder_blocks import (
 from ttasr_torch.ops.int4 import pack_int4_lanes, unpack_int4_lanes
 from ttasr_torch.ops.quant import quantize_kv_sym
 
-MAX_LEN = 4096  # cache slots the kernel's shared-memory score row holds
+MAX_LEN = 4096  # cache slots: every block holds the whole score row in shared memory
 
 
 def _step_ref(qkv, k8, ks, v8, vs, anc, pad_len, slot: int, n_heads: int,
@@ -127,7 +130,7 @@ def _launch(qkv, k8, ks, v8, vs, anc, pad_len, slot, n_heads, int4):
             raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}")
     if not 0 <= slot <= s_len or s_len > MAX_LEN:
         raise ValueError(f"slot={slot} outside [0, len={s_len}] or len > "
-                         f"{MAX_LEN} (the scores live in shared memory)")
+                         f"{MAX_LEN} (the kernel's stage lives in shared memory)")
     pad = pad_len.to(device=qkv.device, dtype=torch.int32).reshape(
         b, k_rows).contiguous()
     tensors = dict(qkv=qkv, k8=k8, ks=ks, v8=v8, vs=vs, pad=pad)
