@@ -32,7 +32,14 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    large-v3 shapes (B = 1 and 2, T = 1500): B5 ``ln_quant``, B7
    ``quant_only``, B8 ``add_ln_quant`` (D = 1280) and B9 ``gelu_quant`` (F =
    5120) within the codes envelope (|delta code| <= 1 on under 0.1 % of
-   entries, row scales within rtol 1e-6, B8's residual exact), B6
+   entries, row scales within rtol 1e-6, B8's residual exact); B9 and B5
+   from the int8 GEMM's accumulators, ``gelu_quant_acc`` (W1's, F = 5120)
+   and ``ln_quant_acc`` (W2's, with the residual x), on accumulators of
+   seeded codes some of which pass 2**24, within the same envelope with
+   ``x'`` exact, equal bit for bit to the parent route on the card (the
+   torch epilogue, the eager add and the bf16 entry) and the same bits
+   twice, timed in turns with their plain versions and with the parent
+   route (also in graphs of 20 calls); B6
    ``encoder_attention_merged_qkv`` from the (B, T, 3840) qkv buffer
    within B11's bound, and the int8 GEMM (``torch._int_mm`` on K-major
    codes) equal to the exact int32 product at the encoder's four shapes;
@@ -84,11 +91,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    ``WhisperEngine("large-v3", compute_type="int8")`` (weights quantized
    on the card, the s8 x s8 encoder with B5-B9, int8 and int4 self-KV,
    int4 cross-KV, beam 5 through the ancestry map, best-of-5 fallback);
-   checks the results, that B5, B6, B7, B8 and B9 ran 32 times per encoder
-   pass and the int8 GEMM 4 x 32 times, B11 never, B1, B3 and B4 32 times
-   per decode step, B2 32 times per beam step and B10 32 times per greedy
-   step; and that one window through the s8 x s8 encoder agrees with the
-   same encoder on the plain versions of B5-B9;
+   checks the results, that B6, B7, B8 and B9 (from W1's accumulators)
+   ran 32 times per encoder pass, B5 once from x and 31 times from W2's
+   accumulators, the int8 GEMM 4 x 32 times, B11 never, B1, B3 and B4 32
+   times per decode step, B2 32 times per beam step and B10 32 times per
+   greedy step; that one window through the s8 x s8 encoder agrees with
+   the same encoder on the plain versions of B5-B9; and the encoder
+   through this tree's route and the parent route (W1's and W2's torch
+   epilogues, the eager residual add, B9's and B5's bf16 entries) in
+   turns: their outputs within ``ENCODER_REL``, one window's wall, device
+   ms and kernels, and bench.py's 48 windows' wall, device ms and peak
+   memory;
 11. drives the decode's other branches on one encoder window of the main
    path's engine, ``BRANCH_STEPS`` tokens each, beside a main-path beam
    decode of the same window: ``beam_decode`` with
@@ -130,7 +143,8 @@ profiled (``torch.profiler``: device time, kernel count).  Prints one
 JSON line with each kernel's launches (from the main path's run; B11's
 from the bf16 path's, B12's from the bf16 cross-KV leg's, B13's from the
 unfused beam leg's, B17's from the ``beam_indirect=False`` leg's, B14-B16's
-from the one-rank TP v2 beam leg's, B18's and B19's from phase 8's run),
+from the one-rank TP v2 beam leg's, B18's and B19's from phase 8's run, B9's
+bf16 entry's from one parent-route encoder pass),
 worst
 error, times, bound and library time, then
 the card line, then the contract line ``{"ok": true, "device": {...}}``
@@ -216,10 +230,11 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(kernel_fn, plain_fn):
-    """(kernel ms, plain ms), measured plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (time_ms(plain_fn), time_ms(kernel_fn),
-                      time_ms(kernel_fn), time_ms(plain_fn))
+def in_turns(kernel_fn, plain_fn, timer=None):
+    """(kernel ms, plain ms), measured plain, kernel, kernel, plain by
+    ``timer`` (default :func:`time_ms`)."""
+    timer = timer or time_ms
+    p1, k1, k2, p2 = (timer(plain_fn), timer(kernel_fn), timer(kernel_fn), timer(plain_fn))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -749,10 +764,112 @@ def _b6_windows(gen, colscale, card: str) -> dict:
     return m
 
 
+def _acc_case(gen, b, k, n):
+    """W1's (k, n) = (D, FFN) or W2's (FFN, D) accumulators (b, ENC_T, n)
+    from the int8 GEMM on seeded codes, the first rows and columns all 127
+    so some pass 2**24 (where the int -> float conversion rounds), with
+    row scales, column scales and a bf16 bias of the encoder's magnitudes
+    (outputs of a few units)."""
+    import torch
+
+    from ttasr_torch.ops import quant
+
+    a = torch.randint(-127, 128, (b * ENC_T, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a[:3] = 127
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    w[:, :4] = 127
+    acc = quant._int8_product(a, quant.kmajor(w)).view(b, ENC_T, n)
+    check(acc.abs().max().item() > 2 ** 24, "no accumulator beyond 2**24")
+    xs = torch.rand((b, ENC_T, 1), generator=gen, device="cuda") * 0.045 + 0.005
+    ws = torch.rand((1, n), generator=gen, device="cuda") * 8e-4 + 2e-4
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    return acc, xs, ws, bias
+
+
+def parent_gelu_quant_acc(acc, xs, w_scale, b):
+    """The parent route of B9: W1's torch epilogue, then the bf16 entry."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+    from ttasr_torch.ops.quant import act8_epilogue
+
+    return ef.gelu_quant(act8_epilogue(acc, xs, w_scale, b, torch.bfloat16))
+
+
+def parent_ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
+    """The parent route of B5 after W2: the torch epilogue, the eager bf16
+    residual add, then the bf16 entry."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+    from ttasr_torch.ops.quant import act8_epilogue
+
+    x2 = x + act8_epilogue(acc, xs, w_scale, b, torch.bfloat16)
+    return (x2, *ef.ln_quant(x2, scale, bias))
+
+
+def _check_acc_entries(gen, ln_s, ln_b, act, card: str) -> dict:
+    """B9 and B5 from the accumulators at B = 1 and 2: against their plain
+    versions (x' exact, codes within the envelope), against the parent
+    route on the card bit for bit (B9: an exact epilogue, a GELU per
+    element, an absmax in any order; B5: ``ln_quant`` runs the same
+    template, so its LayerNorm sums in the same order), the same bits
+    twice; at B = 1 timed in turns with the plain version and with the
+    parent route (``time_ms`` and graphs of 20 calls)."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+
+    res = {}
+    for b in (1, 2):
+        w1 = _acc_case(gen, b, D, FFN)
+        x = act(b, ENC_T, D)
+        w2 = _acc_case(gen, b, FFN, D)
+        cases = {  # name: (kernel, plain, parent route, args, operations per element)
+            "gelu_quant_acc": (ef.gelu_quant_acc, ef.gelu_quant_acc_ref,
+                               parent_gelu_quant_acc, w1, 30),
+            "ln_quant_acc": (ef.ln_quant_acc, ef.ln_quant_acc_ref, parent_ln_quant_acc,
+                             (x, *w2, ln_s, ln_b), 20),
+        }
+        for name, (fn, ref, parent, args, per_elem) in cases.items():
+            acc = args[0] if name == "gelu_quant_acc" else args[1]
+            got, want, old = fn(*args), ref(*args), parent(*args)
+            case = f"B={b} T={ENC_T} width={got[-2].shape[-1]}"
+            same = all(torch.equal(g, o) for g, o in zip(got, old))
+            print(f"{name} {case}: equal to the parent route bit for bit: {same}")
+            check(same, f"{name} {case}: differs from the parent route on the card")
+            if name == "ln_quant_acc":
+                check(torch.equal(got[0], want[0]),
+                      f"{name} {case}: the bf16 residual x' differs from the plain version")
+                got, want = got[1:], want[1:]
+            err = _hold_codes(name, case, got, want)
+            _same_bits(f"{name} {case}", lambda: fn(*args))
+            r = res.setdefault(name, dict(max_abs_err=0.0, library_ms=None))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if b == 1:
+                r["ms"], r["plain_ms"] = in_turns(lambda: fn(*args), lambda: ref(*args))
+                r["ms_beside_parent"], r["parent_ms"] = in_turns(
+                    lambda: fn(*args), lambda: parent(*args))
+                r["graph20_ms"], r["graph20_parent_ms"] = in_turns(
+                    lambda: fn(*args), lambda: parent(*args), timer=per_call_ms)
+                # the column vectors are read as f32
+                ins = [a.float() if a.dim() == 1 else a for a in args]
+                r.update(bound(_tensors(ins, fn(*args)), float(per_elem * acc.numel()),
+                               "f32"))
+                print(f"{name} B=1: kernel {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}); "
+                      f"in turns with the parent route {r['ms_beside_parent']:.4f} against "
+                      f"{r['parent_ms']:.4f} ms; graphs of 20 {r['graph20_ms']:.4f} against "
+                      f"{r['graph20_parent_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}) ({card})")
+    return res
+
+
 def check_encoder_kernels(card: str) -> dict:
-    """B5, B6, B7, B8 and B9 against their plain versions, and the int8
-    GEMM against the exact product; returns per-kernel measurements keyed
-    by wrapper name, and the GEMM's under ``int8_gemm``."""
+    """B5, B6, B7, B8 and B9 (both B5 and B9 entries) against their plain
+    versions, and the int8 GEMM against the exact product; returns
+    per-kernel measurements keyed by wrapper name, and the GEMM's under
+    ``int8_gemm``."""
     import torch
 
     from ttasr_torch.ops import encoder_fused as ef
@@ -797,6 +914,8 @@ def check_encoder_kernels(card: str) -> dict:
                 ins = [a.float() if a.dim() == 1 else a for a in args]
                 r.update(bound(_tensors(ins, fn(*args)),
                                float(per_elem * args[0].numel()), "f32"))
+
+    res.update(_check_acc_entries(gen, ln_s, ln_b, act, card))
 
     # B6: q/K/V straight from the fused qkv buffer, q pre-scaled
     worst = 0.0
@@ -1092,23 +1211,135 @@ def check_tp_kernels(card: str) -> dict:
 
 @contextlib.contextmanager
 def plain_encoder_kernels():
-    """The s8 x s8 encoder on the plain versions of B5-B9 (the int8 GEMM
-    is exact either way)."""
+    """The s8 x s8 encoder on the plain versions of B5-B9, both entries of
+    B5 and B9 (the int8 GEMM is exact either way)."""
     from ttasr_torch.models.whisper import model
     from ttasr_torch.ops import encoder_fused as ef
     from ttasr_torch.ops import encoder_attention as ea
 
-    saved = [(ef, n, getattr(ef, n)) for n in ("ln_quant", "quant_only",
-                                               "add_ln_quant", "gelu_quant")]
+    saved = [(ef, n, getattr(ef, n)) for n in ("ln_quant", "quant_only", "add_ln_quant",
+                                               "gelu_quant", "gelu_quant_acc",
+                                               "ln_quant_acc")]
     saved.append((model, "encoder_attention_merged_qkv", model.encoder_attention_merged_qkv))
     try:
-        for mod, name, _ in saved[:4]:
+        for mod, name, _ in saved[:-1]:
             setattr(mod, name, getattr(ef, name + "_ref"))
         model.encoder_attention_merged_qkv = ea.encoder_attention_merged_qkv_ref
         yield
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def _act8_encoder_launches(passes: int, gemms: int = 4) -> dict:
+    """The fused-quant s8 x s8 encoder's row-kernel and GEMM launches over
+    ``passes`` passes: B5 from x in layer 0 and from W2's accumulators in
+    the layers after it, B9 from W1's accumulators, B7, B8 and ``gemms``
+    int8 GEMMs per layer (4 with the fused qkv leaf, 6 without)."""
+    L = N_LAYERS
+    return dict(ln_quant=passes, ln_quant_acc=(L - 1) * passes, quant_only=L * passes,
+                add_ln_quant=L * passes, gelu_quant_acc=L * passes,
+                quant_matmul_act8=gemms * L * passes)
+
+
+@contextlib.contextmanager
+def parent_encoder_route():
+    """The s8 x s8 encoder as the parent tree ran it: W1's and W2's torch
+    epilogues, the eager residual add, and the bf16 entries of B9 and B5,
+    in place of the entries that read the accumulators (the last layer's
+    W2 epilogue and add run in ``encode`` on either route)."""
+    from ttasr_torch.ops import encoder_fused as ef
+
+    saved = ef.gelu_quant_acc, ef.ln_quant_acc
+    ef.gelu_quant_acc, ef.ln_quant_acc = parent_gelu_quant_acc, parent_ln_quant_acc
+    try:
+        yield
+    finally:
+        ef.gelu_quant_acc, ef.ln_quant_acc = saved
+
+
+def _encoder_windows(engine, batch, label: str, card: str) -> dict:
+    """``batch`` (bench.py's MEL_WINDOWS windows) through the engine's
+    encoder: the wall of a call ended by a synchronise (median of 3 after a
+    warm-up), the peak device memory of one call, and one call under
+    ``torch.profiler`` (device ms, kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.encode_windows(batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = engine.encode_windows(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.encode_windows(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    m = dict(wall_ms=sorted(times)[1], device_ms=sum(e.self_device_time_total
+                                                     for e in kernels) / 1e3,
+             kernels=sum(e.count for e in kernels), peak_gib=peak / 2 ** 30,
+             peak_above_weights_gib=(peak - base) / 2 ** 30)
+    print(f"{label}: {len(batch)} windows, wall {m['wall_ms']:.2f} ms (median of 3, "
+          f"mel included), device {m['device_ms']:.2f} ms in {m['kernels']} kernels, "
+          f"peak memory {m['peak_gib']:.2f} GiB ({m['peak_above_weights_gib']:.2f} above "
+          f"what was allocated before) ({card})")
+    return m
+
+
+def compare_encoder_routes(engine, audio, card: str) -> dict:
+    """The main path's s8 x s8 encoder through this tree's route and the
+    parent route (:func:`parent_encoder_route`) on the same engine: one
+    window through each (finite, within ENCODER_REL of each other, the
+    largest gap printed; the parent route's B5 and B9 launch counts); one
+    window timed and profiled by :func:`encoder_ms` and MEL_WINDOWS windows
+    by :func:`_encoder_windows`, each in turns (parent, this tree, this
+    tree, parent).  Returns the readings and the parent route's
+    ``gelu_quant`` launches per pass."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+
+    counters = (ef.ln_quant, ef.ln_quant_acc, ef.gelu_quant, ef.gelu_quant_acc)
+    with torch.inference_mode():
+        new = engine.encode_windows(audio[None])
+        for fn in counters:
+            fn.launches = 0
+        with parent_encoder_route():
+            old = engine.encode_windows(audio[None])
+        parent_counts = {fn.__name__: fn.launches for fn in counters}
+    _expect("parent route, one window", parent_counts,
+            {"ln_quant": N_LAYERS, "gelu_quant": N_LAYERS})
+    check(bool(torch.isfinite(new).all()) and new.shape == old.shape,
+          "s8 x s8 encoder: non-finite output or shapes differ between the routes")
+    gap = _max_err(new, old)
+    scale = old.float().abs().max().item()
+    print(f"s8 x s8 encoder, this tree's route vs the parent route: largest gap "
+          f"{gap:.3e}, max|parent| {scale:.3e}, bit for bit: {torch.equal(new, old)}; "
+          f"parent route launches per pass {json.dumps(parent_counts)}")
+    check(gap <= ENCODER_REL * scale, "the two encoder routes disagree")
+    batch = np.stack([audio] * MEL_WINDOWS)
+    res = dict(max_gap=gap, parent_gelu_quant_launches=parent_counts["gelu_quant"])
+    for route in ("parent", "tree", "tree", "parent"):
+        ctx = parent_encoder_route() if route == "parent" else contextlib.nullcontext()
+        with ctx:
+            label = f"s8 x s8 encoder, {'parent' if route == 'parent' else 'this tree'}'s route"
+            one = encoder_ms(engine, audio, label, card)
+            many = _encoder_windows(engine, batch, label, card)
+        res.setdefault(route, []).append(dict(one_window=one, windows=many))
+    print("s8 x s8 encoder routes: " + json.dumps({r: [dict(
+        one_window={k: v["one_window"][k] for k in ("wall_ms", "device_ms", "kernels")},
+        windows=v["windows"]) for v in res[r]] for r in ("parent", "tree")}) + f" ({card})")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1486,8 +1717,9 @@ def _int8_counters():
     return [blk.qkv_int8_fused, sa.self_attn_step_indirect_int8,
             blk.attnout_ln_q_cross_int8, mlp.mlp_with_crossout_int8,
             sa.self_attn_step_int8, model.encoder_attention_merged,
-            model.encoder_attention_merged_qkv, ef.ln_quant, ef.quant_only,
-            ef.add_ln_quant, ef.gelu_quant, quant.quant_matmul_act8,
+            model.encoder_attention_merged_qkv, ef.ln_quant, ef.ln_quant_acc,
+            ef.quant_only, ef.add_ln_quant, ef.gelu_quant, ef.gelu_quant_acc,
+            quant.quant_matmul_act8,
             blk.attnout_ln_q_fused, ca.cross_attention_int8,
             bg.gather_cache_rows, blk.matmul_int8_partial,
             blk.ln_q_cross_int8, mlp.mlp_int8_fused]
@@ -1514,39 +1746,33 @@ def run_int8_path(card: str, act8: bool) -> dict:
     run = _drive_cli(engine, label, card, _int8_counters(), n_files=2 if act8 else 1)
     c, st = run["counts"], run["stats"]
     steps = st["beam_steps"] + st["greedy_steps"]
-    enc = N_LAYERS * st["encoder_passes"]
+    passes = st["encoder_passes"]
+    check(passes > 0 and steps > 0, f"{label}: no encoder pass or step")
     want = {"qkv_int8_fused": N_LAYERS * steps,
             "attnout_ln_q_cross_int8": N_LAYERS * steps,
             "mlp_with_crossout_int8": N_LAYERS * steps,
             "self_attn_step_indirect_int8": N_LAYERS * st["beam_steps"],
             "self_attn_step_int8": N_LAYERS * st["greedy_steps"]}
-    encoder_kernels = ("encoder_attention_merged_qkv", "ln_quant", "quant_only",
-                       "add_ln_quant", "gelu_quant")
-    for name in encoder_kernels:
-        want[name] = enc if act8 else 0
-    want["quant_matmul_act8"] = 4 * enc if act8 else 0
-    want["encoder_attention_merged"] = 0 if act8 else enc
-    off_path = ("attnout_ln_q_fused", "cross_attention_int8", "gather_cache_rows",
-                "matmul_int8_partial", "ln_q_cross_int8", "mlp_int8_fused")
-    want.update(dict.fromkeys(off_path, 0))
-    for name, n in want.items():
-        check(c[name] == n and (n > 0 or name in encoder_kernels + off_path + (
-            "quant_matmul_act8", "encoder_attention_merged")),
-              f"{label}: {name} launched {c[name]} times, expected {n}")
-    check(st["encoder_passes"] > 0 and steps > 0, f"{label}: no encoder pass or step")
+    if act8:
+        want.update(_act8_encoder_launches(passes),
+                    encoder_attention_merged_qkv=N_LAYERS * passes)
+    else:
+        want["encoder_attention_merged"] = N_LAYERS * passes
+    _expect(label, c, want)
     print(f"{label}: launch counts match the decode stats "
           f"({st['beam_steps']} beam + {st['greedy_steps']} greedy steps, "
           f"{st['encoder_passes']} encoder passes, x {N_LAYERS} layers)")
     if act8:
         _encoder_agrees(engine, run["first"], label, plain=plain_encoder_kernels)
     ms = encoder_ms(engine, run["first"], label, card)
-    branches = tp = None
+    branches = tp = routes = None
     if act8:
+        routes = compare_encoder_routes(engine, run["first"], card)
         branches, main_leg = run_branch_paths(engine, run["first"], card)
         tp = run_tp_paths(engine, run["first"], main_leg, card)
     del engine
     torch.cuda.empty_cache()
-    return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp)
+    return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp, routes=routes)
 
 
 # ---------------------------------------------------------------------------
@@ -1826,12 +2052,10 @@ def run_branch_paths(engine, audio, card: str):
     s, passes = st["beam_steps"], st["encoder_passes"]
     check(st["nonfinite_logits"] == 0 and s > 0 and st["greedy_steps"] == 0,
           f"{label}: decode stats {st}")
-    _expect(label, counts, {
-        "qkv_int8_fused": L * s, "self_attn_step_indirect_int8": L * s,
-        "attnout_ln_q_fused": L * s, "mlp_with_crossout_int8": L * s,
-        "encoder_attention_merged_qkv": L * passes, "ln_quant": L * passes,
-        "quant_only": L * passes, "add_ln_quant": L * passes,
-        "gelu_quant": L * passes, "quant_matmul_act8": 4 * L * passes})
+    _expect(label, counts, dict(
+        _act8_encoder_launches(passes), qkv_int8_fused=L * s,
+        self_attn_step_indirect_int8=L * s, attnout_ln_q_fused=L * s,
+        mlp_with_crossout_int8=L * s, encoder_attention_merged_qkv=L * passes))
     legs[label] = dict(steps=s, ms_per_step=1e3 * wall / s, counts=counts)
     print(f"{label}: {len(segments)} segments, {s} beam steps, {passes} encoder "
           f"passes, wall {wall:.2f} s = {1e3 * wall / s:.2f} ms per beam step "
@@ -2069,9 +2293,7 @@ def run_mesh_engine(mesh, audio, base, counters, card) -> dict:
     _segments_well_formed(label, segments)
     _expect(label, counts, dict(
         _tp_launches(s, beam=True, row_parallel=False),
-        encoder_attention_merged=L * passes, ln_quant=L * passes,
-        quant_only=L * passes, add_ln_quant=L * passes, gelu_quant=L * passes,
-        quant_matmul_act8=6 * L * passes))
+        **_act8_encoder_launches(passes, gemms=6), encoder_attention_merged=L * passes))
     legs = {label: dict(steps=s, ms_per_step=1e3 * wall / s, counts=counts)}
     print(f"{label}: {len(segments)} segments, {s} beam steps, {passes} encoder "
           f"passes, wall {wall:.2f} s = {1e3 * wall / s:.2f} ms per beam step "
@@ -2214,6 +2436,10 @@ KERNELS = [  # wrapper name, source, the TPU kernel it replaces
      "ttasr/ops/encoder_fused_pallas.py:141"),
     ("gelu_quant", "ttasr_torch/csrc/encoder_fused.cu",
      "ttasr/ops/encoder_fused_pallas.py:177"),
+    ("gelu_quant_acc", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/encoder_fused_pallas.py:177"),
+    ("ln_quant_acc", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/encoder_fused_pallas.py:113"),
     ("attnout_ln_q_fused", "ttasr_torch/csrc/decoder_blocks.cu",
      "ttasr/ops/decoder_blocks_pallas.py:75"),
     ("cross_attention_int8", "ttasr_torch/csrc/cross_attention.cu",
@@ -2286,6 +2512,11 @@ def main() -> int:
     for name in ("matmul_int8_partial", "ln_q_cross_int8", "mlp_int8_fused"):
         launches[name] = main_path["tp"][TP_LEG]["counts"][name]
     launches.update(standalone_launches)  # phase 8's run: no engine path calls them
+    # B9's bf16 entry left the main path: its launches are the parent
+    # route's in one encoder pass (compare_encoder_routes)
+    launches["gelu_quant"] = main_path["routes"]["parent_gelu_quant_launches"]
+    print(f"gelu_quant (bf16 entry): {main_path['counts']['gelu_quant']} launches on the "
+          f"main path; {launches['gelu_quant']} in one pass of the parent route")
     print(f"B11 launches: bf16 path {bf16['launches']}, int8 main path "
           f"{main_path['counts']['encoder_attention_merged']}, encoder_act_int8=False "
           f"path {int8_bf16_encoder['counts']['encoder_attention_merged']}")

@@ -18,7 +18,10 @@ fused by the JAX package and carried over with ``params_from_jax``.
   branch on separate q/k/v weights), bf16 activations: within
   2e-2 x max|ref| at the worst element (bf16 reassociation across two
   layers, as the bf16 encoder test in ``test_torch_engine.py``) and 1e-3 x
-  max|ref| on average; each branch's kernels are counted.
+  max|ref| on average; each branch's kernels are counted (B5's two
+  entries together, layer 0's ``ln_quant`` and the later layers'
+  ``ln_quant_acc``; every int8 GEMM, W1 and W2 included, whose
+  accumulators go straight to ``gelu_quant_acc`` and ``ln_quant_acc``).
 - ``WhisperEngine(compute_type="int8")`` with its defaults against the JAX
   int8 engine, segment for segment at T=0 (tokens, text and times equal).
 """
@@ -42,6 +45,7 @@ from ttasr_torch.models.whisper import model as tm
 from ttasr_torch.models.whisper.config import PRESETS as T_PRESETS
 from ttasr_torch.models.whisper.load import params_from_jax
 from ttasr_torch.ops import encoder_fused as t_fused
+from ttasr_torch.ops import quant as t_quant
 
 TOK = build_byte_fallback_tokenizer()
 NAME = "micro64-test"
@@ -67,16 +71,17 @@ def jax_act8(monkeypatch):
 
 
 class _Calls:
-    """Counts the port's encoder kernel wrappers (the launch counters count
-    only CUDA launches)."""
+    """Counts the port's encoder kernel wrappers and int8 GEMMs (the launch
+    counters count only CUDA launches)."""
 
     def __init__(self, monkeypatch):
         self.n = {}
-        for mod, name in ((t_fused, "ln_quant"), (t_fused, "add_ln_quant"),
-                          (t_fused, "gelu_quant"), (t_fused, "quant_only"),
+        for mod, name in ((t_fused, "ln_quant"), (t_fused, "ln_quant_acc"),
+                          (t_fused, "add_ln_quant"), (t_fused, "gelu_quant"),
+                          (t_fused, "gelu_quant_acc"), (t_fused, "quant_only"),
                           (tm, "encoder_attention_merged_qkv"),
                           (tm, "encoder_attention_merged"),
-                          (tm, "quant_matmul_act8")):
+                          (t_quant, "_int8_product")):
             fn = getattr(mod, name)
             self.n[name] = 0
 
@@ -119,17 +124,20 @@ def test_act8_encode_matches_jax(jax_act8, monkeypatch, fused_quant, fuse):
     assert err.mean() <= 1e-3 * scale, err.mean()
     layers = tcfg.encoder_layers
     n = calls.n
-    assert n["quant_matmul_act8"] == (4 if fuse else 6) * layers
+    assert n["_int8_product"] == (4 if fuse else 6) * layers
     if fused_quant is None:
-        for name in ("ln_quant", "add_ln_quant", "gelu_quant", "quant_only"):
+        assert n["ln_quant"] + n["ln_quant_acc"] == layers
+        assert (n["ln_quant"], n["gelu_quant"]) == (1, 0)
+        for name in ("gelu_quant_acc", "add_ln_quant", "quant_only"):
             assert n[name] == layers, name
         # B6 reads the fused qkv buffer; separate q/k/v leaves go to B11
         assert n["encoder_attention_merged_qkv"] == (layers if fuse else 0)
         assert n["encoder_attention_merged"] == (0 if fuse else layers)
     else:
         assert n["encoder_attention_merged"] == layers
-        assert sum(n[k] for k in ("ln_quant", "add_ln_quant", "gelu_quant",
-                                  "quant_only", "encoder_attention_merged_qkv")) == 0
+        assert sum(n[k] for k in ("ln_quant", "ln_quant_acc", "add_ln_quant",
+                                  "gelu_quant", "gelu_quant_acc", "quant_only",
+                                  "encoder_attention_merged_qkv")) == 0
 
 
 def test_act8_encode_rules(bf16_weights):

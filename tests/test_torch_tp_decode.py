@@ -412,7 +412,7 @@ def test_the_engine_raises_on_a_mesh_tp_refuses():
     params = init_params(cfg, seed=0)
     for compute_type, mesh in (("int8", odd), ("float32", dataclasses.replace(
             odd, shape={"data": 1, "model": 1}))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(NotImplementedError, match="GSPMD"):
             TEngine("tp", compute_type=compute_type, params=params, config=cfg,
                     device="cpu", mesh=mesh)
 

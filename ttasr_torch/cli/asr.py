@@ -156,8 +156,7 @@ def process_audio_folder(folder_path: str,
     if concurrency > 1 or batched:
         raise NotImplementedError(
             "--concurrency > 1 and --batched need BatchServer / "
-            "BatchedInferencePipeline, not ported to ttasr_torch yet "
-            "(ROADMAP A7)")
+            "BatchedInferencePipeline, not ported to ttasr_torch yet")
     audio_files = list_audio_files(folder_path)
     if not audio_files:
         print(f"在資料夾 {folder_path} 中找不到音檔")

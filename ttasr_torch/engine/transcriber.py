@@ -145,7 +145,7 @@ def _parse_transcribe_kwargs(kwargs: dict) -> TranscribeOptions:
     if opts.word_timestamps:
         raise NotImplementedError(
             "word_timestamps=True needs models/whisper/align.py, which is not "
-            "ported to ttasr_torch yet (ROADMAP A10)")
+            "ported to ttasr_torch yet (see ROADMAP.md)")
     return opts
 
 
@@ -197,8 +197,7 @@ class WhisperEngine:
                     f"mesh {mesh.shape} with compute_type={compute_type!r}: the "
                     f"fused tensor-parallel decode needs int8 weights, 64-wide "
                     f"heads and an even head count per shard; the GSPMD graph "
-                    f"for other meshes is not ported to ttasr_torch yet "
-                    f"(ROADMAP A12)")
+                    f"for other meshes is not ported to ttasr_torch yet")
             self._tp = TPDecoder(self.params, self.cfg, mesh)
         # s8 x s8 encoder: None = the encoder's auto rule (on for quantized
         # weights), False forces it off; likewise its fused quantize kernels

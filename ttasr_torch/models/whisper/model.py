@@ -14,7 +14,9 @@ The encoder's self-attention goes through the Hopper kernel
 On int8 weights the encoder runs s8 x s8 by default (``encode``'s
 ``act_int8``): each layer goes ``ln_quant`` -> int8 GEMM -> merged-qkv
 attention -> ``quant_only`` -> int8 GEMM -> ``add_ln_quant`` -> int8 GEMM ->
-``gelu_quant`` -> int8 GEMM, the kernels of
+``gelu_quant_acc`` (W1's epilogue folded in) -> int8 GEMM, whose int32
+accumulators the next layer's ``ln_quant_acc`` reads (W2's epilogue and
+the residual add folded in; layer 0 takes ``ln_quant``), the kernels of
 :mod:`ttasr_torch.ops.encoder_fused` and
 :mod:`ttasr_torch.ops.encoder_attention`.
 The decode cache is updated in place (the JAX version returns a new one).
@@ -37,6 +39,8 @@ from ttasr_torch.ops.encoder_attention import (
 )
 from ttasr_torch.ops.int4 import pack_int4, pack_int4_lanes, quantize_kv4
 from ttasr_torch.ops.quant import (
+    act8_epilogue,
+    int8_accumulators,
     is_quantized,
     quant_matmul,
     quant_matmul_act8,
@@ -293,18 +297,25 @@ def _self_attn_act8(x, blk, n_heads, t_real, *, x_quant=None,
     return quant_matmul_act8(oq, os_, blk["wo"], blk["bo"], out_dtype=x.dtype)
 
 
-def _mlp_act8(x, blk, *, x_quant=None, fused_quant: bool = False):
-    """Encoder MLP with s8 x s8 matmuls; ``x_quant`` and ``fused_quant``
-    as in :func:`_self_attn_act8` (the hidden's quantize fuses with the
-    GELU in ``gelu_quant``)."""
-    xq, xs = x_quant if x_quant is not None else quantize_act(x)
-    h = quant_matmul_act8(xq, xs, blk["w1"], blk["b1"], out_dtype=(
-        torch.bfloat16 if x_quant is not None else x.dtype))
-    if fused_quant:
-        hq, hs = encoder_fused.gelu_quant(h)
-    else:
-        hq, hs = quantize_act(F.gelu(h))
+def _mlp_act8(x, blk):
+    """Encoder MLP with s8 x s8 matmuls and plain quantize chains."""
+    xq, xs = quantize_act(x)
+    h = quant_matmul_act8(xq, xs, blk["w1"], blk["b1"], out_dtype=x.dtype)
+    hq, hs = quantize_act(F.gelu(h))
     return quant_matmul_act8(hq, hs, blk["w2"], blk["b2"], out_dtype=h.dtype)
+
+
+def _mlp_act8_acc(blk, x_quant):
+    """The fused-quant encoder MLP up to W2's int32 accumulators: W1's
+    accumulators go to ``gelu_quant_acc`` (W1's epilogue, the GELU and the
+    hidden's quantize in one kernel).  Returns ``(acc, hs, w_scale, b)``,
+    the operands of W2's epilogue, which the next layer's ``ln_quant_acc``
+    (or, after the last layer, :func:`act8_epilogue`) applies."""
+    xq, xs = x_quant
+    w1, w2 = blk["w1"], blk["w2"]
+    hq, hs = encoder_fused.gelu_quant_acc(int8_accumulators(xq, w1), xs,
+                                          w1["s"], blk["b1"])
+    return int8_accumulators(hq, w2), hs, w2["s"], blk["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +340,8 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
     head count), the JAX package's rule without its backend test; False
     forces float compute on quantized weights.  ``fused_quant=None``
     enables the one-pass producer + quantize kernels (B5, B7, B8, B9)
-    whenever act_int8 is active; False keeps plain quantize chains.
+    whenever act_int8 is active, B9 and B5 reading W1's and W2's int32
+    accumulators (layer 0's B5 reads x); False keeps plain quantize chains.
     ``qkv_direct`` (the JAX package's ``TTASR_ENC_QKV_DIRECT``) feeds the
     fused qkv GEMM's bf16 output straight to B6 on the fused-quant path.
     """
@@ -356,14 +368,19 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
     if act8:
         x = x.contiguous()  # the row kernels read contiguous (B, T, D) rows
     h_n = cfg.encoder_heads
+    w2 = None  # fused quant: the last W2's epilogue operands, not yet added
     for blk in enc["blocks"]:
         if fq:
-            q1, s1 = encoder_fused.ln_quant(x, blk["ln1_s"], blk["ln1_b"])
+            if w2 is None:
+                q1, s1 = encoder_fused.ln_quant(x, blk["ln1_s"], blk["ln1_b"])
+            else:
+                x, q1, s1 = encoder_fused.ln_quant_acc(x, *w2, blk["ln1_s"],
+                                                       blk["ln1_b"])
             attn = _self_attn_act8(x, blk, h_n, t_real, x_quant=(q1, s1),
                                    fused_quant=True, qkv_direct=qkv_direct)
             x, q2, s2 = encoder_fused.add_ln_quant(x, attn, blk["ln2_s"],
                                                    blk["ln2_b"])
-            x = x + _mlp_act8(x, blk, x_quant=(q2, s2), fused_quant=True)
+            w2 = _mlp_act8_acc(blk, (q2, s2))
         elif act8:
             h = _ln(x, blk["ln1_s"], blk["ln1_b"])
             x = x + _self_attn_act8(h, blk, h_n, t_real)
@@ -372,6 +389,8 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
             h = _ln(x, blk["ln1_s"], blk["ln1_b"])
             x = x + _self_attn(h, blk, h_n, fused=fused, t_real=t_real)
             x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+    if w2 is not None:
+        x = x + act8_epilogue(*w2, out_dtype=torch.bfloat16)
     return _ln(x, enc["ln_s"], enc["ln_b"])
 
 

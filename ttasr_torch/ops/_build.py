@@ -47,14 +47,21 @@ ARGTYPES = {
     "ttasr_encoder_self_attention": [_P] * 5 + [_I] * 4 + [_P],
     # x, basis, fb, out; B, n, n_mels; stream
     "ttasr_log_mel": [_P] * 4 + [_I] * 3 + [_P],
-    # x, ln_s, ln_b, codes, scales; rows, D; stream
-    "ttasr_ln_quant": [_P] * 5 + [_I] * 2 + [_P],
-    # x, y, ln_s, ln_b, resid, codes, scales; rows, D; stream
-    "ttasr_add_ln_quant": [_P] * 7 + [_I] * 2 + [_P],
+    # x, ln_s, ln_b, codes, scales; rows, D, vec_bf16 (bits 0, 1, 2: b,
+    # ln_s, ln_b are bf16, else f32); stream
+    "ttasr_ln_quant": [_P] * 5 + [_I] * 3 + [_P],
+    # x, y, ln_s, ln_b, resid, codes, scales; rows, D, vec_bf16; stream
+    "ttasr_add_ln_quant": [_P] * 7 + [_I] * 3 + [_P],
     # h, codes, scales; rows, F; stream
     "ttasr_gelu_quant": [_P] * 3 + [_I] * 2 + [_P],
     # x, codes, scales; rows, D; stream
     "ttasr_quant_only": [_P] * 3 + [_I] * 2 + [_P],
+    # acc, xs, w_scale, b (NULL: none), codes, scales; rows, F, vec_bf16;
+    # stream
+    "ttasr_gelu_quant_acc": [_P] * 6 + [_I] * 3 + [_P],
+    # x, acc, xs, w_scale, b (NULL: none), ln_s, ln_b, resid, codes, scales;
+    # rows, D, vec_bf16; stream
+    "ttasr_ln_quant_acc": [_P] * 10 + [_I] * 3 + [_P],
     # x, ln_s, ln_b, w, w_scale, bias, out; R, D, M; stream
     "ttasr_qkv_int8": [_P] * 7 + [_I] * 3 + [_P],
     # x, attn, wo, wo_s, bo, lnc_s, lnc_b, wqc, wqc_s, bqc, xo, qc; R, D, DC;

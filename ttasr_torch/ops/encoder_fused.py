@@ -7,7 +7,16 @@ Ports of ``ttasr/ops/encoder_fused_pallas.py``:
 - B7 :func:`quant_only`: int8 codes + row scales;
 - B8 :func:`add_ln_quant`: residual add -> (bf16 residual, codes and scales
   of the LayerNorm of the f32 sum);
-- B9 :func:`gelu_quant`: exact GELU (A&S erf polynomial) -> codes + scales.
+- B9 :func:`gelu_quant`: exact GELU (A&S erf polynomial) -> codes + scales;
+
+and two entries that read the s8 x s8 GEMM's int32 accumulators and apply
+its epilogue (``ops.quant.act8_epilogue``: ``acc * xs * w_scale + b``,
+rounded to bf16) first, so the encoder's W1 and W2 outputs never exist as
+bf16 tensors:
+
+- B9 :func:`gelu_quant_acc`: :func:`gelu_quant` of W1's output;
+- B5 :func:`ln_quant_acc`: the residual add of W2's output, ``x' = x + y``
+  in bf16, then :func:`ln_quant` of ``x'``; returns ``x'`` too.
 
 Each producer runs in f32 and its f32 output is quantized directly (the
 fused contract): ``scale = max(absmax, 1e-8) * f32(1/127)``, ``codes =
@@ -16,7 +25,8 @@ JAX kernels compute (XLA rewrites the division by the constant inside the
 kernel, interpret mode included).  Inputs are (B, T, D) bf16; scales come
 back (B, T, 1) f32, codes (B, T, D) int8.
 
-Each wrapper runs its plain PyTorch version (``*_ref``) for CPU tensors and
+All six run one kernel template.  Each wrapper runs its plain PyTorch
+version (``*_ref``) for CPU tensors and
 launches the CUDA kernel (``ttasr_torch/csrc/encoder_fused.cu``) for CUDA
 tensors, counting launches in ``<wrapper>.launches``; anything else raises.
 """
@@ -27,7 +37,7 @@ import torch
 
 from ttasr_torch.ops.decoder_blocks import _dispatch
 from ttasr_torch.ops.decoder_mlp import gelu_as
-from ttasr_torch.ops.quant import quantize_rows
+from ttasr_torch.ops.quant import act8_epilogue, quantize_rows
 
 LN_EPS = 1e-5
 
@@ -60,10 +70,20 @@ def quant_only_ref(x):
     return quantize_rows(x.float())
 
 
-def _rows(x, name):
-    """Checks a (..., D) bf16 operand for the kernel; returns (rows, D)."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} must be bfloat16 on the card, got {x.dtype}")
+def gelu_quant_acc_ref(acc, xs, w_scale, b):
+    return gelu_quant_ref(act8_epilogue(acc, xs, w_scale, b, torch.bfloat16))
+
+
+def ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias):
+    x2 = x + act8_epilogue(acc, xs, w_scale, b, torch.bfloat16)
+    return (x2, *ln_quant_ref(x2, scale, bias))
+
+
+def _rows(x, name, dtype=torch.bfloat16):
+    """Checks a (..., D) operand of ``dtype`` for the kernel; returns
+    (rows, D)."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} on the card, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     d = x.shape[-1]
@@ -80,10 +100,48 @@ def _outputs(x):
     return rows, codes, scales
 
 
+def _aligned(v):
+    """``v`` contiguous and 16-byte aligned (the kernels read 16 bytes at
+    a time)."""
+    v = v.contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _vec(v, d, name):
     if v.numel() != d or v.device.type != "cuda":
         raise ValueError(f"{name} must hold {d} values on the card")
-    return v.float().contiguous()
+    return _aligned(v.float())
+
+
+_VEC_BITS = {"b": 1, "scale": 2, "bias": 4}  # the kernels' vec_bf16 mask
+
+
+def _vecs(d, **named):
+    """Column vectors (a bias ``b``, a LayerNorm ``scale`` and ``bias``) as
+    the kernel reads them: bf16 as they are, anything else as f32; returns
+    them in order and the mask of those that are bf16."""
+    out, mask = [], 0
+    for name, v in named.items():
+        if v is not None:
+            if v.dtype == torch.bfloat16:
+                mask |= _VEC_BITS[name]
+                v = _aligned(v)
+            else:
+                v = _vec(v, d, name)
+            if v.numel() != d or v.device.type != "cuda":
+                raise ValueError(f"{name} must hold {d} values on the card")
+        out.append(v)
+    return (*out, mask)
+
+
+def _acc_rows(acc, xs, w_scale):
+    """Checks the int32 accumulators (..., W) and their epilogue's row and
+    column scales for the kernel; returns (rows, W, xs, w_scale) as the
+    kernel reads them."""
+    rows, w = _rows(acc, "acc", torch.int32)
+    if xs.numel() != rows or xs.dtype != torch.float32 or xs.device != acc.device:
+        raise ValueError(f"xs must hold {rows} f32 row scales on {acc.device}")
+    return rows, w, xs.contiguous(), _vec(w_scale, w, "w_scale")
 
 
 def ln_quant(x, scale, bias):
@@ -94,8 +152,8 @@ def ln_quant(x, scale, bias):
     rows, codes, scales = _outputs(x)
     from ttasr_torch.ops._build import launch
 
-    launch("ttasr_ln_quant", x.device, x, _vec(scale, d, "scale"),
-           _vec(bias, d, "bias"), codes, scales, rows, d)
+    s, b, mask = _vecs(d, scale=scale, bias=bias)
+    launch("ttasr_ln_quant", x.device, x, s, b, codes, scales, rows, d, mask)
     ln_quant.launches += 1
     return codes, scales
 
@@ -113,8 +171,9 @@ def add_ln_quant(x, y, scale, bias):
     resid = torch.empty_like(x)
     from ttasr_torch.ops._build import launch
 
-    launch("ttasr_add_ln_quant", x.device, x, y, _vec(scale, d, "scale"),
-           _vec(bias, d, "bias"), resid, codes, scales, rows, d)
+    s, b, mask = _vecs(d, scale=scale, bias=bias)
+    launch("ttasr_add_ln_quant", x.device, x, y, s, b, resid, codes, scales, rows,
+           d, mask)
     add_ln_quant.launches += 1
     return resid, codes, scales
 
@@ -145,5 +204,44 @@ def quant_only(x):
     return codes, scales
 
 
-for _fn in (ln_quant, add_ln_quant, gelu_quant, quant_only):
+def gelu_quant_acc(acc, xs, w_scale, b):
+    """B9 from W1's int32 accumulators acc (..., F), row scales xs (..., 1),
+    column scales w_scale (1, F) and bias b (F,) or None: codes and row
+    scales of GELU(bf16(acc * xs * w_scale + b))."""
+    if not _dispatch(acc):
+        return gelu_quant_acc_ref(acc, xs, w_scale, b)
+    rows, f, xs, ws = _acc_rows(acc, xs, w_scale)
+    b, mask = _vecs(f, b=b)
+    _, codes, scales = _outputs(acc)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_gelu_quant_acc", acc.device, acc, xs, ws, b, codes, scales,
+           rows, f, mask)
+    gelu_quant_acc.launches += 1
+    return codes, scales
+
+
+def ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
+    """B5 after W2: ``x' = x + bf16(acc * xs * w_scale + b)`` (the bf16
+    residual add), then LN1 of ``x'`` -> (x', int8 codes, f32 row scales
+    (..., 1)).  x (..., D) bf16; acc (..., D) int32 with row scales xs."""
+    if not _dispatch(x):
+        return ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
+    _, d = _rows(x, "x")
+    if acc.shape != x.shape or acc.device != x.device:
+        raise ValueError(f"x {tuple(x.shape)} and acc {tuple(acc.shape)} must match")
+    rows, _, xs, ws = _acc_rows(acc, xs, w_scale)
+    b, s, lb, mask = _vecs(d, b=b, scale=scale, bias=bias)
+    _, codes, scales = _outputs(x)
+    resid = torch.empty_like(x)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_ln_quant_acc", x.device, x, acc, xs, ws, b, s, lb, resid, codes,
+           scales, rows, d, mask)
+    ln_quant_acc.launches += 1
+    return resid, codes, scales
+
+
+for _fn in (ln_quant, add_ln_quant, gelu_quant, quant_only, gelu_quant_acc,
+            ln_quant_acc):
     _fn.launches = 0

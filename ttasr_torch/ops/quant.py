@@ -15,7 +15,9 @@ The s8 x s8 encoder quantizes its activations per row (``quantize_act``)
 and multiplies int8 by int8 into exact int32 sums (``quant_matmul_act8``):
 on the card through ``torch._int_mm`` (cuBLASLt's int8 tensor-core GEMM,
 a library call as the JAX package leaves this dot to XLA), on the CPU as
-an exact float64 product.  ``_int_mm`` takes the weight codes K-major
+an exact float64 product; the encoder's W1 and W2 hand their int32
+accumulators (``int8_accumulators``) straight to the row kernels, which
+apply the epilogue themselves.  ``_int_mm`` takes the weight codes K-major
 (column-major (K, N)); :func:`kmajor_encoder_codes` lays the encoder's
 codes out so once, when the engine quantizes its weights.
 """
@@ -188,21 +190,36 @@ def _int8_product(a, q):
     return acc[:m]
 
 
-def quant_matmul_act8(xq, xs, leaf, b=None, out_dtype=torch.bfloat16):
-    """s8 x s8 -> s32 matmul with the JAX package's epilogue, in its order:
-    ``acc.float() * xs * wscale``, then ``+ b.float()``, then the cast to
-    ``out_dtype``.
-
-    xq (..., M, K) int8 with row scales xs (..., M, 1); ``leaf`` a quantized
-    weight {"q": (K, N) int8, "s": (1, N)}.  Counts its launches on the card
-    in ``quant_matmul_act8.launches``."""
-    q = leaf["q"]
-    k, n = q.shape
-    acc = _int8_product(xq.reshape(-1, k), q).reshape(*xq.shape[:-1], n)
-    out = acc.float() * xs * leaf["s"].reshape(n)
+def act8_epilogue(acc, xs, w_scale, b=None, out_dtype=torch.bfloat16):
+    """The s8 x s8 GEMM's epilogue in the JAX package's order:
+    ``acc.float() * xs * w_scale``, then ``+ b.float()``, then the cast to
+    ``out_dtype``.  acc (..., M, N) int32, xs (..., M, 1) f32, w_scale
+    (1, N) f32.  The row kernels that read the accumulators
+    (``encoder_fused.gelu_quant_acc``, ``ln_quant_acc``) compute this
+    expression, one rounding per operation, before their producer."""
+    out = acc.float() * xs * w_scale.reshape(acc.shape[-1])
     if b is not None:
         out = out + b.float()
     return out.to(out_dtype)
+
+
+def int8_accumulators(xq, leaf):
+    """The exact int32 (..., M, N) product of int8 codes xq (..., M, K) and
+    a quantized weight's (K, N) codes: the GEMM without its epilogue."""
+    q = leaf["q"]
+    k, n = q.shape
+    return _int8_product(xq.reshape(-1, k), q).reshape(*xq.shape[:-1], n)
+
+
+def quant_matmul_act8(xq, xs, leaf, b=None, out_dtype=torch.bfloat16):
+    """s8 x s8 -> s32 matmul with the JAX package's epilogue
+    (:func:`act8_epilogue`).
+
+    xq (..., M, K) int8 with row scales xs (..., M, 1); ``leaf`` a quantized
+    weight {"q": (K, N) int8, "s": (1, N)}.  Counts its launches on the card
+    in ``quant_matmul_act8.launches``, as do the bare products of
+    :func:`int8_accumulators`."""
+    return act8_epilogue(int8_accumulators(xq, leaf), xs, leaf["s"], b, out_dtype)
 
 
 quant_matmul_act8.launches = 0
