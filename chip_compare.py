@@ -15,9 +15,13 @@ cache lengths 480, 288 and 64 (slots 477, 285, 40).  For each, the two
 builds in turns (other, this, this, other), it prints ``chip_smoke.time_ms``
 (one call per CUDA graph replay, whose floor it prints too), the time per
 call of a graph of 20 calls (no host launch floor) and the kernels' device
-time from ``torch.profiler``, and how far the other build's output lies
-from this one's; then B15, the other build's B15 and B15's library call (a
-bf16 matmul) cold, over the 64 distinct weights of a tensor-parallel step.
+time from ``torch.profiler``, how far the other build's output lies from
+this one's and whether the two are equal bit for bit (B4 and B14 must be:
+the persistent kernel keeps the three launches' order; so is B1, whose
+two teams per block keep its cluster's order); then B15, the other build's
+B15 and B15's library call (a bf16 matmul) cold, over the 64 distinct
+weights of a tensor-parallel step; B1 and B4 cold, over 32 layers'
+distinct weights, each build in turns.
 Then B2 and B10 at int4: this build and the other cold, over 32 layers'
 distinct caches; and, as a yardstick that is not the same function, ``scaled_dot_product_attention``
 on 5 query rows and bf16 K/V of the dequantized cache's shape (2-4x the
@@ -25,9 +29,14 @@ bytes, no quantization, no ancestry lookup).
 
 ``--phases`` also builds an instrumented copy of this checkout's kernels:
 thread 0 of every block stamps ``%globaltimer`` at the skinny GEMM's, the
-cross-attention's and the self-attention step's phase points, and the
-script prints, per phase, the median and the latest block's microseconds
-from the first block's start.  The instrumentation is text inserted at
+cross-attention's, the self-attention step's and the persistent MLP
+kernel's (B4, B14) phase points, and the script prints, per phase, the
+median and the latest block's microseconds from the first block's start
+(over the blocks that reached the point).
+
+The parent of the persistent MLP kernel took B4 and B14 without their
+scratch, counters and schedule: a DIR whose ``decoder_mlp.cu`` has no
+``mlp_persistent_kernel`` is called with that argument list.  The instrumentation is text inserted at
 fixed places of the sources and fails loudly when they change.
 
 Imports nothing of jax and nothing of the JAX package.
@@ -49,6 +58,21 @@ CSRC = os.path.join(ROOT, "ttasr_torch", "csrc")
 SOURCES = ("decoder_blocks.cu", "decoder_mlp.cu", "cross_attention.cu", "self_attention.cu")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# B4's and B14's entry points before the persistent kernel: no scratch for
+# the partial sums, no counters, no schedule
+LEGACY_MLP_ARGTYPES = {
+    "ttasr_mlp_int8": [_P] * 11 + [_I] * 4 + [_P],
+    "ttasr_mlp_crossout_int8": [_P] * 16 + [_I] * 3 + [_P],
+}
+
+
+def legacy_mlp(src_dir: str) -> bool:
+    """``src_dir``'s B4 and B14 take the argument list of three launches."""
+    with open(os.path.join(src_dir, "decoder_mlp.cu")) as f:
+        return "mlp_persistent_kernel" not in f.read()
+
+
 def build(src_dir: str, out_dir: str, tag: str) -> ctypes.CDLL:
     """The decode kernels of ``src_dir`` in a library of their own."""
     from ttasr_torch.ops import _build
@@ -61,9 +85,13 @@ def build(src_dir: str, out_dir: str, tag: str) -> ctypes.CDLL:
     _build._run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                       lib, *objs]])
     dll = ctypes.CDLL(lib)
-    for name, argtypes in _build.ARGTYPES.items():
+    argtypes = dict(_build.ARGTYPES)
+    dll.legacy_mlp = legacy_mlp(src_dir)
+    if dll.legacy_mlp:
+        argtypes.update(LEGACY_MLP_ARGTYPES)
+    for name, types in argtypes.items():
         if hasattr(dll, name):
-            getattr(dll, name).argtypes = argtypes
+            getattr(dll, name).argtypes = types
             getattr(dll, name).restype = ctypes.c_int
     return dll
 
@@ -115,8 +143,20 @@ def self_cases(cs):
             for name, b, k in (("B2 B=1 K=5", 1, 5), ("B10 B=5 K=1", 5, 1))}
 
 
-def cases(cs):
-    """{label: (entry point, the output that is compared, args...)}."""
+def mlp_scratch(D: int, F: int, r: int, cross: bool, legacy: bool) -> list:
+    """B4's (``cross``) or B14's arguments after the output: the persistent
+    kernel's partial sums, counters, schedule and their ints (none for a
+    legacy build)."""
+    import torch
+
+    from ttasr_torch.ops.decoder_mlp import _persistent_args
+
+    return [] if legacy else list(_persistent_args(torch.device("cuda", 0), D, F, r, cross))
+
+
+def cases(cs, legacy: bool = False):
+    """{label: (entry point, the output that is compared, args...)};
+    ``legacy``: B4 and B14 with the argument list of three launches."""
     import torch
 
     D, F, S, SR = cs.D, cs.FFN, cs.S_PAD, cs.S_REAL
@@ -126,6 +166,16 @@ def cases(cs):
     def e(*shape, dtype=torch.float32):
         return torch.empty(shape, device="cuda", dtype=dtype)
 
+    def mlp_ints(r, partial=None):
+        """(B4's or B14's scratch tensors, then R, D, F[, partial] and the
+        persistent kernel's ints)."""
+        pre = [r, D, F] + ([] if partial is None else [partial])
+        scratch = mlp_scratch(D, F, r, partial is None, legacy)
+        return scratch[:3], pre + scratch[3:]
+
+    b4_buf, b4_ints = mlp_ints(5)
+    b14_buf, b14_ints = mlp_ints(5, 1)
+    b4_out, b14_out = e(5, D), e(5, D)
     x5, a5, q = inp.randn(5, D, scale=0.5), inp.randn(5, D, scale=0.5), inp.randn(1, 5, D, scale=0.05)
     kv4, kv8 = inp.cross_kv(1, True), inp.cross_kv(1, False)
     cross = (lay["wqc"], lay["wqc_s"], lay["bqc"])
@@ -148,14 +198,14 @@ def cases(cs):
         "B16 B=1 K=5 int4": case(
             "ttasr_ln_q_cross_int8", x5, lay["lnc_s"], lay["lnc_b"], *cross, *kv4,
             e(5, D), e(5, D), 1, 5, D, D, S, SR, 1),
-        "B4 R=5": case(
-            "ttasr_mlp_crossout_int8", x5, a5, lay["woc"], lay["woc_s"], lay["boc"],
-            lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"], lay["b1"], lay["w2"],
-            lay["w2_s"], lay["b2"], e(5, D), e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F),
-        "B14 partial R=5": case(
-            "ttasr_mlp_int8", x5, lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"],
-            lay["b1"], lay["w2"], lay["w2_s"], lay["b2"],
-            e(5, F, dtype=torch.bfloat16), e(5, D), 5, D, F, 1),
+        "B4 R=5": ("ttasr_mlp_crossout_int8", b4_out, x5, a5, lay["woc"], lay["woc_s"],
+                   lay["boc"], lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"], lay["b1"],
+                   lay["w2"], lay["w2_s"], lay["b2"], e(5, D), e(5, F, dtype=torch.bfloat16),
+                   b4_out, *b4_buf, *b4_ints),
+        "B14 partial R=5": ("ttasr_mlp_int8", b14_out, x5, lay["ln2_s"], lay["ln2_b"],
+                            lay["w1"], lay["w1_s"], lay["b1"], lay["w2"], lay["w2_s"],
+                            lay["b2"], e(5, F, dtype=torch.bfloat16), b14_out, *b14_buf,
+                            *b14_ints),
         "B12 R=10": case(
             "ttasr_attnout_ln_q", inp.randn(10, D), inp.randn(10, D), lay["wo"],
             lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"], *cross, e(10, D), e(10, D),
@@ -179,25 +229,32 @@ def device_ms(fn, n: int = 30) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
 
 
-def in_turns(cs, builds: dict, all_cases: dict, card: str) -> None:
+def in_turns(cs, builds: dict, card: str) -> None:
     """Each case through every build (``builds`` in order, then reversed;
     the last is "this"): time_ms, per call in a graph of 20, device ms, and
-    each build's output gap to this one's."""
+    each build's output gap to this one's and whether the two are equal bit
+    for bit.  Each build gets the cases of its own argument lists, on the
+    same seeded inputs."""
     import torch
 
-    for label, (entry, out, *args) in all_cases.items():
-        res = {}
+    by_tag = {tag: cases(cs, dll.legacy_mlp) for tag, dll in builds.items()}
+    for label in by_tag["this"]:
+        res, fns = {}, {}
         for tag, dll in builds.items():
-            call(dll, entry, *args)
+            entry, out, *args = by_tag[tag][label]
+            fns[tag] = (lambda d=dll, e=entry, a=args: call(d, e, *a))
+            fns[tag]()
             torch.cuda.synchronize()
             res[tag] = out.float().clone()
         times = {tag: [] for tag in builds}
         for tag in list(builds) + list(reversed(builds)):
-            fn = (lambda d=builds[tag]: call(d, entry, *args))
+            fn = fns[tag]
             times[tag].append((cs.time_ms(fn), cs.per_call_ms(fn), device_ms(fn)))
         mean = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
-        gaps = "; ".join(f"max|this - {tag}| {(res[tag] - res['this']).abs().max().item():.3e}"
-                         for tag in builds if tag != "this")
+        gaps = "; ".join(
+            f"max|this - {tag}| {(res[tag] - res['this']).abs().max().item():.3e}, bit for bit "
+            f"{torch.equal(res[tag].view(torch.int32), res['this'].view(torch.int32))}"
+            for tag in builds if tag != "this")
         print(f"{label}: " + "; ".join(
             f"{k} time_ms {m[0]:.4f}, in a graph of 20 {m[1]:.4f}, device {m[2]:.4f}"
             for k, m in mean.items()) + f" ms; {gaps} ({card})", flush=True)
@@ -214,6 +271,41 @@ def self_cold(cs, builds: dict, card: str) -> None:
             fns = [lambda c=c, d=builds[tag]: call(d, c[0], *c[2:]) for c in layers]
             print(f"{name} len=480 slot=477 int4 cold, {tag}: {cs.time_cold_ms(fns):.4f} ms "
                   f"per call (a graph over {len(fns)} layers' caches) ({card})", flush=True)
+
+
+def weights_cold(cs, builds: dict, card: str) -> None:
+    """B1 and B4 at 5 rows, cold: a CUDA graph over 32 layers' distinct
+    weights (B1's W_qkv 4.9 MB, B4's wo_c, W1 and W2 14.7 MB a layer), as
+    one decode step meets them, each build in turns."""
+    import torch
+
+    D, F = cs.D, cs.FFN
+    inp = cs.Inputs(6)
+    lay = inp.layer()
+    x5, a5 = inp.randn(5, D, scale=0.5), inp.randn(5, D, scale=0.5)
+    layers = [(inp.weight(D, 3 * D), inp.weight(D, D), inp.weight(D, F), inp.weight(F, D))
+              for _ in range(cs.N_LAYERS)]
+
+    def e(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="cuda", dtype=dtype)
+
+    def b1(dll):
+        out = e(5, 3 * D)
+        return [lambda w=w[0]: call(dll, "ttasr_qkv_int8", x5, lay["ln1_s"], lay["ln1_b"], *w,
+                                    lay["bqkv"], out, 5, D, 3 * D) for w in layers]
+
+    def b4(dll):
+        xm, h, out = e(5, D), e(5, F, dtype=torch.bfloat16), e(5, D)
+        scratch = mlp_scratch(D, F, 5, True, dll.legacy_mlp)
+        return [lambda w=w: call(dll, "ttasr_mlp_crossout_int8", x5, a5, *w[1], lay["boc"],
+                                 lay["ln2_s"], lay["ln2_b"], *w[2], lay["b1"], *w[3], lay["b2"],
+                                 xm, h, out, *scratch[:3], 5, D, F, *scratch[3:])
+                for w in layers]
+
+    for name, fns in (("B1", b1), ("B4", b4)):
+        for tag in list(builds) + list(reversed(builds)):
+            print(f"{name} R=5 cold, {tag}: {cs.time_cold_ms(fns(builds[tag])):.4f} ms per call "
+                  f"(a graph over {cs.N_LAYERS} layers' weights) ({card})", flush=True)
 
 
 def sdpa_yardstick(cs, card: str) -> None:
@@ -242,7 +334,7 @@ def compare(cs, this, other, card: str) -> None:
     print(f"time_ms floor (a 1-element add per replay): {cs.time_ms_floor():.4f} ms; "
           f"per call in a graph of 20: {cs.per_call_ms(lambda: t.add_(1.0)):.4f} ms ({card})",
           flush=True)
-    in_turns(cs, {"other": other, "this": this}, cases(cs), card)
+    in_turns(cs, {"other": other, "this": this}, card)
 
     inp = cs.Inputs(2)
     x = inp.randn(5, cs.D, scale=0.5)
@@ -260,6 +352,7 @@ def compare(cs, this, other, card: str) -> None:
         print(f"B15 cold, {label}: {cs.time_cold_ms(fns):.4f} ms per call (a graph over "
               f"{len(fns)} weights) ({card})", flush=True)
     self_cold(cs, {"other": other, "this": this}, card)
+    weights_cold(cs, {"other": other, "this": this}, card)
     sdpa_yardstick(cs, card)
 
 
@@ -267,7 +360,7 @@ def compare(cs, this, other, card: str) -> None:
 # --phases: %globaltimer at the kernels' phase points
 # ---------------------------------------------------------------------------
 
-PHASE_DEF = """__device__ unsigned long long g_phase[3][4096][12];
+PHASE_DEF = """__device__ unsigned long long g_phase[4][4096][16];
 __device__ __forceinline__ void phase_mark(int kind, int i) {
   if (threadIdx.x == 0) {
     unsigned long long t;
@@ -279,7 +372,8 @@ __device__ __forceinline__ void phase_mark(int kind, int i) {
 """
 # each .cu has its own g_phase (internal linkage): decoder_blocks.cu's holds
 # the GEMM's and cross-attention's marks (kinds 0, 1), self_attention.cu's
-# the self-attention step's (kind 2)
+# the self-attention step's (kind 2), decoder_mlp.cu's the persistent MLP
+# kernel's (kind 3)
 READ = """
 extern "C" int ttasr_phase_clear{0}() {{
   void* p = nullptr;
@@ -291,14 +385,20 @@ extern "C" int ttasr_phase_read{0}(void* dst) {{
   return (int)cudaMemcpyFromSymbol(dst, ttasr::g_phase, sizeof(ttasr::g_phase));
 }}
 """
-GEMM_PHASES = ["start", "slab issued", "prologue", "slab here", "summed", "pushed", "synced",
+GEMM_PHASES = ["start", "slab requested", "prologue", "slab here", "summed", "pushed", "synced",
                "end"]
-CROSS_PHASES = ["start", "rows issued", "queries", "scores", "max exchanged", "sums exchanged",
+CROSS_PHASES = ["start", "rows requested", "queries", "scores", "max exchanged", "sums exchanged",
                 "probabilities", "end"]
-SELF_PHASES = ["start", "stage issued", "stage landed", "scores", "scores exchanged", "softmax",
+SELF_PHASES = ["start", "stage requested", "stage landed", "scores", "scores exchanged", "softmax",
                "P.V", "end"]
-PHASE_NAMES = (GEMM_PHASES, CROSS_PHASES, SELF_PHASES)
-PHASE_WHAT = ("the last skinny GEMM", "the cross-attention", "the self-attention step")
+# per phase: the block's first unit past its wait, that unit's partial
+# sums out, the phase's tiles finished (the block's finishers done)
+MLP_PHASES = ["start", "first request", "wo_c started", "wo_c 1st summed", "wo_c done",
+              "x' waited", "W1 1st summed", "W1 done", "h waited", "W2 1st summed", "W2 done",
+              "end", "1st filled", "1st slab here", "W1 1st filled", "W2 1st filled"]
+PHASE_NAMES = (GEMM_PHASES, CROSS_PHASES, SELF_PHASES, MLP_PHASES)
+PHASE_WHAT = ("the last skinny GEMM", "the cross-attention", "the self-attention step",
+              "the persistent MLP kernel")
 # (file, text, the text with a mark): each text must occur once
 MARKS = [
     ("skinny_gemm.cuh", "// The cluster barrier split in two", PHASE_DEF + "// The cluster barrier split in two"),
@@ -306,16 +406,40 @@ MARKS = [
      "  const int n0 = blockIdx.x * kTileCols;\n  phase_mark(0, 0);\n"),
     ("skinny_gemm.cuh", "  __syncthreads();  // no thread waits on the barrier before its init\n",
      "  __syncthreads();  // no thread waits on the barrier before its init\n  phase_mark(0, 1);\n"),
-    ("skinny_gemm.cuh", "    // the block's K range of the chunk's rows, bf16-rounded",
-     "    phase_mark(0, 2);\n    // the block's K range of the chunk's rows, bf16-rounded"),
+    ("skinny_gemm.cuh", "    fill_rows<P>(g.a, ln_s, ln_b,",
+     "    phase_mark(0, 2);\n    fill_rows<P>(g.a, ln_s, ln_b,"),
     ("skinny_gemm.cuh", "    if (chunk == 0 && kr > 0) mbar_wait(bar, 0);\n    __syncthreads();\n",
      "    if (chunk == 0 && kr > 0) mbar_wait(bar, 0);\n    __syncthreads();\n    phase_mark(0, 3);\n"),
-    ("skinny_gemm.cuh", "      if (chunk == 0) cluster_wait();\n",
-     "      phase_mark(0, 4);\n      if (chunk == 0) cluster_wait();\n"),
-    ("skinny_gemm.cuh", "    cluster.sync();\n    if (out_here) {",
-     "    phase_mark(0, 5);\n    cluster.sync();\n    phase_mark(0, 6);\n    if (out_here) {"),
-    ("skinny_gemm.cuh", "        static_cast<float*>(g.out)[oi] = vs;\n      }\n    }\n  }\n}\n",
-     "        static_cast<float*>(g.out)[oi] = vs;\n      }\n    }\n    phase_mark(0, 7);\n  }\n}\n"),
+    ("skinny_gemm.cuh", "      const int slot = ((chunk & 1) * splits + rank)",
+     "      phase_mark(0, 4);\n      const int slot = ((chunk & 1) * splits + rank)"),
+    ("skinny_gemm.cuh", "    if (TEAMS == 1) {\n      cluster.sync();\n    } else {\n      __syncthreads();\n    }\n",
+     "    phase_mark(0, 5);\n    if (TEAMS == 1) {\n      cluster.sync();\n    } else {\n"
+     "      __syncthreads();\n    }\n    phase_mark(0, 6);\n"),
+    ("skinny_gemm.cuh", "      store_out<E>(g.out, oi, v, col_scale, col_bias, resid, g.qscale);\n    }\n",
+     "      store_out<E>(g.out, oi, v, col_scale, col_bias, resid, g.qscale);\n    }\n"
+     "    phase_mark(0, 7);\n"),
+    ("decoder_mlp.cu", "  const int n_units = *unit++;\n",
+     "  const int n_units = *unit++;\n  phase_mark(3, 0);\n"),
+    ("decoder_mlp.cu", "  __syncthreads();  // no thread waits on a barrier before its init\n",
+     "  __syncthreads();  // no thread waits on a barrier before its init\n  phase_mark(3, 1);\n"),
+    ("decoder_mlp.cu", "h_tiles_in(split, sl[2].kper, F), request_next);\n        __syncthreads();\n      }\n",
+     "h_tiles_in(split, sl[2].kper, F), request_next);\n        __syncthreads();\n      }\n"
+     "      if (u == u0) phase_mark(3, 2 + 3 * p);\n"),
+    ("decoder_mlp.cu", "      __syncthreads();\n      if (tid == 0 && !un[4]) red_release(",
+     "      if (u == u0) phase_mark(3, 3 + 3 * p);\n      __syncthreads();\n"
+     "      if (tid == 0 && !un[4]) red_release("),
+    ("decoder_mlp.cu", "wait_count(g.sync + kXDone, td, request_next);\n        __syncthreads();\n      }\n",
+     "wait_count(g.sync + kXDone, td, request_next);\n        __syncthreads();\n      }\n"
+     "      if (p == 1 && u == u0) phase_mark(3, 5);\n"),
+    ("decoder_mlp.cu", "            red_release(g.sync + kHDone + j, 1);\n      }\n    }\n  }\n",
+     "            red_release(g.sync + kHDone + j, 1);\n      }\n    }\n"
+     "    phase_mark(3, 4 + 3 * p);\n  }\n"),
+    ("decoder_mlp.cu", "    g.sync[kLeft] = 0;\n  }\n}\n", "    g.sync[kLeft] = 0;\n  }\n  phase_mark(3, 11);\n}\n"),
+    ("decoder_mlp.cu", "        if (chunk == 0 && kr > 0) mbar_wait(smem_u32(bars + u), 0);\n        __syncthreads();\n",
+     "        if (u == 0 && chunk == 0) phase_mark(3, 12);\n"
+     "        if (u == u0 && chunk == 0 && p > 0) phase_mark(3, 12 + p + 1);\n"
+     "        if (chunk == 0 && kr > 0) mbar_wait(smem_u32(bars + u), 0);\n        __syncthreads();\n"
+     "        if (u == 0 && chunk == 0) phase_mark(3, 13);\n"),
     ("cross_attention.cuh", "  const float* vs_row = cvs + ((size_t)b * H + h) * S;\n",
      "  const float* vs_row = cvs + ((size_t)b * H + h) * S;\n  phase_mark(1, 0);\n"),
     ("cross_attention.cuh", "  cp_async_commit();\n  griddep_launch_dependents();\n",
@@ -363,7 +487,8 @@ def edited(out_dir: str, name: str, edits) -> str:
 def instrumented(out_dir: str) -> str:
     """A copy of this checkout's csrc/ with the phase marks."""
     dst = edited(out_dir, "csrc_phases", MARKS)
-    for fname, suffix in (("decoder_blocks.cu", ""), ("self_attention.cu", "_sa")):
+    for fname, suffix in (("decoder_blocks.cu", ""), ("self_attention.cu", "_sa"),
+                          ("decoder_mlp.cu", "_mlp")):
         with open(os.path.join(dst, fname), "a") as f:
             f.write(READ.format(suffix))
     return dst
@@ -373,11 +498,13 @@ def phases(cs, dll, card: str) -> None:
     import torch
 
     all_cases = cases(cs)
-    buf = np.zeros((3, 4096, 12), dtype=np.uint64)
+    buf = np.zeros((len(PHASE_NAMES), 4096, 16), dtype=np.uint64)
+    suffixes = {"ttasr_self_attn_step": "_sa", "ttasr_mlp_crossout_int8": "_mlp",
+                "ttasr_mlp_int8": "_mlp"}
     for label in ("B15 R=5 (DL=1280)", "LayerNorm GEMM R=5 (B1's entry at N=1280)", "B1 R=5",
-                  "B3 B=1 K=5 int4", *self_cases(cs)):
+                  "B3 B=1 K=5 int4", "B4 R=5", "B14 partial R=5", *self_cases(cs)):
         entry, _, *args = all_cases[label]
-        suffix = "_sa" if entry == "ttasr_self_attn_step" else ""
+        suffix = suffixes.get(entry, "")
         clear, read = (getattr(dll, f"ttasr_phase_{op}{suffix}") for op in ("clear", "read"))
         read.argtypes = [ctypes.c_void_p]
         for _ in range(2):  # warm up, then stamp one call's blocks
@@ -389,17 +516,19 @@ def phases(cs, dll, card: str) -> None:
         torch.cuda.synchronize()
         if read(buf.ctypes.data):
             raise RuntimeError("phase read failed")
-        kinds = [k for k in (0, 1, 2) if buf[k, :, 0].any()]
+        kinds = [k for k in range(len(PHASE_NAMES)) if buf[k, :, 0].any()]
         t0 = min(int(buf[k, buf[k, :, 0] > 0, 0].min()) for k in kinds)
         for kind in kinds:
             names = PHASE_NAMES[kind]
             rows = buf[kind, buf[kind, :, 0] > 0, :len(names)]
-            t = (rows.astype(np.int64) - t0) / 1e3
-            what = PHASE_WHAT[kind]
-            print(f"{label}, {what} ({len(rows)} blocks), us from the first block's start, "
-                  "median/latest: " + ", ".join(
-                      f"{nm} {np.median(t[:, i]):.2f}/{t[:, i].max():.2f}"
-                      for i, nm in enumerate(names)) + f" ({card})", flush=True)
+            marks = []
+            for i, nm in enumerate(names):  # the blocks that reached the point
+                t = (rows[rows[:, i] > 0, i].astype(np.int64) - t0) / 1e3
+                marks.append(f"{nm} {np.median(t):.2f}/{t.max():.2f} ({len(t)})" if len(t)
+                             else f"{nm} -")
+            print(f"{label}, {PHASE_WHAT[kind]} ({len(rows)} blocks), us from the first "
+                  "block's start, median/latest (blocks): " + ", ".join(marks) + f" ({card})",
+                  flush=True)
 
 
 def main() -> int:

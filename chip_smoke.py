@@ -27,7 +27,13 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    the host's launch overhead is out of both numbers; B3 also with an
    ``s_real`` that masks a whole split of its cross-attention's cluster
    (finite, within the same bound), twice on one input (the same bits), and
-   cold: a graph over 32 layers' distinct weights and cross-KV caches;
+   cold: a graph over 32 layers' distinct weights and cross-KV caches; B1
+   twice on one input (the same bits); B4 at 5 and 10 rows, equal bit for
+   bit to B15 (wo_c) followed by B14 (full) on x' (the persistent kernel
+   keeps the three products' order), twice on one input (the same bits),
+   one CUDA kernel per call (torch.profiler), warm, in graphs of 20 calls
+   and cold (a graph over 32 layers' distinct wo_c, W1 and W2), beside the
+   ``time_ms`` floor; every kernel's share of its bound;
 5. holds the s8 x s8 encoder's kernels against their plain versions at
    large-v3 shapes (B = 1 and 2, T = 1500): B5 ``ln_quant``, B7
    ``quant_only``, B8 ``add_ln_quant`` (D = 1280) and B9 ``gelu_quant`` (F =
@@ -63,8 +69,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    and full, F = 5120 and 2560, 5 and 8 rows) and B16 ``ln_q_cross_int8``
    (20 and 10 local heads, (B, K) = (1, 5) and (5, 1), int4 and int8
    cross-KV, and at n = 1, (1, 5) with a whole split of the cache masked),
-   within the bound of B1-B4; B15 twice on one input (the same bits);
-   timed as in phase 4, B15 beside its library call (a bf16 matmul on a
+   within the bound of B1-B4; B15 and B14 twice on one input (the same
+   bits), B14 one CUDA kernel per call; timed as in phase 4, B15 beside its library call (a bf16 matmul on a
    weight cast beforehand), warm and cold (a graph over the 64 distinct
    weights of a tensor-parallel step's wo and wo_c, the library call over
    the same weights in bf16), with the ``time_ms`` floor beside them;
@@ -502,6 +508,10 @@ def check_decode_kernels(card: str) -> dict:
     res["qkv_int8_fused"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
         **bound(_tensors(b1, blk.qkv_int8_fused(*b1)), 2.0 * 5 * D * 3 * D, "bf16"))
+    _same_bits("qkv_int8_fused R=5", lambda: blk.qkv_int8_fused(*b1))
+    print(f"qkv_int8_fused R=5: in a graph of 20 {per_call_ms(lambda: blk.qkv_int8_fused(*b1)):.4f} "
+          f"ms per call, {_kernels_per_call(lambda: blk.qkv_int8_fused(*b1)):.0f} CUDA kernel(s) "
+          f"per call ({card})")
 
     # B3: (B, K) = (1, 5) and (5, 1), int4-packed and int8 cross-KV
     worst = 0.0
@@ -550,14 +560,36 @@ def check_decode_kernels(card: str) -> dict:
         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
         **bound(_tensors(main_b3, blk.attnout_ln_q_cross_int8(*main_b3)), b3_ops, "bf16"))
 
-    # B4: 5 rows
-    b4 = (inp.randn(5, D, scale=0.5), inp.randn(5, D, scale=0.5),
-          lay["woc"], lay["woc_s"], lay["boc"], lay["ln2_s"], lay["ln2_b"],
-          lay["w1"], lay["w1_s"], lay["b1"], lay["w2"], lay["w2_s"], lay["b2"])
-    worst = _hold("mlp_with_crossout_int8", "R=5", mlp.mlp_with_crossout_int8(*b4),
-                  mlp.mlp_with_crossout_int8_ref(*b4), 0.0)
+    # B4: 5 and 10 rows; one persistent kernel in the three products' order
+    worst, b4 = 0.0, None
+    for r in (5, 10):
+        args = (inp.randn(r, D, scale=0.5), inp.randn(r, D, scale=0.5),
+                lay["woc"], lay["woc_s"], lay["boc"], lay["ln2_s"], lay["ln2_b"],
+                lay["w1"], lay["w1_s"], lay["b1"], lay["w2"], lay["w2_s"], lay["b2"])
+        got = mlp.mlp_with_crossout_int8(*args)
+        worst = _hold("mlp_with_crossout_int8", f"R={r}", got,
+                      mlp.mlp_with_crossout_int8_ref(*args), worst)
+        _b4_is_b15_then_b14(f"R={r}", args, got)
+        if r == 5:
+            b4 = args
+    _same_bits("mlp_with_crossout_int8 R=5", lambda: mlp.mlp_with_crossout_int8(*b4))
+    n_kernels = _kernels_per_call(lambda: mlp.mlp_with_crossout_int8(*b4))
+    print(f"mlp_with_crossout_int8 R=5: {n_kernels:.0f} CUDA kernel(s) per call")
+    check(n_kernels == 1, f"mlp_with_crossout_int8 ran {n_kernels} CUDA kernels per call, not 1")
     ms, plain_ms = in_turns(lambda: mlp.mlp_with_crossout_int8(*b4),
                             lambda: mlp.mlp_with_crossout_int8_ref(*b4))
+    # cold: 32 layers' distinct wo_c, W1 and W2 (470 MB), one call each
+    cold = []
+    for _ in range(N_LAYERS):
+        weights = (*inp.weight(D, D), lay["boc"], lay["ln2_s"], lay["ln2_b"],
+                   *inp.weight(D, FFN), lay["b1"], *inp.weight(FFN, D), lay["b2"])
+        cold.append(lambda w=weights: mlp.mlp_with_crossout_int8(b4[0], b4[1], *w))
+    cold_ms = time_cold_ms(cold)
+    del cold
+    print(f"mlp_with_crossout_int8 R=5: warm {ms:.4f} ms, in a graph of 20 "
+          f"{per_call_ms(lambda: mlp.mlp_with_crossout_int8(*b4)):.4f}, cold {cold_ms:.4f} "
+          f"(a graph over {N_LAYERS} layers' weights); time_ms floor {time_ms_floor():.4f} ms "
+          f"({card})")
     res["mlp_with_crossout_int8"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
         **bound(_tensors(b4, mlp.mlp_with_crossout_int8(*b4)),
@@ -568,9 +600,43 @@ def check_decode_kernels(card: str) -> dict:
     for name, r in res.items():
         r["library_ms"] = None  # no single PyTorch call computes these
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) ({card})")
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} "
+              f"of the bound ({card})")
     time_layer_chain(inp, lay, card)
     return res
+
+
+def _kernels_per_call(fn, calls: int = 10) -> float:
+    """CUDA kernels per call of ``fn``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+
+
+def _b4_is_b15_then_b14(case, args, got) -> None:
+    """B4's output ``got`` equals B15 on wo_c with the residual and b_oc
+    added (x'), then B14 (full) on x', bit for bit: the persistent kernel
+    sums each product in the order of the kernels that take it alone."""
+    import torch
+
+    from ttasr_torch.ops import decoder_blocks as blk
+    from ttasr_torch.ops import decoder_mlp as mlp
+
+    x, cross, woc, woc_s, boc = args[:5]
+    x_mid = (x + blk.matmul_int8_partial(cross, woc, woc_s)) + boc
+    chain = mlp.mlp_int8_fused(x_mid, *args[5:], partial=False)
+    same = torch.equal(got.view(torch.int32), chain.view(torch.int32))
+    print(f"mlp_with_crossout_int8 {case}: equal bit for bit to B15 (wo_c) then B14 (full): "
+          f"{same}")
+    check(same, f"mlp_with_crossout_int8 {case} differs from B15 then B14")
 
 
 # B2/B10 cache lengths and slots timed (480: the main path's last growth
@@ -1160,6 +1226,12 @@ def check_tp_kernels(card: str) -> dict:
                               mlp.mlp_int8_fused_ref(*b14, partial=partial), worst)
                 if (n, r, partial) == (1, 5, True):
                     main = b14
+    _same_bits("mlp_int8_fused n=1 R=5 partial", lambda: mlp.mlp_int8_fused(*main, partial=True))
+    n_kernels = _kernels_per_call(lambda: mlp.mlp_int8_fused(*main, partial=True))
+    print(f"mlp_int8_fused n=1 R=5 partial: {n_kernels:.0f} CUDA kernel(s) per call, in a "
+          f"graph of 20 {per_call_ms(lambda: mlp.mlp_int8_fused(*main, partial=True)):.4f} ms "
+          f"({card})")
+    check(n_kernels == 1, f"mlp_int8_fused ran {n_kernels} CUDA kernels per call, not 1")
     ms, plain_ms = in_turns(lambda: mlp.mlp_int8_fused(*main, partial=True),
                             lambda: mlp.mlp_int8_fused_ref(*main, partial=True))
     res["mlp_int8_fused"] = dict(
@@ -1985,6 +2057,9 @@ def run_branch_paths(engine, audio, card: str):
                   f"{prof['device_ms_per_step']:.3f} ms of device time and "
                   f"{prof['kernels_per_step']:.0f} kernels per step, busy "
                   f"{prof['busy']:.0%} ({card})")
+            if label == MAIN_LEG:  # B4 is one kernel of 32 per step, not three
+                print(f"{label}: {prof['kernels_per_step']:.0f} kernels per step, 841 "
+                      f"expected with B4 as one launch (905 with three)")
             for name, ms in prof["top"]:
                 print(f"    {ms:8.3f} ms per step  {name}")
         return out, steps

@@ -34,6 +34,16 @@
 //     memory by every row chunk, f32 sums in a fixed order (the cluster's
 //     blocks added in rank order through distributed shared memory), the
 //     order a function of (K, N) alone;
+//   * B1 (1280 x 3840 at large-v3, 120 column tiles) is one wave: a
+//     cluster of 2 per tile put 240 blocks on 132 SMs, so 108 SMs streamed
+//     two slabs and read the LayerNorm's rows twice while 24 did it once,
+//     and every block read all of the rows from L2 (6.1 MB, more than the
+//     4.9 MB of weight).  Now a tile's two K ranges are two 256-thread
+//     teams of one block (skinny_gemm.cuh, gemm_teams): 120 blocks, one per
+//     SM, no cluster barrier, the rows read once per tile -- before the
+//     slab is requested, a warp per row in registers straight into both
+//     teams' activations -- and the teams' sums added in rank order, so B1
+//     keeps its bits;
 //   * a call's second and third launch start early (programmatic dependent
 //     launch) and fetch their weights or cache rows while the launch
 //     before runs; the first launch of a call waits for all earlier work;

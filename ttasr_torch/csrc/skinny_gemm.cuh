@@ -1,5 +1,7 @@
-// Skinny int8-weight GEMM for the decode step, shared by decoder_blocks.cu
-// (B1, B3, B12, B15, B16) and decoder_mlp.cu (B4, B14).
+// Skinny int8-weight GEMM for the decode step: the kernel of
+// decoder_blocks.cu (B1, B3, B12, B15, B16), and the pieces of a block's
+// work (the slab, the prologues, the dot product, the epilogues) that
+// decoder_mlp.cu's persistent kernel (B4, B14) runs unit by unit.
 //
 //   out[r, n] = epilogue( sum_k bf16(prologue(a))[r, k] * W[k, n] * s[n] )
 //
@@ -14,6 +16,9 @@
 //     each block owning a contiguous K range; gemm_splits() picks splits
 //     from (K, N) alone -- enough blocks for the 132 SMs, at most 640 K
 //     rows per block, at most 8 blocks per cluster (the portable size);
+//     where that would put more blocks than SMs but a tile's 2 ranges fit
+//     one block, two teams of 256 threads in one block take them instead
+//     (gemm_teams: B1), one wave with every SM streaming one tile;
 //   * every weight byte of a block is in flight at once: one thread issues
 //     the block's whole (K range x 32 columns) slab as 2-D TMA boxes into
 //     shared memory before anything else (the tensor map is encoded once
@@ -78,6 +83,7 @@ constexpr int kColThreads = kTileCols / kColsPerThread;  // 8
 constexpr int kKGroups = kGemmThreads / kColThreads;     // 32
 constexpr int kRowChunk = 8;
 constexpr int kGemmWarps = kGemmThreads / 32;
+constexpr int kRedFloats = kGemmWarps * kRowChunk * kTileCols;  // s_red: a block's sums
 constexpr int kMaxSplits = 8;         // the portable cluster size
 constexpr int kMaxKPerBlock = 640;    // K rows one block streams, at most
 constexpr int kTargetBlocks = 132;    // the H100 SXM's SMs
@@ -86,6 +92,7 @@ constexpr int kLoadBatch = 8;         // global loads a thread keeps in flight t
 constexpr int kRowBatch = 32;         // the same for the LayerNorm's whole rows
 constexpr size_t kMaxSmem = 232448;   // a block's shared memory on sm_90
 constexpr float kLnEps = 1e-5f;
+constexpr int kLnMaxPerLane = 40;     // ln_stats_fill: a row of at most 32 x 40 values in registers
 static_assert(kRowChunk * kTileCols == kGemmThreads, "a thread per output of a chunk");
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -191,7 +198,9 @@ __device__ __forceinline__ float gelu_as(float h) {
   return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, erf));
 }
 
-enum Prologue { kCast = 0, kLayerNorm = 1, kBf16 = 2 };
+// kLayerNorm normalises rows held in shared memory (s_x), kLayerNormRows
+// the same rows read from L2; both by the statistics in s_stats
+enum Prologue { kCast = 0, kLayerNorm = 1, kBf16 = 2, kLayerNormRows = 3 };
 enum Epilogue {
   kBias = 0,         // v*s + b
   kResidual = 1,     // (x + v*s) + b
@@ -214,16 +223,28 @@ struct GemmArgs {
   float qscale;
 };
 
-// Blocks per cluster along K for a (K, N) weight, a function of the shape
-// alone so that every user of one shape sums in one order: enough blocks
-// for the 132 SMs, at most 640 K rows per block, at most 8.  At large-v3:
-// 4 for B15, wo, wo_c and the cross query (160 blocks), 2 for B1 and W1, 8
-// for W2.
+// K ranges (splits) per column tile of a (K, N) weight, a function of the
+// shape alone so that every user of one shape sums in one order: enough
+// for the 132 SMs, at most 640 K rows per range, at most 8.  At large-v3:
+// 4 for B15, wo, wo_c and the cross query, 2 for B1 and W1, 8 for W2.
 inline int gemm_splits(int K, int N) {
   const int tiles = N / kTileCols;
   const int s =
       std::max((kTargetBlocks + tiles - 1) / tiles, (K + kMaxKPerBlock - 1) / kMaxKPerBlock);
   return std::max(1, std::min(s, std::min(kMaxSplits, K)));
+}
+
+// 256-thread teams per block that take a tile's K ranges in place of a
+// cluster's blocks: 2 where a tile's 2 ranges in one block make one wave
+// that a cluster per tile would not (more blocks than SMs, at most one
+// tile per SM): B1's (1280, 3840), 120 blocks where a cluster of 2 per
+// tile put 240 on 132 SMs.  Every SM then streams at most one tile's
+// slab, reads the LayerNorm's rows once, and needs no cluster barrier.
+// The teams add their sums in rank order as a cluster's blocks do: the
+// same order, the same bits.  1 for every other shape.
+inline int gemm_teams(int K, int N) {
+  const int tiles = N / kTileCols, splits = gemm_splits(K, N);
+  return (splits == 2 && tiles <= kTargetBlocks && tiles * splits > kTargetBlocks) ? 2 : 1;
 }
 
 // A block's K range and the TMA boxes that bring it: n_box boxes of
@@ -239,16 +260,17 @@ __host__ __device__ inline Slab slab_of(int K, int splits) {
   return Slab{kper, (per_box + 7) / 8 * 8, n_box};
 }
 
-// s_w (the slab's rows x 32 codes), its mbarrier, s_a (kper x 8 f32),
-// s_red, s_gather (2 chunks x splits x 256), the LayerNorm statistics and,
-// for the LayerNorm, s_x (the chunk's rows, at most 8 x K f32)
-inline size_t gemm_smem_bytes(int K, int splits, int R, bool layer_norm) {
+// per team: s_w (the slab's rows x 32 codes), its mbarrier, s_a (kper x 8
+// f32), s_red; then s_gather (2 chunks x splits x 256), the LayerNorm
+// statistics and, for the LayerNorm, s_x (the chunk's rows, at most 8 x K
+// f32) and with teams the LayerNorm's vectors (2 x K f32)
+inline size_t gemm_smem_bytes(int K, int splits, int R, bool layer_norm, int teams) {
   const Slab sl = slab_of(K, splits);
   const size_t rows = std::min(R, kRowChunk);
-  return (size_t)sl.n_box * sl.box_rows * kTileCols + 16 +
-         sizeof(float) * ((size_t)sl.kper * kRowChunk + kGemmWarps * kRowChunk * kTileCols +
+  return teams * ((size_t)sl.n_box * sl.box_rows * kTileCols + 16) +
+         sizeof(float) * (teams * ((size_t)sl.kper * kRowChunk + kRedFloats) +
                           2 * (size_t)splits * kGemmThreads + 2 * kRowChunk +
-                          (layer_norm ? rows * K : 0));
+                          (layer_norm ? (rows + (teams > 1 ? 2 : 0)) * K : 0));
 }
 
 // Rows of a chunk the inner loop is unrolled for: 1, 2, 4, 5 or 8
@@ -313,37 +335,271 @@ __device__ __forceinline__ void chunk_sums(const int8_t* s_w, const float* s_a, 
   }
 }
 
-template <int P, int E>
-__global__ void __launch_bounds__(kGemmThreads)
+// Warp w < rc: the mean and biased variance of row w of s_x over all K in
+// two passes, as the TPU's _ln_f32, in a fixed order -- every block and
+// kernel that normalises a row gets the same statistics.
+__device__ __forceinline__ void ln_stats_smem(const float* s_x, int rc, int K, float* s_stats) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < rc) {
+    const float* row = s_x + warp * K;
+    float s = 0.f;
+    for (int k = lane; k < K; k += 32) s += row[k];
+    const float mean = __fdiv_rn(warp_sum(s), (float)K);
+    float v = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float dlt = __fsub_rn(row[k], mean);
+      v = __fadd_rn(v, __fmul_rn(dlt, dlt));
+    }
+    const float var = __fdiv_rn(warp_sum(v), (float)K);
+    if (lane == 0) {
+      s_stats[2 * warp] = mean;
+      s_stats[2 * warp + 1] = __fdiv_rn(1.f, sqrtf(__fadd_rn(var, kLnEps)));
+    }
+  }
+  __syncthreads();
+}
+
+// Rows [0, rc) of x (rc x K f32) into s_x by the block's NTHR threads,
+// each thread's loads of a batch in flight before the first store; then
+// their statistics (ln_stats_smem).
+template <int NTHR>
+__device__ __forceinline__ void ln_rows(const float* x, int rc, int K, float* s_x,
+                                        float* s_stats) {
+  constexpr int nthr = NTHR;
+  const int tid = threadIdx.x;
+  const int n = rc * K;
+  for (int i0 = tid; i0 < n; i0 += kRowBatch * nthr) {
+    float v[kRowBatch];
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int i = i0 + j * nthr;
+      v[j] = i < n ? x[i] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j)
+      if (i0 + j * nthr < n) s_x[i0 + j * nthr] = v[j];
+  }
+  __syncthreads();
+  ln_stats_smem(s_x, rc, K, s_stats);
+}
+
+// ln_rows without s_x: warp w < rc holds row w of x (rc x K, from L2) in
+// registers for the two passes, in ln_rows' order (the same statistics),
+// and writes the K range [k_lo, k_lo + kr) of its row, normalised, into s_a
+// as fill_rows<kLayerNormRows> would (warps rc..rows-1 write the padding
+// rows' zeros); K <= 32 * kLnMaxPerLane.  The caller synchronises.
+__device__ __forceinline__ void ln_stats_fill(const float* x, int rc, int rows, int K, int k_lo,
+                                              int kr, const float* ln_s, const float* ln_b,
+                                              float* s_stats, float* s_a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp >= rc && warp < rows) {
+    for (int k = lane; k < kr; k += 32) s_a[k * kRowChunk + warp] = 0.f;
+  } else if (warp < rc) {
+    const float* row = x + (size_t)warp * K;
+    float v[kLnMaxPerLane];
+#pragma unroll
+    for (int i = 0; i < kLnMaxPerLane; ++i)
+      v[i] = lane + 32 * i < K ? __ldcg(row + lane + 32 * i) : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnMaxPerLane; ++i)
+      if (lane + 32 * i < K) s += v[i];
+    const float mean = __fdiv_rn(warp_sum(s), (float)K);
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnMaxPerLane; ++i) {
+      if (lane + 32 * i < K) {
+        const float dlt = __fsub_rn(v[i], mean);
+        q = __fadd_rn(q, __fmul_rn(dlt, dlt));
+      }
+    }
+    const float var = __fdiv_rn(warp_sum(q), (float)K);
+    const float rstd = __fdiv_rn(1.f, sqrtf(__fadd_rn(var, kLnEps)));
+    if (lane == 0) {
+      s_stats[2 * warp] = mean;
+      s_stats[2 * warp + 1] = rstd;
+    }
+#pragma unroll
+    for (int i = 0; i < kLnMaxPerLane; ++i) {
+      const int k = lane + 32 * i;
+      if (k >= k_lo && k < k_lo + kr) {
+        const float nv = __fmul_rn(__fsub_rn(v[i], mean), rstd);
+        s_a[(k - k_lo) * kRowChunk + warp] = bf16_round(__fadd_rn(__fmul_rn(nv, ln_s[k]), ln_b[k]));
+      }
+    }
+  }
+}
+
+// The K range [k_lo, k_lo + kr) of activation rows [r0, r0 + rc) of a (R,
+// K) input into s_a (kr x 8, k-major), `rows` rows (the chunk padded with
+// zeros), bf16-rounded exactly where the TPU kernels round them: a cast
+// of f32 (kCast), bf16 (kBf16) or the LayerNorm by s_stats of the rows in
+// s_x (kLayerNorm) or at a (kLayerNormRows).  Thread t of nthr; each
+// thread's loads of a batch go out together (one round trip, not one per
+// element).  ROW_FAST: neighbouring threads take neighbouring rows of one
+// k, whose s_a words are neighbours, where neighbouring k (8 words apart)
+// put 8 threads of a warp on one bank.  L2: the activations come from L2
+// (another block of the same kernel wrote them), not through L1.
+template <int P, bool ROW_FAST = false, bool L2 = false>
+__device__ __forceinline__ void fill_rows(const void* a, const float* ln_s, const float* ln_b,
+                                          const float* s_x, const float* s_stats, int r0,
+                                          int rc, int rows, int K, int k_lo, int kr,
+                                          float* s_a, int t, int nthr) {
+  for (int i0 = t; i0 < rows * kr; i0 += kLoadBatch * nthr) {
+    float v[kLoadBatch], ls[kLoadBatch], lb[kLoadBatch];
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) {
+      const int i = i0 + j * nthr;
+      const int rr = ROW_FAST ? i % rows : i / kr, k = ROW_FAST ? i / rows : i - rr * kr;
+      v[j] = ls[j] = lb[j] = 0.f;
+      if (i < rows * kr && rr < rc) {
+        const size_t src = (size_t)(r0 + rr) * K + k_lo + k;
+        if (P == kBf16) {
+          const unsigned short* p = static_cast<const unsigned short*>(a) + src;
+          v[j] = __bfloat162float(__ushort_as_bfloat16(L2 ? __ldcg(p) : *p));
+        } else if (P == kCast) {
+          const float* p = static_cast<const float*>(a) + src;
+          v[j] = L2 ? __ldcg(p) : *p;
+        } else {
+          v[j] = P == kLayerNorm ? s_x[rr * K + k_lo + k]
+                                 : __ldcg(static_cast<const float*>(a) + src);
+          ls[j] = ln_s[k_lo + k];
+          lb[j] = ln_b[k_lo + k];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) {
+      const int i = i0 + j * nthr;
+      const int rr = ROW_FAST ? i % rows : i / kr, k = ROW_FAST ? i / rows : i - rr * kr;
+      if (i >= rows * kr) continue;
+      float val = v[j];
+      if ((P == kLayerNorm || P == kLayerNormRows) && rr < rc) {
+        const float nv = __fmul_rn(__fsub_rn(val, s_stats[2 * rr]), s_stats[2 * rr + 1]);
+        val = __fadd_rn(__fmul_rn(nv, ls[j]), lb[j]);
+      }
+      s_a[k * kRowChunk + rr] = bf16_round(val);
+    }
+  }
+}
+
+// chunk_sums for a chunk of `rows` rows (1, 2, 4, 5 or 8)
+__device__ __forceinline__ void chunk_sums_rows(int rows, const int8_t* s_w, const float* s_a,
+                                                float* s_red, int kr, int kg, int ct, int lane,
+                                                int warp) {
+  switch (rows) {
+    case 1: chunk_sums<1>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+    case 2: chunk_sums<2>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+    case 4: chunk_sums<4>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+    case 5: chunk_sums<5>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+    default: chunk_sums<kRowChunk>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
+  }
+}
+
+// The block's sum of output t (row t / 32, column t % 32 of the chunk)
+// over its K range: the 8 warps of s_red in index order
+__device__ __forceinline__ float block_sum(const float* s_red, int t) {
+  const int rr = t / kTileCols, c = t % kTileCols;
+  float v = 0.f;
+#pragma unroll
+  for (int w = 0; w < kGemmWarps; ++w) v += s_red[(w * kRowChunk + rr) * kTileCols + c];
+  return v;
+}
+
+// out[oi] from the dot product v of column n: the column scale, then the
+// epilogue E, each operation an explicit _rn in the TPU kernel's order
+template <int E>
+__device__ __forceinline__ void store_out(void* out, size_t oi, float v, float col_scale,
+                                          float col_bias, float resid, float qscale) {
+  const float vs = __fmul_rn(v, col_scale);
+  if (E == kBias) {
+    static_cast<float*>(out)[oi] = __fadd_rn(vs, col_bias);
+  } else if (E == kResidual) {
+    static_cast<float*>(out)[oi] = __fadd_rn(__fadd_rn(resid, vs), col_bias);
+  } else if (E == kQScale) {
+    static_cast<float*>(out)[oi] = __fmul_rn(__fadd_rn(vs, col_bias), qscale);
+  } else if (E == kGelu) {
+    static_cast<__nv_bfloat16*>(out)[oi] = __float2bfloat16_rn(gelu_as(__fadd_rn(vs, col_bias)));
+  } else if (E == kResidualBias) {
+    static_cast<float*>(out)[oi] = __fadd_rn(__fadd_rn(resid, col_bias), vs);
+  } else {
+    static_cast<float*>(out)[oi] = vs;
+  }
+}
+
+// TEAMS == 1: a cluster of `splits` blocks per column tile, rank q the K
+// range q.  TEAMS == 2: one block of two 256-thread teams per tile, team q
+// the K range q (gemm_teams), added in rank order as a cluster's blocks.
+template <int P, int E, int TEAMS>
+__global__ void __launch_bounds__(kGemmThreads * TEAMS)
     skinny_gemm_kernel(const __grid_constant__ CUtensorMap w_map, GemmArgs g) {
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  cluster_arrive_relaxed();
-  const int splits = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  if (TEAMS == 1) cluster_arrive_relaxed();
+  const int team = threadIdx.x / kGemmThreads;
+  const int splits = TEAMS == 1 ? (int)cluster.num_blocks() : TEAMS;
+  const int rank = TEAMS == 1 ? (int)cluster.block_rank() : team;
   const int K = g.K, N = g.N;
   const Slab sl = slab_of(K, splits);
   const int kper = sl.kper;
   const int k_lo = min(K, rank * kper), kr = min(K, k_lo + kper) - k_lo;
   const int slab_bytes = sl.n_box * sl.box_rows * kTileCols;
-  int8_t* s_w = reinterpret_cast<int8_t*>(gemm_smem);  // slab rows x 32 weight codes
-  const uint32_t bar = smem_u32(gemm_smem + slab_bytes);
-  float* s_a = reinterpret_cast<float*>(gemm_smem + slab_bytes + 16);  // kper x 8, k-major
-  float* s_red = s_a + (size_t)kper * kRowChunk;               // 8 warps x 8 rows x 32 columns
-  float* s_gather = s_red + kGemmWarps * kRowChunk * kTileCols;  // 2 x splits x 256 block sums
-  float* s_stats = s_gather + 2 * splits * kGemmThreads;         // per row: mean, rstd
-  float* s_x = s_stats + 2 * kRowChunk;                          // LayerNorm: the chunk's rows
+  // per team: its slab (rows x 32 weight codes), its mbarrier, s_a (kper x
+  // 8, k-major) and s_red (8 warps x 8 rows x 32 columns); then the
+  // block's s_gather (2 chunks x splits x 256 sums), the LayerNorm
+  // statistics (per row: mean, rstd) and s_x (the chunk's rows)
+  int8_t* s_w = reinterpret_cast<int8_t*>(gemm_smem) + team * slab_bytes;
+  const uint32_t bar = smem_u32(gemm_smem + TEAMS * slab_bytes + 16 * team);
+  float* s_a0 = reinterpret_cast<float*>(gemm_smem + TEAMS * (slab_bytes + 16));
+  float* s_a = s_a0 + (size_t)team * kper * kRowChunk;
+  float* s_red = s_a0 + (size_t)TEAMS * kper * kRowChunk + team * kRedFloats;
+  float* s_gather = s_a0 + (size_t)TEAMS * (kper * kRowChunk + kRedFloats);
+  float* s_stats = s_gather + 2 * splits * kGemmThreads;
+  float* s_x = s_stats + 2 * kRowChunk;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x % kGemmThreads, lane = tid & 31, warp = tid >> 5;
   const int kg = tid / kColThreads, ct = tid % kColThreads;
   const int n0 = blockIdx.x * kTileCols;
 
-  // the block's weight slab, all of it in flight by TMA before the prologue
-  if (tid == 0 && kr > 0) {
-    mbar_init(bar, 1);
-    mbar_expect_tx(bar, slab_bytes);
-    for (int j = 0; j < sl.n_box; ++j)
-      tma_load_2d(smem_u32(s_w + j * sl.box_rows * kTileCols), &w_map, bar, n0,
-                  k_lo + j * sl.box_rows);
+  // the team's weight slab, all of it in flight by TMA before the prologue
+  auto request_slab = [&]() {
+    if (tid == 0 && kr > 0) {
+      mbar_init(bar, 1);
+      mbar_expect_tx(bar, slab_bytes);
+      for (int j = 0; j < sl.n_box; ++j)
+        tma_load_2d(smem_u32(s_w + j * sl.box_rows * kTileCols), &w_map, bar, n0,
+                    k_lo + j * sl.box_rows);
+    }
+  };
+  // teams (B1, K <= 1280): the first chunk's LayerNorm rows and the
+  // LayerNorm's vectors are requested before the slab, so they come back
+  // ahead of it instead of behind it, then stored into s_x and s_ln
+  const float* ln_s = g.ln_s;
+  const float* ln_b = g.ln_b;
+  if (TEAMS > 1 && P == kLayerNorm) {
+    constexpr int kPer = (kRowChunk + 2) * 2 * kMaxKPerBlock / (TEAMS * kGemmThreads);
+    const int rc = min(g.R, kRowChunk), n = rc * K;
+    float* s_ln = s_x + (size_t)rc * K;
+    griddep_wait();
+    float v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * TEAMS * kGemmThreads;
+      v[j] = i < n ? static_cast<const float*>(g.a)[i]
+                   : (i < n + K ? g.ln_s[i - n] : (i < n + 2 * K ? g.ln_b[i - n - K] : 0.f));
+    }
+    request_slab();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * TEAMS * kGemmThreads;
+      if (i < n + 2 * K) s_x[i] = v[j];  // s_ln follows s_x
+    }
+    __syncthreads();
+    ln_stats_smem(s_x, rc, K, s_stats);
+    ln_s = s_ln;
+    ln_b = s_ln + K;
+  } else {
+    request_slab();
   }
   __syncthreads();  // no thread waits on the barrier before its init
   griddep_launch_dependents();
@@ -362,124 +618,41 @@ __global__ void __launch_bounds__(kGemmThreads)
     const bool out_here = has_out && o_rr < rc;
     const size_t oi = (size_t)(r0 + o_rr) * N + n;
     const float resid = (out_here && (E == kResidual || E == kResidualBias)) ? g.resid[oi] : 0.f;
-    if (P == kLayerNorm) {
-      // the chunk's whole rows, read by the whole block (from L2, while the
-      // slab is in flight); then warp w: row w's mean and biased variance
-      // over all K in two passes, as the TPU's _ln_f32, in a fixed order
-      const float* x = static_cast<const float*>(g.a) + (size_t)r0 * K;
-      const int n = rc * K;
-      for (int i0 = tid; i0 < n; i0 += kRowBatch * kGemmThreads) {
-        float v[kRowBatch];  // every load of a batch in flight before the first store
-#pragma unroll
-        for (int j = 0; j < kRowBatch; ++j) {
-          const int i = i0 + j * kGemmThreads;
-          v[j] = i < n ? x[i] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < kRowBatch; ++j)
-          if (i0 + j * kGemmThreads < n) s_x[i0 + j * kGemmThreads] = v[j];
-      }
-      __syncthreads();
-      if (warp < rc) {
-        const float* row = s_x + warp * K;
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += row[k];
-        const float mean = __fdiv_rn(warp_sum(s), (float)K);
-        float v = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float dlt = __fsub_rn(row[k], mean);
-          v = __fadd_rn(v, __fmul_rn(dlt, dlt));
-        }
-        const float var = __fdiv_rn(warp_sum(v), (float)K);
-        if (lane == 0) {
-          s_stats[2 * warp] = mean;
-          s_stats[2 * warp + 1] = __fdiv_rn(1.f, sqrtf(__fadd_rn(var, kLnEps)));
-        }
-      }
-      __syncthreads();
-    }
-    // the block's K range of the chunk's rows, bf16-rounded, k-major; each
-    // thread's loads of a batch go out together (one round trip, not one
-    // per element)
-    for (int i0 = tid; i0 < rows * kr; i0 += kLoadBatch * kGemmThreads) {
-      float v[kLoadBatch], ls[kLoadBatch], lb[kLoadBatch];
-#pragma unroll
-      for (int j = 0; j < kLoadBatch; ++j) {
-        const int i = i0 + j * kGemmThreads, rr = i / kr, k = i - rr * kr;
-        v[j] = ls[j] = lb[j] = 0.f;
-        if (i < rows * kr && rr < rc) {
-          const size_t src = (size_t)(r0 + rr) * K + k_lo + k;
-          if (P == kBf16) {
-            v[j] = __bfloat162float(static_cast<const __nv_bfloat16*>(g.a)[src]);
-          } else if (P == kCast) {
-            v[j] = static_cast<const float*>(g.a)[src];
-          } else {
-            v[j] = s_x[rr * K + k_lo + k];
-            ls[j] = g.ln_s[k_lo + k];
-            lb[j] = g.ln_b[k_lo + k];
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kLoadBatch; ++j) {
-        const int i = i0 + j * kGemmThreads, rr = i / kr, k = i - rr * kr;
-        if (i >= rows * kr) continue;
-        float val = v[j];
-        if (P == kLayerNorm && rr < rc) {
-          const float nv = __fmul_rn(__fsub_rn(val, s_stats[2 * rr]), s_stats[2 * rr + 1]);
-          val = __fadd_rn(__fmul_rn(nv, ls[j]), lb[j]);
-        }
-        s_a[k * kRowChunk + rr] = bf16_round(val);
-      }
-    }
+    if (P == kLayerNorm && (TEAMS == 1 || chunk > 0))
+      ln_rows<TEAMS * kGemmThreads>(static_cast<const float*>(g.a) + (size_t)r0 * K, rc, K, s_x,
+                                    s_stats);
+    fill_rows<P>(g.a, ln_s, ln_b, s_x, s_stats, r0, rc, rows, K, k_lo, kr, s_a, tid,
+                 kGemmThreads);
     if (chunk == 0 && kr > 0) mbar_wait(bar, 0);
     __syncthreads();
-
-    switch (rows) {
-      case 1: chunk_sums<1>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
-      case 2: chunk_sums<2>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
-      case 4: chunk_sums<4>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
-      case 5: chunk_sums<5>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
-      default: chunk_sums<kRowChunk>(s_w, s_a, s_red, kr, kg, ct, lane, warp); break;
-    }
+    chunk_sums_rows(rows, s_w, s_a, s_red, kr, kg, ct, lane, warp);
     __syncthreads();
     {
-      // the block's sum of output tid (8 x 32 = 256), the warps in order,
-      // written into the shared memory of the rank that owns it
-      const int rr = tid / kTileCols, c = tid % kTileCols;
-      float v = 0.f;
-      if (rr < rc) {
-#pragma unroll
-        for (int w = 0; w < kGemmWarps; ++w) v += s_red[(w * kRowChunk + rr) * kTileCols + c];
+      // the team's sum of output tid, written into the shared memory of
+      // the rank that owns it
+      const float v = (tid / kTileCols < rc) ? block_sum(s_red, tid) : 0.f;
+      const int slot = ((chunk & 1) * splits + rank) * kGemmThreads + tid;
+      if (TEAMS == 1) {
+        if (chunk == 0) cluster_wait();
+        cluster.map_shared_rank(s_gather, tid % splits)[slot] = v;
+      } else {
+        s_gather[slot] = v;
       }
-      if (chunk == 0) cluster_wait();
-      cluster.map_shared_rank(s_gather, tid % splits)[((chunk & 1) * splits + rank) * kGemmThreads +
-                                                       tid] = v;
     }
     // every push of this chunk is visible to its owner; a push of the next
     // chunk goes to the other half of s_gather, and one two chunks on waits
     // for this barrier's successor, which its owner reaches only after
     // reading this one
-    cluster.sync();
-    if (out_here) {  // the cluster's sums in rank order, then the epilogue
+    if (TEAMS == 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+    if (out_here) {  // the sums in rank order, then the epilogue
       const float* part = s_gather + (chunk & 1) * splits * kGemmThreads + o;
       float v = 0.f;
       for (int q = 0; q < splits; ++q) v += part[q * kGemmThreads];
-      const float vs = __fmul_rn(v, col_scale);
-      if (E == kBias) {
-        static_cast<float*>(g.out)[oi] = __fadd_rn(vs, col_bias);
-      } else if (E == kResidual) {
-        static_cast<float*>(g.out)[oi] = __fadd_rn(__fadd_rn(resid, vs), col_bias);
-      } else if (E == kQScale) {
-        static_cast<float*>(g.out)[oi] = __fmul_rn(__fadd_rn(vs, col_bias), g.qscale);
-      } else if (E == kGelu) {
-        static_cast<__nv_bfloat16*>(g.out)[oi] =
-            __float2bfloat16_rn(gelu_as(__fadd_rn(vs, col_bias)));
-      } else if (E == kResidualBias) {
-        static_cast<float*>(g.out)[oi] = __fadd_rn(__fadd_rn(resid, col_bias), vs);
-      } else {
-        static_cast<float*>(g.out)[oi] = vs;
-      }
+      store_out<E>(g.out, oi, v, col_scale, col_bias, resid, g.qscale);
     }
   }
 }
@@ -589,17 +762,23 @@ cudaError_t launch_skinny_gemm(const GemmArgs& g, cudaStream_t st, bool after_ow
   if (g.R < 1 || g.K < 1 || g.N < kTileCols || g.N % kTileCols ||
       reinterpret_cast<uintptr_t>(g.w) % 16)
     return cudaErrorInvalidValue;
-  static size_t limit = 0;
-  const int splits = gemm_splits(g.K, g.N);
-  const size_t smem = gemm_smem_bytes(g.K, splits, g.R, P == kLayerNorm);
+  static size_t limit = 0, limit_teams = 0;
+  const int splits = gemm_splits(g.K, g.N), teams = gemm_teams(g.K, g.N);
+  const size_t smem = gemm_smem_bytes(g.K, splits, g.R, P == kLayerNorm, teams);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   CUtensorMap map;
   if (!weight_map(&map, g.w, g.K, g.N, slab_of(g.K, splits).box_rows))
     return cudaErrorInvalidValue;
-  const cudaError_t err = reserve_smem(skinny_gemm_kernel<P, E>, smem, &limit);
+  if (teams == 1) {
+    const cudaError_t err = reserve_smem(skinny_gemm_kernel<P, E, 1>, smem, &limit);
+    if (err != cudaSuccess) return err;
+    return launch_cluster(skinny_gemm_kernel<P, E, 1>, dim3(g.N / kTileCols, splits),
+                          dim3(1, splits, 1), kGemmThreads, smem, st, after_own, map, g);
+  }
+  const cudaError_t err = reserve_smem(skinny_gemm_kernel<P, E, 2>, smem, &limit_teams);
   if (err != cudaSuccess) return err;
-  return launch_cluster(skinny_gemm_kernel<P, E>, dim3(g.N / kTileCols, splits),
-                        dim3(1, splits, 1), kGemmThreads, smem, st, after_own, map, g);
+  return launch_cluster(skinny_gemm_kernel<P, E, 2>, dim3(g.N / kTileCols, 1), dim3(1, 1, 1),
+                        2 * kGemmThreads, smem, st, after_own, map, g);
 }
 
 }  // namespace

@@ -80,12 +80,14 @@ ARGTYPES = {
     # xo, lnc_s, lnc_b, wqc, wqc_s, bqc, ck, cks, cv, cvs, qc (scratch),
     # cross; B, K, D, DC, S, s_real, packed; stream
     "ttasr_ln_q_cross_int8": [_P] * 12 + [_I] * 7 + [_P],
-    # x, ln_s, ln_b, w1, w1_s, b1, w2, w2_s, b2, h (scratch), out; R, D, F,
-    # partial; stream
-    "ttasr_mlp_int8": [_P] * 11 + [_I] * 4 + [_P],
+    # x, ln_s, ln_b, w1, w1_s, b1, w2, w2_s, b2, h (scratch), out, part
+    # (scratch), sync, sched; R, D, F, partial, n_blocks, max_units,
+    # weight_bytes, part_numel, sync_numel; stream
+    "ttasr_mlp_int8": [_P] * 14 + [_I] * 9 + [_P],
     # x, cross, woc, woc_s, boc, ln_s, ln_b, w1, w1_s, b1, w2, w2_s, b2,
-    # x_mid (scratch), h (scratch), out; R, D, F; stream
-    "ttasr_mlp_crossout_int8": [_P] * 16 + [_I] * 3 + [_P],
+    # x_mid (scratch), h (scratch), out, part (scratch), sync, sched; R, D,
+    # F, n_blocks, max_units, weight_bytes, part_numel, sync_numel; stream
+    "ttasr_mlp_crossout_int8": [_P] * 19 + [_I] * 8 + [_P],
     # qkv, k, ks, v, vs, anc (NULL = own row), pad, attn, k_new, ks_new,
     # v_new, vs_new; B, K, H, len, HP, slot, int4; stream
     "ttasr_self_attn_step": [_P] * 12 + [_I] * 7 + [_P],

@@ -62,6 +62,50 @@ def _wmul(a_bf16, wq, ws):
 
 
 # ---------------------------------------------------------------------------
+# The skinny GEMM's shape rules (csrc/skinny_gemm.cuh), for the schedules
+# made on the host (decoder_mlp.py) and the tests
+# ---------------------------------------------------------------------------
+
+TILE_COLS = 32          # kTileCols: output columns of a unit
+MAX_SPLITS = 8          # kMaxSplits
+MAX_K_PER_BLOCK = 640   # kMaxKPerBlock
+TARGET_BLOCKS = 132     # kTargetBlocks: the H100 SXM's SMs
+MAX_BOX_ROWS = 256      # kMaxBoxRows: a TMA box's largest dimension
+ROW_CHUNK = 8           # kRowChunk
+RED_FLOATS = 8 * ROW_CHUNK * TILE_COLS  # kRedFloats
+MAX_SMEM = 232448       # kMaxSmem: a block's shared memory on sm_90
+
+
+def gemm_splits(k: int, n: int) -> int:
+    """K ranges per column tile of a (K, N) weight (``gemm_splits``)."""
+    tiles = n // TILE_COLS
+    s = max(-(-TARGET_BLOCKS // tiles), -(-k // MAX_K_PER_BLOCK))
+    return max(1, min(s, MAX_SPLITS, k))
+
+
+def gemm_teams(k: int, n: int) -> int:
+    """256-thread teams per block that take a tile's K ranges in place of a
+    cluster's blocks (``gemm_teams``): 2 where that makes one wave."""
+    tiles, splits = n // TILE_COLS, gemm_splits(k, n)
+    return 2 if (splits == 2 and tiles <= TARGET_BLOCKS
+                 and tiles * splits > TARGET_BLOCKS) else 1
+
+
+def slab_of(k: int, splits: int):
+    """(K rows per range, rows per TMA box, boxes) of a unit (``slab_of``)."""
+    kper = -(-k // splits)
+    n_box = -(-kper // MAX_BOX_ROWS)
+    per_box = -(-kper // n_box)
+    return kper, -(-per_box // 8) * 8, n_box
+
+
+def slab_bytes(k: int, splits: int) -> int:
+    """Shared-memory bytes of a unit's weight slab (its boxes, whole)."""
+    _, box_rows, n_box = slab_of(k, splits)
+    return n_box * box_rows * TILE_COLS
+
+
+# ---------------------------------------------------------------------------
 # B1: LN1 + fused qkv projection
 # ---------------------------------------------------------------------------
 
