@@ -2,7 +2,7 @@
 """Times the decode step's int8 kernels of this checkout against those of
 another copy of ``ttasr_torch/csrc`` on one NVIDIA GPU.
 
-    python3 chip_compare.py --other DIR [--phases]
+    python3 chip_compare.py --other DIR [--phases | --encoder]
 
 DIR holds the other sources, for instance the parent commit's
 ``ttasr_torch/csrc`` written out with ``git show`` or ``git archive``.  Both
@@ -34,6 +34,15 @@ kernel's (B4, B14) phase points, and the script prints, per phase, the
 median and the latest block's microseconds from the first block's start
 (over the blocks that reached the point).
 
+``--encoder`` compares the s8 x s8 encoder's row kernels instead
+(``encoder_fused.cu``): the entries both builds have in turns as above,
+on seeded large-v3 inputs (B5, B7, B8 and B9 at one window; B9 and B5
+from W1's and W2's int32 accumulators at one window and at bench.py's 48),
+every output compared; then this build's accumulator entries of B8 and
+the qkv GEMM (``add_ln_quant_acc``, ``qkv_epilogue_acc``) at one and 48
+windows in turns with the parent route's torch epilogue and bf16 entry,
+each beside its byte bound.
+
 The parent of the persistent MLP kernel took B4 and B14 without their
 scratch, counters and schedule: a DIR whose ``decoder_mlp.cu`` has no
 ``mlp_persistent_kernel`` is called with that argument list.  The instrumentation is text inserted at
@@ -56,6 +65,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "ttasr_torch", "csrc")
 SOURCES = ("decoder_blocks.cu", "decoder_mlp.cu", "cross_attention.cu", "self_attention.cu")
+ENCODER_SOURCES = ("encoder_fused.cu",)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -73,14 +83,15 @@ def legacy_mlp(src_dir: str) -> bool:
         return "mlp_persistent_kernel" not in f.read()
 
 
-def build(src_dir: str, out_dir: str, tag: str) -> ctypes.CDLL:
-    """The decode kernels of ``src_dir`` in a library of their own."""
+def build(src_dir: str, out_dir: str, tag: str, sources=SOURCES) -> ctypes.CDLL:
+    """The kernels of ``sources`` in ``src_dir`` (default: the decode
+    kernels) in a library of their own."""
     from ttasr_torch.ops import _build
 
     nvcc = _build._nvcc()
-    objs = [os.path.join(out_dir, f"{tag}_{s}.o") for s in SOURCES]
+    objs = [os.path.join(out_dir, f"{tag}_{s}.o") for s in sources]
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, os.path.join(src_dir, s)]
-                     for s, o in zip(SOURCES, objs)])
+                     for s, o in zip(sources, objs)])
     lib = os.path.join(out_dir, f"lib{tag}.so")
     _build._run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                       lib, *objs]])
@@ -214,6 +225,96 @@ def cases(cs, legacy: bool = False):
     }
 
 
+def encoder_cases(cs):
+    """{label: (entry point, [the outputs compared], args...)}: the row
+    kernels' entries that the parent build has too, on seeded large-v3
+    inputs (bf16 LayerNorm vectors and biases): B5, B7, B8 and B9 at one
+    window, B9 and B5 from W1's and W2's accumulators at one and 48."""
+    import torch
+
+    D, F, T = cs.D, cs.FFN, cs.ENC_T
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def act(rows, width, scale=1.0):
+        x = torch.randn((rows, width), generator=gen, device="cuda") * scale
+        return (x * (torch.rand((rows, 1), generator=gen, device="cuda") * 3.9 + 0.1)
+                ).to(torch.bfloat16)
+
+    def outs(rows, width):
+        return (torch.empty((rows, width), device="cuda", dtype=torch.bfloat16),
+                torch.empty((rows, width), device="cuda", dtype=torch.int8),
+                torch.empty(rows, device="cuda"))
+
+    ln_s = (1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(torch.bfloat16)
+    ln_b = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(torch.bfloat16)
+    x, y, h = act(T, D), act(T, D, 0.5), act(T, F, 2.0)
+    res, codes, scales = outs(T, D)
+    _, h_codes, h_scales = outs(T, F)
+    out = {
+        "ln_quant B=1": ("ttasr_ln_quant", [codes, scales], x, ln_s, ln_b, codes, scales,
+                         T, D, 6),
+        "add_ln_quant B=1": ("ttasr_add_ln_quant", [res, codes, scales], x, y, ln_s, ln_b,
+                             res, codes, scales, T, D, 6),
+        "gelu_quant B=1": ("ttasr_gelu_quant", [h_codes, h_scales], h, h_codes, h_scales,
+                           T, F),
+        "quant_only B=1": ("ttasr_quant_only", [codes, scales], x, codes, scales, T, D),
+    }
+    for b in (1, cs.MEL_WINDOWS):
+        rows = b * T
+        w1, w2 = cs._acc_case(gen, b, D, F), cs._acc_case(gen, b, F, D)
+        xb = act(rows, D)
+        res, codes, scales = outs(rows, D)
+        _, h_codes, h_scales = outs(rows, F)
+        out[f"gelu_quant_acc B={b}"] = ("ttasr_gelu_quant_acc", [h_codes, h_scales], *w1,
+                                        h_codes, h_scales, rows, F, 1)
+        out[f"ln_quant_acc B={b}"] = ("ttasr_ln_quant_acc", [res, codes, scales], xb, *w2,
+                                      ln_s, ln_b, res, codes, scales, rows, D, 7)
+    return out
+
+
+def new_encoder_entries(cs, card: str) -> None:
+    """This checkout's ``add_ln_quant_acc`` and ``qkv_epilogue_acc`` at one
+    and 48 windows (seeded accumulators of wo's and the qkv GEMM's shapes),
+    in turns with the parent route (``chip_smoke.parent_add_ln_quant_acc``;
+    for the qkv epilogue its plain version, the parent's column scale and
+    torch epilogue): ``time_ms``, per call in a graph of 20,
+    device ms; the byte bound and its share; outputs equal bit for bit."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ln_s = (1.0 + 0.1 * torch.randn(cs.D, generator=gen, device="cuda")).to(torch.bfloat16)
+    ln_b = (0.1 * torch.randn(cs.D, generator=gen, device="cuda")).to(torch.bfloat16)
+    for b in (1, cs.MEL_WINDOWS):
+        x = (torch.randn((b, cs.ENC_T, cs.D), generator=gen, device="cuda") * 2.0
+             ).to(torch.bfloat16)
+        entries = {
+            "add_ln_quant_acc": (ef.add_ln_quant_acc, cs.parent_add_ln_quant_acc,
+                                 (x, *cs._acc_case(gen, b, cs.D, cs.D), ln_s, ln_b)),
+            "qkv_epilogue_acc": (ef.qkv_epilogue_acc, ef.qkv_epilogue_acc_ref,
+                                 (*cs._acc_case(gen, b, cs.D, 3 * cs.D), cs.Q_SCALE)),
+        }
+        for name, (fn, parent, args) in entries.items():
+            got, old = cs._tensors(fn(*args)), cs._tensors(parent(*args))
+            same = all(torch.equal(g, o) for g, o in zip(got, old))
+            cs.check(same, f"{name} B={b}: differs from the parent route")
+            ins = [a.float() if getattr(a, "ndim", 0) == 1 else a for a in args]
+            bnd = cs.bound(cs._tensors(ins, got), 0.0, "f32")["bound_ms"]
+            times = {"parent": [], "this": []}
+            for tag in ("parent", "this", "this", "parent"):
+                f = (lambda: fn(*args)) if tag == "this" else (lambda: parent(*args))
+                times[tag].append((cs.time_ms(f), cs.per_call_ms(f), device_ms(f)))
+            m = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
+            print(f"{name} B={b}: " + "; ".join(
+                f"{k} time_ms {v[0]:.4f}, in a graph of 20 {v[1]:.4f}, device {v[2]:.4f}"
+                for k, v in m.items()) + f" ms; byte bound {bnd:.4f} ms, "
+                f"{bnd / m['this'][2]:.1%} of it by device time; bit for bit the parent "
+                f"route's: {same} ({card})", flush=True)
+        del x, entries
+        torch.cuda.empty_cache()
+
+
 def device_ms(fn, n: int = 30) -> float:
     """The kernels' device milliseconds per call, from torch.profiler."""
     import torch
@@ -229,15 +330,17 @@ def device_ms(fn, n: int = 30) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
 
 
-def in_turns(cs, builds: dict, card: str) -> None:
+def in_turns(cs, builds: dict, card: str, make_cases=None) -> None:
     """Each case through every build (``builds`` in order, then reversed;
     the last is "this"): time_ms, per call in a graph of 20, device ms, and
     each build's output gap to this one's and whether the two are equal bit
-    for bit.  Each build gets the cases of its own argument lists, on the
-    same seeded inputs."""
+    for bit.  Each build gets the cases of its own argument lists
+    (``make_cases(dll)``, default :func:`cases`), on the same seeded
+    inputs; a case's compared output may be a list of tensors."""
     import torch
 
-    by_tag = {tag: cases(cs, dll.legacy_mlp) for tag, dll in builds.items()}
+    make_cases = make_cases or (lambda dll: cases(cs, dll.legacy_mlp))
+    by_tag = {tag: make_cases(dll) for tag, dll in builds.items()}
     for label in by_tag["this"]:
         res, fns = {}, {}
         for tag, dll in builds.items():
@@ -245,7 +348,8 @@ def in_turns(cs, builds: dict, card: str) -> None:
             fns[tag] = (lambda d=dll, e=entry, a=args: call(d, e, *a))
             fns[tag]()
             torch.cuda.synchronize()
-            res[tag] = out.float().clone()
+            res[tag] = torch.cat([o.float().flatten()
+                                  for o in (out if isinstance(out, list) else [out])])
         times = {tag: [] for tag in builds}
         for tag in list(builds) + list(reversed(builds)):
             fn = fns[tag]
@@ -535,6 +639,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other", required=True, help="another copy of ttasr_torch/csrc")
     parser.add_argument("--phases", action="store_true", help="print the phase timelines too")
+    parser.add_argument("--encoder", action="store_true",
+                        help="compare the encoder's row kernels instead")
     opts = parser.parse_args()
     import torch
 
@@ -549,6 +655,12 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        if opts.encoder:
+            builds = {tag: build(src, tmp, tag, ENCODER_SOURCES) for tag, src in (
+                ("other", os.path.abspath(opts.other)), ("this", CSRC))}
+            in_turns(cs, builds, card, make_cases=lambda dll: encoder_cases(cs))
+            new_encoder_entries(cs, card)
+            return 0
         this = build(CSRC, tmp, "this")
         other = build(os.path.abspath(opts.other), tmp, "other")
         compare(cs, this, other, card)

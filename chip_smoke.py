@@ -45,7 +45,11 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    ``x'`` exact, equal bit for bit to the parent route on the card (the
    torch epilogue, the eager add and the bf16 entry) and the same bits
    twice, timed in turns with their plain versions and with the parent
-   route (also in graphs of 20 calls); B6
+   route (also in graphs of 20 calls); likewise B8 from wo's accumulators,
+   ``add_ln_quant_acc`` (the residual exact), and the qkv GEMM's epilogue,
+   ``qkv_epilogue_acc`` (the (B, T, 3840) bf16 buffer with the dh**-0.5
+   query scale folded in, bit for bit with its plain version, which is
+   the parent route's column-scale launches and torch epilogue); B6
    ``encoder_attention_merged_qkv`` from the (B, T, 3840) qkv buffer
    within B11's bound, and the int8 GEMM (``torch._int_mm`` on K-major
    codes) equal to the exact int32 product at the encoder's four shapes;
@@ -97,17 +101,19 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    ``WhisperEngine("large-v3", compute_type="int8")`` (weights quantized
    on the card, the s8 x s8 encoder with B5-B9, int8 and int4 self-KV,
    int4 cross-KV, beam 5 through the ancestry map, best-of-5 fallback);
-   checks the results, that B6, B7, B8 and B9 (from W1's accumulators)
-   ran 32 times per encoder pass, B5 once from x and 31 times from W2's
-   accumulators, the int8 GEMM 4 x 32 times, B11 never, B1, B3 and B4 32
-   times per decode step, B2 32 times per beam step and B10 32 times per
-   greedy step; that one window through the s8 x s8 encoder agrees with
-   the same encoder on the plain versions of B5-B9; and the encoder
-   through this tree's route and the parent route (W1's and W2's torch
-   epilogues, the eager residual add, B9's and B5's bf16 entries) in
-   turns: their outputs within ``ENCODER_REL``, one window's wall, device
-   ms and kernels, and bench.py's 48 windows' wall, device ms and peak
-   memory;
+   checks the results, that the qkv epilogue, B6, B7, B8 (from wo's
+   accumulators) and B9 (from W1's) ran 32 times per encoder pass, B5 once
+   from x and 31 times from W2's accumulators, the int8 GEMM 4 x 32 times,
+   B11 never, B1, B3 and B4 32 times per decode step, B2 32 times per beam
+   step and B10 32 times per greedy step; that one window through the s8
+   x s8 encoder agrees with the same encoder on the plain versions of
+   B5-B9 and the qkv epilogue; and the encoder through this tree's route
+   and the parent route (the qkv and wo torch epilogues, the per-call
+   column scale, B8's bf16 entry) in turns: their outputs within
+   ``ENCODER_REL``, one window's wall, device ms and kernels, and
+   bench.py's 48 windows' wall, device ms and peak memory; one window also
+   through the route of the bf16 entries (all four torch epilogues, B5's,
+   B8's and B9's bf16 entries), which gives ``gelu_quant`` its launches;
 11. drives the decode's other branches on one encoder window of the main
    path's engine, ``BRANCH_STEPS`` tokens each, beside a main-path beam
    decode of the same window: ``beam_decode`` with
@@ -149,10 +155,10 @@ profiled (``torch.profiler``: device time, kernel count).  Prints one
 JSON line with each kernel's launches (from the main path's run; B11's
 from the bf16 path's, B12's from the bf16 cross-KV leg's, B13's from the
 unfused beam leg's, B17's from the ``beam_indirect=False`` leg's, B14-B16's
-from the one-rank TP v2 beam leg's, B18's and B19's from phase 8's run, B9's
-bf16 entry's from one parent-route encoder pass),
-worst
-error, times, bound and library time, then
+from the one-rank TP v2 beam leg's, B18's and B19's from phase 8's run, B8's
+bf16 entry's from one parent-route encoder pass, B9's bf16 entry's from one
+pass of the route of the bf16 entries), worst error, times, bound and
+library time, then
 the card line, then the contract line ``{"ok": true, "device": {...}}``
 last.
 Imports nothing of jax and nothing of the JAX package.  Exits non-zero,
@@ -162,6 +168,7 @@ printing no result, when CUDA is unavailable or the checkout is missing.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -875,41 +882,73 @@ def parent_ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
     return (x2, *ef.ln_quant(x2, scale, bias))
 
 
+def parent_add_ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
+    """The parent route of B8 after wo: wo's torch epilogue, then the bf16
+    entry."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+    from ttasr_torch.ops.quant import act8_epilogue
+
+    return ef.add_ln_quant(x, act8_epilogue(acc, xs, w_scale, b, torch.bfloat16),
+                           scale, bias)
+
+
+Q_SCALE = 64 ** -0.5  # large-v3's dh**-0.5, folded into the q third
+
+
 def _check_acc_entries(gen, ln_s, ln_b, act, card: str) -> dict:
-    """B9 and B5 from the accumulators at B = 1 and 2: against their plain
-    versions (x' exact, codes within the envelope), against the parent
-    route on the card bit for bit (B9: an exact epilogue, a GELU per
-    element, an absmax in any order; B5: ``ln_quant`` runs the same
-    template, so its LayerNorm sums in the same order), the same bits
-    twice; at B = 1 timed in turns with the plain version and with the
-    parent route (``time_ms`` and graphs of 20 calls)."""
+    """B9, B5 and B8 from the accumulators, and the qkv epilogue, at B = 1
+    and 2: against their plain versions (residuals exact, codes within the
+    envelope, the qkv buffer bit for bit), against the parent route on the
+    card bit for bit (B9: an exact epilogue, a GELU per element, an absmax
+    in any order; B5 and B8: ``ln_quant`` and ``add_ln_quant`` run the same
+    template, so their LayerNorms sum in the same order; the qkv epilogue:
+    the same four roundings), the same bits twice; at B = 1 timed in turns
+    with the plain version and with the parent route (``time_ms`` and
+    graphs of 20 calls), beside the bound."""
     import torch
 
     from ttasr_torch.ops import encoder_fused as ef
 
+    t0 = time.perf_counter()
     res = {}
     for b in (1, 2):
         w1 = _acc_case(gen, b, D, FFN)
         x = act(b, ENC_T, D)
         w2 = _acc_case(gen, b, FFN, D)
-        cases = {  # name: (kernel, plain, parent route, args, operations per element)
+        wo = _acc_case(gen, b, D, D)
+        qkv = _acc_case(gen, b, D, 3 * D)
+        cases = {  # name: (kernel, plain, parent route, args, the accumulators,
+            #               operations per element)
             "gelu_quant_acc": (ef.gelu_quant_acc, ef.gelu_quant_acc_ref,
-                               parent_gelu_quant_acc, w1, 30),
+                               parent_gelu_quant_acc, w1, w1[0], 30),
             "ln_quant_acc": (ef.ln_quant_acc, ef.ln_quant_acc_ref, parent_ln_quant_acc,
-                             (x, *w2, ln_s, ln_b), 20),
+                             (x, *w2, ln_s, ln_b), w2[0], 20),
+            "add_ln_quant_acc": (ef.add_ln_quant_acc, ef.add_ln_quant_acc_ref,
+                                 parent_add_ln_quant_acc, (x, *wo, ln_s, ln_b), wo[0], 20),
+            # the parent route's column scale (torch.ones, a slice fill, two
+            # multiplies) and torch epilogue are the plain version's
+            "qkv_epilogue_acc": (ef.qkv_epilogue_acc, ef.qkv_epilogue_acc_ref,
+                                 ef.qkv_epilogue_acc_ref, (*qkv, Q_SCALE), qkv[0], 4),
         }
-        for name, (fn, ref, parent, args, per_elem) in cases.items():
-            acc = args[0] if name == "gelu_quant_acc" else args[1]
+        for name, (fn, ref, parent, args, acc, per_elem) in cases.items():
             got, want, old = fn(*args), ref(*args), parent(*args)
-            case = f"B={b} T={ENC_T} width={got[-2].shape[-1]}"
-            same = all(torch.equal(g, o) for g, o in zip(got, old))
+            case = f"B={b} T={ENC_T} width={acc.shape[-1]}"
+            same = all(torch.equal(g, o) for g, o in zip(_tensors(got), _tensors(old)))
             print(f"{name} {case}: equal to the parent route bit for bit: {same}")
             check(same, f"{name} {case}: differs from the parent route on the card")
-            if name == "ln_quant_acc":
-                check(torch.equal(got[0], want[0]),
-                      f"{name} {case}: the bf16 residual x' differs from the plain version")
-                got, want = got[1:], want[1:]
-            err = _hold_codes(name, case, got, want)
+            if name == "qkv_epilogue_acc":
+                err = _max_err(got, want)
+                print(f"{name} {case}: equal to the plain version bit for bit: "
+                      f"{torch.equal(got, want)}")
+                check(torch.equal(got, want), f"{name} {case}: differs from the plain version")
+            else:
+                if name != "gelu_quant_acc":
+                    check(torch.equal(got[0], want[0]),
+                          f"{name} {case}: the bf16 residual differs from the plain version")
+                    got, want = got[1:], want[1:]
+                err = _hold_codes(name, case, got, want)
             _same_bits(f"{name} {case}", lambda: fn(*args))
             r = res.setdefault(name, dict(max_abs_err=0.0, library_ms=None))
             r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -920,22 +959,25 @@ def _check_acc_entries(gen, ln_s, ln_b, act, card: str) -> dict:
                 r["graph20_ms"], r["graph20_parent_ms"] = in_turns(
                     lambda: fn(*args), lambda: parent(*args), timer=per_call_ms)
                 # the column vectors are read as f32
-                ins = [a.float() if a.dim() == 1 else a for a in args]
+                ins = [a.float() if getattr(a, "ndim", 0) == 1 else a for a in args]
                 r.update(bound(_tensors(ins, fn(*args)), float(per_elem * acc.numel()),
                                "f32"))
                 print(f"{name} B=1: kernel {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}); "
                       f"in turns with the parent route {r['ms_beside_parent']:.4f} against "
                       f"{r['parent_ms']:.4f} ms; graphs of 20 {r['graph20_ms']:.4f} against "
                       f"{r['graph20_parent_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
-                      f"({r['bound_by']}) ({card})")
+                      f"({r['bound_by']}), {r['bound_ms'] / r['graph20_ms']:.1%} of it in "
+                      f"graphs of 20 ({card})")
+    print(f"accumulator entries (B9, B5, B8, the qkv epilogue): "
+          f"{time.perf_counter() - t0:.1f} s")
     return res
 
 
 def check_encoder_kernels(card: str) -> dict:
-    """B5, B6, B7, B8 and B9 (both B5 and B9 entries) against their plain
-    versions, and the int8 GEMM against the exact product; returns
-    per-kernel measurements keyed by wrapper name, and the GEMM's under
-    ``int8_gemm``."""
+    """B5, B6, B7, B8 and B9 (both entries of B5, B8 and B9) and the qkv
+    epilogue against their plain versions, and the int8 GEMM against the
+    exact product; returns per-kernel measurements keyed by wrapper name,
+    and the GEMM's under ``int8_gemm``."""
     import torch
 
     from ttasr_torch.ops import encoder_fused as ef
@@ -1284,14 +1326,16 @@ def check_tp_kernels(card: str) -> dict:
 @contextlib.contextmanager
 def plain_encoder_kernels():
     """The s8 x s8 encoder on the plain versions of B5-B9, both entries of
-    B5 and B9 (the int8 GEMM is exact either way)."""
+    B5, B8 and B9, and the qkv epilogue (the int8 GEMM is exact either
+    way)."""
     from ttasr_torch.models.whisper import model
     from ttasr_torch.ops import encoder_fused as ef
     from ttasr_torch.ops import encoder_attention as ea
 
     saved = [(ef, n, getattr(ef, n)) for n in ("ln_quant", "quant_only", "add_ln_quant",
                                                "gelu_quant", "gelu_quant_acc",
-                                               "ln_quant_acc")]
+                                               "ln_quant_acc", "add_ln_quant_acc",
+                                               "qkv_epilogue_acc")]
     saved.append((model, "encoder_attention_merged_qkv", model.encoder_attention_merged_qkv))
     try:
         for mod, name, _ in saved[:-1]:
@@ -1306,28 +1350,41 @@ def plain_encoder_kernels():
 def _act8_encoder_launches(passes: int, gemms: int = 4) -> dict:
     """The fused-quant s8 x s8 encoder's row-kernel and GEMM launches over
     ``passes`` passes: B5 from x in layer 0 and from W2's accumulators in
-    the layers after it, B9 from W1's accumulators, B7, B8 and ``gemms``
-    int8 GEMMs per layer (4 with the fused qkv leaf, 6 without)."""
+    the layers after it, B9 from W1's and B8 from wo's accumulators, B7
+    and ``gemms`` int8 GEMMs per layer (4 with the fused qkv leaf, whose
+    accumulators go to the qkv epilogue, 6 without)."""
     L = N_LAYERS
-    return dict(ln_quant=passes, ln_quant_acc=(L - 1) * passes, quant_only=L * passes,
-                add_ln_quant=L * passes, gelu_quant_acc=L * passes,
+    want = dict(ln_quant=passes, ln_quant_acc=(L - 1) * passes, quant_only=L * passes,
+                add_ln_quant_acc=L * passes, gelu_quant_acc=L * passes,
                 quant_matmul_act8=gemms * L * passes)
+    if gemms == 4:
+        want["qkv_epilogue_acc"] = L * passes
+    return want
 
 
 @contextlib.contextmanager
-def parent_encoder_route():
-    """The s8 x s8 encoder as the parent tree ran it: W1's and W2's torch
-    epilogues, the eager residual add, and the bf16 entries of B9 and B5,
-    in place of the entries that read the accumulators (the last layer's
-    W2 epilogue and add run in ``encode`` on either route)."""
+def parent_encoder_route(bf16_entries: bool = False):
+    """The s8 x s8 encoder as the parent tree ran it: the qkv epilogue's
+    column scale built per call and its torch epilogue, wo's torch
+    epilogue and the bf16 entry of B8, in place of the entries that read
+    the accumulators.  ``bf16_entries``: also W1's and W2's torch
+    epilogues, the eager residual add and the bf16 entries of B9 and B5
+    (the route before the accumulator entries; the last layer's W2
+    epilogue and add run in ``encode`` on every route)."""
     from ttasr_torch.ops import encoder_fused as ef
 
-    saved = ef.gelu_quant_acc, ef.ln_quant_acc
-    ef.gelu_quant_acc, ef.ln_quant_acc = parent_gelu_quant_acc, parent_ln_quant_acc
+    swap = dict(add_ln_quant_acc=parent_add_ln_quant_acc,
+                qkv_epilogue_acc=ef.qkv_epilogue_acc_ref)
+    if bf16_entries:
+        swap.update(gelu_quant_acc=parent_gelu_quant_acc, ln_quant_acc=parent_ln_quant_acc)
+    saved = {name: getattr(ef, name) for name in swap}
     try:
+        for name, fn in swap.items():
+            setattr(ef, name, fn)
         yield
     finally:
-        ef.gelu_quant_acc, ef.ln_quant_acc = saved
+        for name, fn in saved.items():
+            setattr(ef, name, fn)
 
 
 def _encoder_windows(engine, batch, label: str, card: str) -> dict:
@@ -1371,36 +1428,55 @@ def _encoder_windows(engine, batch, label: str, card: str) -> dict:
 def compare_encoder_routes(engine, audio, card: str) -> dict:
     """The main path's s8 x s8 encoder through this tree's route and the
     parent route (:func:`parent_encoder_route`) on the same engine: one
-    window through each (finite, within ENCODER_REL of each other, the
-    largest gap printed; the parent route's B5 and B9 launch counts); one
-    window timed and profiled by :func:`encoder_ms` and MEL_WINDOWS windows
-    by :func:`_encoder_windows`, each in turns (parent, this tree, this
-    tree, parent).  Returns the readings and the parent route's
-    ``gelu_quant`` launches per pass."""
+    window through each, and through the route of the bf16 entries
+    (finite, within ENCODER_REL of this tree's, the largest gaps printed;
+    each route's row-kernel launch counts); one window timed and profiled
+    by :func:`encoder_ms` and MEL_WINDOWS windows by
+    :func:`_encoder_windows`, each in turns (parent, this tree, this tree,
+    parent).  Returns the readings and each route's launches per pass
+    (``counts``): the parent route's give ``add_ln_quant`` its launches,
+    the bf16-entry route's ``gelu_quant``."""
     import torch
 
     from ttasr_torch.ops import encoder_fused as ef
 
-    counters = (ef.ln_quant, ef.ln_quant_acc, ef.gelu_quant, ef.gelu_quant_acc)
+    t0 = time.perf_counter()
+    L = N_LAYERS
+    counters = (ef.ln_quant, ef.ln_quant_acc, ef.add_ln_quant, ef.add_ln_quant_acc,
+                ef.gelu_quant, ef.gelu_quant_acc, ef.qkv_epilogue_acc)
+    routes = {  # name: (context, expected launches per pass)
+        "tree": (contextlib.nullcontext, dict(
+            ln_quant=1, ln_quant_acc=L - 1, add_ln_quant_acc=L, gelu_quant_acc=L,
+            qkv_epilogue_acc=L)),
+        "parent": (parent_encoder_route, dict(
+            ln_quant=1, ln_quant_acc=L - 1, add_ln_quant=L, gelu_quant_acc=L)),
+        "bf16 entries": (functools.partial(parent_encoder_route, bf16_entries=True),
+                         dict(ln_quant=L, add_ln_quant=L, gelu_quant=L)),
+    }
+    outs, counts = {}, {}
     with torch.inference_mode():
-        new = engine.encode_windows(audio[None])
-        for fn in counters:
-            fn.launches = 0
-        with parent_encoder_route():
-            old = engine.encode_windows(audio[None])
-        parent_counts = {fn.__name__: fn.launches for fn in counters}
-    _expect("parent route, one window", parent_counts,
-            {"ln_quant": N_LAYERS, "gelu_quant": N_LAYERS})
-    check(bool(torch.isfinite(new).all()) and new.shape == old.shape,
-          "s8 x s8 encoder: non-finite output or shapes differ between the routes")
-    gap = _max_err(new, old)
-    scale = old.float().abs().max().item()
-    print(f"s8 x s8 encoder, this tree's route vs the parent route: largest gap "
-          f"{gap:.3e}, max|parent| {scale:.3e}, bit for bit: {torch.equal(new, old)}; "
-          f"parent route launches per pass {json.dumps(parent_counts)}")
-    check(gap <= ENCODER_REL * scale, "the two encoder routes disagree")
+        for route, (ctx, want) in routes.items():
+            for fn in counters:
+                fn.launches = 0
+            with ctx():
+                outs[route] = engine.encode_windows(audio[None])
+            counts[route] = {fn.__name__: fn.launches for fn in counters}
+            _expect(f"{route} route, one window", counts[route], want)
+    new = outs["tree"]
+    check(bool(torch.isfinite(new).all()), "s8 x s8 encoder: non-finite output")
+    scale = new.float().abs().max().item()
+    gaps = {}
+    for route in ("parent", "bf16 entries"):
+        old = outs[route]
+        check(old.shape == new.shape, f"s8 x s8 encoder: shapes differ ({route} route)")
+        gaps[route] = _max_err(new, old)
+        print(f"s8 x s8 encoder, this tree's route vs the {route} route: largest gap "
+              f"{gaps[route]:.3e}, max|tree| {scale:.3e}, bit for bit: "
+              f"{torch.equal(new, old)}")
+        check(gaps[route] <= ENCODER_REL * scale, f"the tree and {route} routes disagree")
+    print(f"s8 x s8 encoder, row-kernel launches per pass: {json.dumps(counts)}")
     batch = np.stack([audio] * MEL_WINDOWS)
-    res = dict(max_gap=gap, parent_gelu_quant_launches=parent_counts["gelu_quant"])
+    res = dict(max_gap=gaps["parent"], counts=counts)
     for route in ("parent", "tree", "tree", "parent"):
         ctx = parent_encoder_route() if route == "parent" else contextlib.nullcontext()
         with ctx:
@@ -1411,6 +1487,7 @@ def compare_encoder_routes(engine, audio, card: str) -> dict:
     print("s8 x s8 encoder routes: " + json.dumps({r: [dict(
         one_window={k: v["one_window"][k] for k in ("wall_ms", "device_ms", "kernels")},
         windows=v["windows"]) for v in res[r]] for r in ("parent", "tree")}) + f" ({card})")
+    print(f"s8 x s8 encoder routes compared in {time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -1790,7 +1867,8 @@ def _int8_counters():
             blk.attnout_ln_q_cross_int8, mlp.mlp_with_crossout_int8,
             sa.self_attn_step_int8, model.encoder_attention_merged,
             model.encoder_attention_merged_qkv, ef.ln_quant, ef.ln_quant_acc,
-            ef.quant_only, ef.add_ln_quant, ef.gelu_quant, ef.gelu_quant_acc,
+            ef.quant_only, ef.add_ln_quant, ef.add_ln_quant_acc, ef.gelu_quant,
+            ef.gelu_quant_acc, ef.qkv_epilogue_acc,
             quant.quant_matmul_act8,
             blk.attnout_ln_q_fused, ca.cross_attention_int8,
             bg.gather_cache_rows, blk.matmul_int8_partial,
@@ -2515,6 +2593,11 @@ KERNELS = [  # wrapper name, source, the TPU kernel it replaces
      "ttasr/ops/encoder_fused_pallas.py:177"),
     ("ln_quant_acc", "ttasr_torch/csrc/encoder_fused.cu",
      "ttasr/ops/encoder_fused_pallas.py:113"),
+    ("add_ln_quant_acc", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/encoder_fused_pallas.py:141"),
+    # the XLA dot's epilogue in the JAX package, not a Pallas kernel
+    ("qkv_epilogue_acc", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/quant.py:168"),
     ("attnout_ln_q_fused", "ttasr_torch/csrc/decoder_blocks.cu",
      "ttasr/ops/decoder_blocks_pallas.py:75"),
     ("cross_attention_int8", "ttasr_torch/csrc/cross_attention.cu",
@@ -2587,11 +2670,14 @@ def main() -> int:
     for name in ("matmul_int8_partial", "ln_q_cross_int8", "mlp_int8_fused"):
         launches[name] = main_path["tp"][TP_LEG]["counts"][name]
     launches.update(standalone_launches)  # phase 8's run: no engine path calls them
-    # B9's bf16 entry left the main path: its launches are the parent
-    # route's in one encoder pass (compare_encoder_routes)
-    launches["gelu_quant"] = main_path["routes"]["parent_gelu_quant_launches"]
-    print(f"gelu_quant (bf16 entry): {main_path['counts']['gelu_quant']} launches on the "
-          f"main path; {launches['gelu_quant']} in one pass of the parent route")
+    # B8's and B9's bf16 entries left the main path: their launches are one
+    # encoder pass's of the parent route and of the route of the bf16
+    # entries (compare_encoder_routes)
+    route_counts = main_path["routes"]["counts"]
+    for name, route in (("add_ln_quant", "parent"), ("gelu_quant", "bf16 entries")):
+        launches[name] = route_counts[route][name]
+        print(f"{name} (bf16 entry): {main_path['counts'][name]} launches on the main "
+              f"path; {launches[name]} in one pass of the {route} route")
     print(f"B11 launches: bf16 path {bf16['launches']}, int8 main path "
           f"{main_path['counts']['encoder_attention_merged']}, encoder_act_int8=False "
           f"path {int8_bf16_encoder['counts']['encoder_attention_merged']}")

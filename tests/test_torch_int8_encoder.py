@@ -20,8 +20,9 @@ fused by the JAX package and carried over with ``params_from_jax``.
   layers, as the bf16 encoder test in ``test_torch_engine.py``) and 1e-3 x
   max|ref| on average; each branch's kernels are counted (B5's two
   entries together, layer 0's ``ln_quant`` and the later layers'
-  ``ln_quant_acc``; every int8 GEMM, W1 and W2 included, whose
-  accumulators go straight to ``gelu_quant_acc`` and ``ln_quant_acc``).
+  ``ln_quant_acc``; every int8 GEMM, whose accumulators go straight to
+  ``qkv_epilogue_acc`` (the fused qkv leaf), ``add_ln_quant_acc`` (wo),
+  ``gelu_quant_acc`` (W1) and ``ln_quant_acc`` (W2)).
 - ``WhisperEngine(compute_type="int8")`` with its defaults against the JAX
   int8 engine, segment for segment at T=0 (tokens, text and times equal).
 """
@@ -77,8 +78,9 @@ class _Calls:
     def __init__(self, monkeypatch):
         self.n = {}
         for mod, name in ((t_fused, "ln_quant"), (t_fused, "ln_quant_acc"),
-                          (t_fused, "add_ln_quant"), (t_fused, "gelu_quant"),
-                          (t_fused, "gelu_quant_acc"), (t_fused, "quant_only"),
+                          (t_fused, "add_ln_quant"), (t_fused, "add_ln_quant_acc"),
+                          (t_fused, "gelu_quant"), (t_fused, "gelu_quant_acc"),
+                          (t_fused, "quant_only"), (t_fused, "qkv_epilogue_acc"),
                           (tm, "encoder_attention_merged_qkv"),
                           (tm, "encoder_attention_merged"),
                           (t_quant, "_int8_product")):
@@ -127,16 +129,19 @@ def test_act8_encode_matches_jax(jax_act8, monkeypatch, fused_quant, fuse):
     assert n["_int8_product"] == (4 if fuse else 6) * layers
     if fused_quant is None:
         assert n["ln_quant"] + n["ln_quant_acc"] == layers
-        assert (n["ln_quant"], n["gelu_quant"]) == (1, 0)
-        for name in ("gelu_quant_acc", "add_ln_quant", "quant_only"):
+        assert (n["ln_quant"], n["gelu_quant"], n["add_ln_quant"]) == (1, 0, 0)
+        for name in ("gelu_quant_acc", "add_ln_quant_acc", "quant_only"):
             assert n[name] == layers, name
+        # the qkv epilogue runs on the fused qkv leaf's accumulators
+        assert n["qkv_epilogue_acc"] == (layers if fuse else 0)
         # B6 reads the fused qkv buffer; separate q/k/v leaves go to B11
         assert n["encoder_attention_merged_qkv"] == (layers if fuse else 0)
         assert n["encoder_attention_merged"] == (0 if fuse else layers)
     else:
         assert n["encoder_attention_merged"] == layers
         assert sum(n[k] for k in ("ln_quant", "ln_quant_acc", "add_ln_quant",
-                                  "gelu_quant", "gelu_quant_acc", "quant_only",
+                                  "add_ln_quant_acc", "gelu_quant", "gelu_quant_acc",
+                                  "quant_only", "qkv_epilogue_acc",
                                   "encoder_attention_merged_qkv")) == 0
 
 

@@ -1,6 +1,6 @@
 // Row producer + dynamic int8 quantize of the s8 x s8 encoder, for Hopper
-// (sm_90a): B5, B7, B8 and B9, and B9 and B5 reading the int8 GEMM's int32
-// accumulators.
+// (sm_90a): B5, B7, B8 and B9, B9, B5 and B8 reading the int8 GEMM's int32
+// accumulators, and the qkv GEMM's epilogue.
 //
 // Replace ttasr/ops/encoder_fused_pallas.py (called per encoder layer at
 // model.py:409, :295, :412 and :319):
@@ -10,14 +10,30 @@
 //   gelu_quant    GELU(h) (A&S erf)         -> int8 codes + row scale
 // and, with the s8 x s8 GEMM's epilogue (ttasr/ops/quant.py:156-171, an XLA
 // dot whose epilogue XLA fuses) folded in front:
-//   gelu_quant_acc  h = bf16(acc * xs * ws + b); GELU(h) -> codes + scale
-//   ln_quant_acc    y = bf16(acc * xs * ws + b); x' = bf16(x + y) -> bf16
-//                   residual; LN(x') -> codes + scale
+//   gelu_quant_acc    h = bf16(acc * xs * ws + b); GELU(h) -> codes + scale
+//                     (W1, ttasr_torch/models/whisper/model.py::_mlp_act8_acc)
+//   ln_quant_acc      y = bf16(acc * xs * ws + b); x' = bf16(x + y) -> bf16
+//                     residual; LN(x') -> codes + scale (W2, the next
+//                     layer's LN1 in model.py::encode)
+//   add_ln_quant_acc  y = bf16(acc * xs * ws + b); s = f32 x + y; bf16(s)
+//                     -> residual; LN(s) -> codes + scale (wo, LN2 in
+//                     model.py::encode)
+//   qkv_epilogue_acc  bf16(acc * xs * ws' + b') -> the merged qkv buffer
+//                     that B6 reads (model.py::_self_attn_act8); ws' and b'
+//                     are ws and b with their first q_cols columns times
+//                     q_scale, the dh^-0.5 query scale that
+//                     ttasr/models/whisper/model.py:264-269 folds in
 // The epilogue is the written expression, ((f32(acc) * xs) * ws) + b, one
 // _rn operation each (no FMA contraction), then the bf16 rounding of the
 // GEMM's output type; x' is the eager bf16 add (an f32 sum, rounded), and
-// its LayerNorm reads the rounded x', as ln_quant does (add_ln_quant
-// instead normalises the f32 sum: the two contracts differ on purpose).
+// its LayerNorm reads the rounded x', as ln_quant does (add_ln_quant and
+// add_ln_quant_acc instead normalise the f32 sum: the two contracts differ
+// on purpose).  The qkv epilogue's ws' and b' are the f32 products the
+// host used to form per call (the scale is f32(q_scale), b is f32(b)),
+// taken as the block copies its column vectors.  It has no reduction and
+// no codes: one pass of int32 in and bf16 out, which is what the
+// template's row loads, stores and column-vector copy already do, so it is
+// a mode of the template, not a kernel of its own.
 // Each producer runs in f32 and its f32 output is quantized directly (no
 // bf16 intermediate, the fused contract of encoder_fused_pallas.py:18-27):
 //   scale = max(absmax, 1e-8) * f32(1/127), codes = rint(v / scale)
@@ -27,13 +43,13 @@
 // Every multiply and add of a producer is an explicit _rn operation (no
 // FMA contraction), in the order of the JAX expression.
 //
-// What bounds it on this card: one pass over rows of D = 1280 or F = 5120
-// values (bf16, or int32 accumulators at twice the bytes).  The LayerNorm
+// What bounds it on this card: one pass over rows of D = 1280, 3D = 3840
+// or F = 5120 values (bf16, or int32 accumulators at twice the bytes).  The LayerNorm
 // entries are memory-bound; the GELU entries are not: the A&S erf costs
 // two IEEE divisions, an expf and a polynomial per value, more issue time
-// than the bytes take.  The design, one template for all six entries:
+// than the bytes take.  The design, one template for all eight entries:
 //   * a row per team of G warps, G = ceil(width / 1280): one warp per
-//     D-row, four per F-row; each lane holds 5 chunks of 8 consecutive
+//     D-row, three per qkv row, four per F-row; each lane holds 5 chunks of 8 consecutive
 //     values (40 at D and F), all its loads of a row issued together (16
 //     bytes per bf16 chunk, 2 x 16 per int32 chunk), the next row's issued
 //     before this row's stores; stores of 16 bytes (bf16) and 8 bytes
@@ -75,15 +91,19 @@ constexpr int kTeamWidth = 32 * kVec * kChunks;  // values one warp holds: 1280
 constexpr int kMaxWidth = 8192;
 constexpr float kInv127 = 1.f / 127.f;
 
-enum Mode { kLn, kAddLn, kGelu, kIdentity, kAccGelu, kAccAddLn };
+// kAccAddLn: ln_quant_acc (LN of the rounded x'); kAccAddLnSum:
+// add_ln_quant_acc (LN of the f32 sum); kAccOut: the qkv epilogue
+enum Mode { kLn, kAddLn, kGelu, kIdentity, kAccGelu, kAccAddLn, kAccAddLnSum, kAccOut };
 
 // what each mode reads and computes (host and device)
-__host__ __device__ constexpr bool reads_acc(int m) { return m == kAccGelu || m == kAccAddLn; }
+__host__ __device__ constexpr bool reads_acc(int m) { return m >= kAccGelu; }
 __host__ __device__ constexpr bool has_ln(int m) {
-  return m == kLn || m == kAddLn || m == kAccAddLn;
+  return m == kLn || m == kAddLn || m == kAccAddLn || m == kAccAddLnSum;
 }
 __host__ __device__ constexpr bool has_gelu(int m) { return m == kGelu || m == kAccGelu; }
-__host__ __device__ constexpr bool two_inputs(int m) { return m == kAddLn || m == kAccAddLn; }
+__host__ __device__ constexpr bool two_inputs(int m) {
+  return m == kAddLn || m == kAccAddLn || m == kAccAddLnSum;
+}
 // f32 column vectors in shared memory: the epilogue's (ws, b), then the
 // LayerNorm's (scale, bias)
 __host__ __device__ constexpr int col_vectors(int m) {
@@ -92,14 +112,16 @@ __host__ __device__ constexpr int col_vectors(int m) {
 
 struct RowArgs {
   const void* a;            // bf16 x / h, or the int32 accumulators
-  const __nv_bfloat16* x2;  // add_ln_quant: y; ln_quant_acc: the residual x
+  const __nv_bfloat16* x2;  // add_ln_quant: y; ln_quant_acc, add_ln_quant_acc: the residual x
   const float* xs;          // accumulators: row scales (rows,)
   const float* ws;          // accumulators: column scales (W,), f32
   const void* b;            // accumulators: bias (W,) or NULL
+  int q_cols;               // accumulators: ws and b of columns < q_cols times q_scale
+  float q_scale;
   const void* ln_s;         // LayerNorm scale and bias (W,)
   const void* ln_b;
   int vec_bf16;             // bit 0: b, bit 1: ln_s, bit 2: ln_b are bf16 (else f32)
-  __nv_bfloat16* resid;     // add_ln_quant, ln_quant_acc: the bf16 residual
+  __nv_bfloat16* resid;     // two inputs: the bf16 residual; qkv epilogue: its output
   int8_t* codes;            // (rows, W)
   float* scales;            // (rows,)
 };
@@ -158,6 +180,23 @@ __device__ __forceinline__ void fill_vec(float* dst, const void* src, bool bf16,
     }
     reinterpret_cast<float4*>(dst + j)[0] = lo;
     reinterpret_cast<float4*>(dst + j)[1] = hi;
+  }
+}
+
+// The first `cols` values of the column vectors at v and v + W times mult
+// (one _rn multiply each), by the threads that filled them (fill_vec's
+// layout), so no barrier comes between.
+__device__ __forceinline__ void scale_cols(float* v, int W, int cols, float mult) {
+  constexpr int kPer = kMaxWidth / kVec / kThreads;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int j = (k * kThreads + threadIdx.x) * kVec;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (j + i < cols) {
+        v[j + i] = __fmul_rn(v[j + i], mult);
+        v[W + j + i] = __fmul_rn(v[W + j + i], mult);
+      }
   }
 }
 
@@ -277,6 +316,7 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
   if (reads_acc(M)) {
     fill_vec(cols, p.ws, false, W);
     fill_vec(cols + W, p.b, p.vec_bf16 & 1, W);
+    if constexpr (M == kAccOut) scale_cols(cols, W, p.q_cols, p.q_scale);
   }
   if (has_ln(M)) {
     fill_vec(cols + kLnCols * W, p.ln_s, p.vec_bf16 & 2, W);
@@ -296,8 +336,10 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
 
   for (; r < rows; r += stride) {
     const size_t off = (size_t)r * W;
-    // the producer's input in f32; the residual out
+    // the producer's input in f32; the residual out (the qkv epilogue's
+    // output kept until the next row's loads are issued)
     float v[kChunks][kVec];
+    uint32_t out[M == kAccOut ? kChunks : 1][kVec / 2];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int col = (c * team_threads + t) * kVec;
@@ -321,7 +363,7 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
         }
       }
       // bf16 roundings two at a time: the GEMM's output, then x' (or the
-      // add_ln_quant residual, whose LayerNorm reads the f32 sum)
+      // add_ln_quant residuals, whose LayerNorm reads the f32 sum)
       uint32_t res[kVec / 2];
 #pragma unroll
       for (int i = 0; i < kVec; i += 2) {
@@ -332,12 +374,32 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
             w = bf16x2_bits(__fadd_rn(bf16_at(raw.b[c], i), v[c][i]),
                             __fadd_rn(bf16_at(raw.b[c], i + 1), v[c][i + 1]));
             v[c][i] = lo_f32(w), v[c][i + 1] = hi_f32(w);
+          } else if (M == kAccAddLnSum) {
+            v[c][i] = __fadd_rn(bf16_at(raw.b[c], i), v[c][i]);
+            v[c][i + 1] = __fadd_rn(bf16_at(raw.b[c], i + 1), v[c][i + 1]);
+            w = bf16x2_bits(v[c][i], v[c][i + 1]);
           }
         }
         res[i >> 1] = w;
       }
       if (two_inputs(M))
         *reinterpret_cast<uint4*>(p.resid + off + col) = make_uint4(res[0], res[1], res[2], res[3]);
+      if constexpr (M == kAccOut) {
+#pragma unroll
+        for (int i = 0; i < kVec / 2; ++i) out[c][i] = res[i];
+      }
+    }
+
+    if constexpr (M == kAccOut) {
+      if (r + stride < rows) raw.load(p, r + stride, W, t, team_threads);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int col = (c * team_threads + t) * kVec;
+        if (col < W)
+          *reinterpret_cast<uint4*>(p.resid + off + col) =
+              make_uint4(out[c][0], out[c][1], out[c][2], out[c][3]);
+      }
+      continue;
     }
 
     if (has_ln(M)) {
@@ -409,7 +471,9 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
 
 template <int M>
 int launch_rows(const RowArgs& args, int rows, int W, void* stream) {
-  if (W % kVec || W < kVec || W > kMaxWidth || rows < 1) return (int)cudaErrorInvalidValue;
+  if (W % kVec || W < kVec || W > kMaxWidth || rows < 1 || args.q_cols < 0 ||
+      args.q_cols > W)
+    return (int)cudaErrorInvalidValue;
   const int G = (W + kTeamWidth - 1) / kTeamWidth, teams = kWarps / G;
   const size_t smem = ((size_t)col_vectors(M) * W + (has_gelu(M) ? kGeluTable : 0)) * sizeof(float);
   static size_t smem_limit = 48 * 1024;
@@ -496,10 +560,12 @@ extern "C" int ttasr_gelu_quant_acc(const void* acc, const void* xs, const void*
   return launch_rows<kAccGelu>(a, rows, F, stream);
 }
 
-extern "C" int ttasr_ln_quant_acc(const void* x, const void* acc, const void* xs,
-                                  const void* w_scale, const void* b, const void* ln_s,
-                                  const void* ln_b, void* resid, void* codes, void* scales,
-                                  int rows, int D, int vec_bf16, void* stream) {
+namespace {
+
+// the operands of ln_quant_acc and add_ln_quant_acc
+RowArgs acc_add_ln_args(const void* x, const void* acc, const void* xs, const void* w_scale,
+                        const void* b, const void* ln_s, const void* ln_b, void* resid,
+                        void* codes, void* scales, int vec_bf16) {
   RowArgs a = {};
   a.a = acc;
   a.x2 = static_cast<const __nv_bfloat16*>(x);
@@ -512,5 +578,43 @@ extern "C" int ttasr_ln_quant_acc(const void* x, const void* acc, const void* xs
   a.resid = static_cast<__nv_bfloat16*>(resid);
   a.codes = static_cast<int8_t*>(codes);
   a.scales = static_cast<float*>(scales);
-  return launch_rows<kAccAddLn>(a, rows, D, stream);
+  return a;
+}
+
+}  // namespace
+
+extern "C" int ttasr_ln_quant_acc(const void* x, const void* acc, const void* xs,
+                                  const void* w_scale, const void* b, const void* ln_s,
+                                  const void* ln_b, void* resid, void* codes, void* scales,
+                                  int rows, int D, int vec_bf16, void* stream) {
+  return launch_rows<kAccAddLn>(
+      acc_add_ln_args(x, acc, xs, w_scale, b, ln_s, ln_b, resid, codes, scales, vec_bf16), rows,
+      D, stream);
+}
+
+extern "C" int ttasr_add_ln_quant_acc(const void* x, const void* acc, const void* xs,
+                                      const void* w_scale, const void* b, const void* ln_s,
+                                      const void* ln_b, void* resid, void* codes,
+                                      void* scales, int rows, int D, int vec_bf16,
+                                      void* stream) {
+  return launch_rows<kAccAddLnSum>(
+      acc_add_ln_args(x, acc, xs, w_scale, b, ln_s, ln_b, resid, codes, scales, vec_bf16), rows,
+      D, stream);
+}
+
+// The qkv epilogue: out (rows, W) bf16; the first q_cols columns of
+// w_scale and b are multiplied by q_scale.
+extern "C" int ttasr_qkv_epilogue_acc(const void* acc, const void* xs, const void* w_scale,
+                                      const void* b, void* out, int rows, int W, int q_cols,
+                                      float q_scale, int vec_bf16, void* stream) {
+  RowArgs a = {};
+  a.a = acc;
+  a.xs = static_cast<const float*>(xs);
+  a.ws = static_cast<const float*>(w_scale);
+  a.b = b;
+  a.q_cols = q_cols;
+  a.q_scale = q_scale;
+  a.vec_bf16 = vec_bf16;
+  a.resid = static_cast<__nv_bfloat16*>(out);
+  return launch_rows<kAccOut>(a, rows, W, stream);
 }

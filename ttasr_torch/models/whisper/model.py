@@ -12,13 +12,16 @@ The encoder's self-attention goes through the Hopper kernel
 (:func:`ttasr_torch.ops.encoder_attention.encoder_attention_merged`) for
 64-wide heads; that wrapper runs its plain PyTorch version on CPU tensors.
 On int8 weights the encoder runs s8 x s8 by default (``encode``'s
-``act_int8``): each layer goes ``ln_quant`` -> int8 GEMM -> merged-qkv
-attention -> ``quant_only`` -> int8 GEMM -> ``add_ln_quant`` -> int8 GEMM ->
-``gelu_quant_acc`` (W1's epilogue folded in) -> int8 GEMM, whose int32
-accumulators the next layer's ``ln_quant_acc`` reads (W2's epilogue and
-the residual add folded in; layer 0 takes ``ln_quant``), the kernels of
-:mod:`ttasr_torch.ops.encoder_fused` and
-:mod:`ttasr_torch.ops.encoder_attention`.
+``act_int8``): each layer goes ``ln_quant`` -> int8 GEMM ->
+``qkv_epilogue_acc`` (the qkv GEMM's epilogue, the query scale folded in)
+-> merged-qkv attention -> ``quant_only`` -> int8 GEMM ->
+``add_ln_quant_acc`` (wo's epilogue and the residual add folded in) ->
+int8 GEMM -> ``gelu_quant_acc`` (W1's epilogue folded in) -> int8 GEMM,
+whose int32 accumulators the next layer's ``ln_quant_acc`` reads (W2's
+epilogue and the residual add folded in; layer 0 takes ``ln_quant``), the
+kernels of :mod:`ttasr_torch.ops.encoder_fused` and
+:mod:`ttasr_torch.ops.encoder_attention`; no GEMM output passes through
+an eager torch epilogue.
 The decode cache is updated in place (the JAX version returns a new one).
 """
 
@@ -251,17 +254,21 @@ def _mlp(x, blk):
 
 
 def _self_attn_act8(x, blk, n_heads, t_real, *, x_quant=None,
-                    fused_quant: bool = False, qkv_direct: bool = True):
+                    fused_quant: bool = False, qkv_direct: bool = True,
+                    wo_acc: bool = False):
     """Merged-layout encoder attention with s8 x s8 projections.
 
     Activations are quantized per row, the projections run int8 x int8 ->
     int32, the attention stays bf16.  ``x_quant``: the (codes, scales) of
     x from ``ln_quant``.  With the fused (D, 3D) leaf, ``fused_quant`` and
-    ``qkv_direct`` the dh**-0.5 query scale folds into the q-third of the
-    weight scales and bias (exact in f32), the GEMM emits the bf16 qkv
-    buffer and B6 reads q/K/V from it; otherwise q/k/v are sliced out of
-    an f32 GEMM output for B11.  ``fused_quant`` also quantizes the
-    attention output with ``quant_only`` instead of ``quantize_act``.
+    ``qkv_direct`` the qkv GEMM's accumulators go to ``qkv_epilogue_acc``,
+    which folds the dh**-0.5 query scale into the q-third of the weight
+    scales and bias (exact in f32) and writes the bf16 qkv buffer B6
+    reads q/K/V from; otherwise q/k/v are sliced out of an f32 GEMM
+    output for B11.  ``fused_quant`` also quantizes the attention output
+    with ``quant_only`` instead of ``quantize_act``.  ``wo_acc`` returns
+    wo's int32 accumulators and the operands of its epilogue, ``(acc, os,
+    w_scale, b)``, for ``add_ln_quant_acc``, instead of its output.
     """
     dh = x.shape[-1] // n_heads
     qs = dh ** -0.5
@@ -269,11 +276,8 @@ def _self_attn_act8(x, blk, n_heads, t_real, *, x_quant=None,
     xq, xs = x_quant if x_quant is not None else quantize_act(x)
     if "wqkv" in blk and fused_quant and qkv_direct:
         w = blk["wqkv"]
-        colscale = torch.ones(3 * d, dtype=torch.float32, device=x.device)
-        colscale[:d] = qs
-        leaf = {"q": w["q"], "s": w["s"] * colscale}
-        qkv = quant_matmul_act8(xq, xs, leaf, blk["bqkv"] * colscale,
-                                out_dtype=x.dtype)
+        qkv = encoder_fused.qkv_epilogue_acc(int8_accumulators(xq, w), xs, w["s"],
+                                             blk["bqkv"], qs, x.dtype)
         out_m = encoder_attention_merged_qkv(qkv, t_real)
     else:
         if "wqkv" in blk:
@@ -294,7 +298,10 @@ def _self_attn_act8(x, blk, n_heads, t_real, *, x_quant=None,
         oq, os_ = encoder_fused.quant_only(out_m)
     else:
         oq, os_ = quantize_act(out_m)
-    return quant_matmul_act8(oq, os_, blk["wo"], blk["bo"], out_dtype=x.dtype)
+    wo = blk["wo"]
+    if wo_acc:
+        return int8_accumulators(oq, wo), os_, wo["s"], blk["bo"]
+    return quant_matmul_act8(oq, os_, wo, blk["bo"], out_dtype=x.dtype)
 
 
 def _mlp_act8(x, blk):
@@ -340,10 +347,11 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
     head count), the JAX package's rule without its backend test; False
     forces float compute on quantized weights.  ``fused_quant=None``
     enables the one-pass producer + quantize kernels (B5, B7, B8, B9)
-    whenever act_int8 is active, B9 and B5 reading W1's and W2's int32
-    accumulators (layer 0's B5 reads x); False keeps plain quantize chains.
-    ``qkv_direct`` (the JAX package's ``TTASR_ENC_QKV_DIRECT``) feeds the
-    fused qkv GEMM's bf16 output straight to B6 on the fused-quant path.
+    whenever act_int8 is active, B8, B9 and B5 reading wo's, W1's and W2's
+    int32 accumulators (layer 0's B5 reads x); False keeps plain quantize
+    chains.  ``qkv_direct`` (the JAX package's ``TTASR_ENC_QKV_DIRECT``)
+    feeds the fused qkv GEMM's bf16 output, made from its accumulators by
+    ``qkv_epilogue_acc``, straight to B6 on the fused-quant path.
     """
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
@@ -376,10 +384,11 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
             else:
                 x, q1, s1 = encoder_fused.ln_quant_acc(x, *w2, blk["ln1_s"],
                                                        blk["ln1_b"])
-            attn = _self_attn_act8(x, blk, h_n, t_real, x_quant=(q1, s1),
-                                   fused_quant=True, qkv_direct=qkv_direct)
-            x, q2, s2 = encoder_fused.add_ln_quant(x, attn, blk["ln2_s"],
-                                                   blk["ln2_b"])
+            wo = _self_attn_act8(x, blk, h_n, t_real, x_quant=(q1, s1),
+                                 fused_quant=True, qkv_direct=qkv_direct,
+                                 wo_acc=True)
+            x, q2, s2 = encoder_fused.add_ln_quant_acc(x, *wo, blk["ln2_s"],
+                                                       blk["ln2_b"])
             w2 = _mlp_act8_acc(blk, (q2, s2))
         elif act8:
             h = _ln(x, blk["ln1_s"], blk["ln1_b"])

@@ -10,7 +10,7 @@ rebuilds and an unchanged one loads at once.  Nothing is built when a
 module is imported: the first kernel launch calls :func:`load_library`.
 
 :data:`ARGTYPES` declares every C entry point: pointers and the stream are
-``c_void_p``, ints ``c_int``.  Each entry point launches on the stream it
+``c_void_p``, ints ``c_int``, floats ``c_float``.  Each entry point launches on the stream it
 is given and returns ``cudaGetLastError()``; :func:`launch` raises when
 that is not 0.
 """
@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # entry point -> argtypes, in the order of the C signature
 ARGTYPES = {
@@ -62,6 +62,12 @@ ARGTYPES = {
     # x, acc, xs, w_scale, b (NULL: none), ln_s, ln_b, resid, codes, scales;
     # rows, D, vec_bf16; stream
     "ttasr_ln_quant_acc": [_P] * 10 + [_I] * 3 + [_P],
+    # x, acc, xs, w_scale, b (NULL: none), ln_s, ln_b, resid, codes, scales;
+    # rows, D, vec_bf16; stream
+    "ttasr_add_ln_quant_acc": [_P] * 10 + [_I] * 3 + [_P],
+    # acc, xs, w_scale, b (NULL: none), out; rows, W, q_cols; q_scale;
+    # vec_bf16; stream
+    "ttasr_qkv_epilogue_acc": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     # x, ln_s, ln_b, w, w_scale, bias, out; R, D, M; stream
     "ttasr_qkv_int8": [_P] * 7 + [_I] * 3 + [_P],
     # x, attn, wo, wo_s, bo, lnc_s, lnc_b, wqc, wqc_s, bqc, xo, qc; R, D, DC;

@@ -9,14 +9,20 @@ Ports of ``ttasr/ops/encoder_fused_pallas.py``:
   of the LayerNorm of the f32 sum);
 - B9 :func:`gelu_quant`: exact GELU (A&S erf polynomial) -> codes + scales;
 
-and two entries that read the s8 x s8 GEMM's int32 accumulators and apply
+and four entries that read the s8 x s8 GEMM's int32 accumulators and apply
 its epilogue (``ops.quant.act8_epilogue``: ``acc * xs * w_scale + b``,
-rounded to bf16) first, so the encoder's W1 and W2 outputs never exist as
-bf16 tensors:
+rounded to bf16) first, so the encoder's qkv, wo, W1 and W2 outputs never
+pass through an eager torch epilogue:
 
 - B9 :func:`gelu_quant_acc`: :func:`gelu_quant` of W1's output;
 - B5 :func:`ln_quant_acc`: the residual add of W2's output, ``x' = x + y``
-  in bf16, then :func:`ln_quant` of ``x'``; returns ``x'`` too.
+  in bf16, then :func:`ln_quant` of ``x'``; returns ``x'`` too;
+- B8 :func:`add_ln_quant_acc`: :func:`add_ln_quant` of x and wo's output
+  (the LayerNorm of the f32 sum, not of the rounded residual);
+- :func:`qkv_epilogue_acc`: the fused qkv GEMM's bf16 output, the buffer
+  B6 reads, with the dh**-0.5 query scale folded into the q third of the
+  weight scales and bias (the epilogue of an XLA dot in the JAX package,
+  ``ttasr/ops/quant.py:156``, not a Pallas kernel).
 
 Each producer runs in f32 and its f32 output is quantized directly (the
 fused contract): ``scale = max(absmax, 1e-8) * f32(1/127)``, ``codes =
@@ -25,7 +31,7 @@ JAX kernels compute (XLA rewrites the division by the constant inside the
 kernel, interpret mode included).  Inputs are (B, T, D) bf16; scales come
 back (B, T, 1) f32, codes (B, T, D) int8.
 
-All six run one kernel template.  Each wrapper runs its plain PyTorch
+All eight run one kernel template.  Each wrapper runs its plain PyTorch
 version (``*_ref``) for CPU tensors and
 launches the CUDA kernel (``ttasr_torch/csrc/encoder_fused.cu``) for CUDA
 tensors, counting launches in ``<wrapper>.launches``; anything else raises.
@@ -77,6 +83,18 @@ def gelu_quant_acc_ref(acc, xs, w_scale, b):
 def ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias):
     x2 = x + act8_epilogue(acc, xs, w_scale, b, torch.bfloat16)
     return (x2, *ln_quant_ref(x2, scale, bias))
+
+
+def add_ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias):
+    return add_ln_quant_ref(x, act8_epilogue(acc, xs, w_scale, b, x.dtype), scale, bias)
+
+
+def qkv_epilogue_acc_ref(acc, xs, w_scale, b, q_scale, out_dtype=torch.bfloat16):
+    n = acc.shape[-1]
+    colscale = torch.ones(n, dtype=torch.float32, device=acc.device)
+    colscale[: n // 3] = q_scale
+    return act8_epilogue(acc, xs, w_scale * colscale,
+                         None if b is None else b * colscale, out_dtype)
 
 
 def _rows(x, name, dtype=torch.bfloat16):
@@ -221,12 +239,10 @@ def gelu_quant_acc(acc, xs, w_scale, b):
     return codes, scales
 
 
-def ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
-    """B5 after W2: ``x' = x + bf16(acc * xs * w_scale + b)`` (the bf16
-    residual add), then LN1 of ``x'`` -> (x', int8 codes, f32 row scales
-    (..., 1)).  x (..., D) bf16; acc (..., D) int32 with row scales xs."""
-    if not _dispatch(x):
-        return ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
+def _acc_add_ln(entry, x, acc, xs, w_scale, b, scale, bias):
+    """Launches ``entry`` (``ln_quant_acc``'s or ``add_ln_quant_acc``'s) on
+    x (..., D) bf16 and acc (..., D) int32; returns (resid, codes,
+    scales)."""
     _, d = _rows(x, "x")
     if acc.shape != x.shape or acc.device != x.device:
         raise ValueError(f"x {tuple(x.shape)} and acc {tuple(acc.shape)} must match")
@@ -236,12 +252,59 @@ def ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
     resid = torch.empty_like(x)
     from ttasr_torch.ops._build import launch
 
-    launch("ttasr_ln_quant_acc", x.device, x, acc, xs, ws, b, s, lb, resid, codes,
-           scales, rows, d, mask)
-    ln_quant_acc.launches += 1
+    launch(entry, x.device, x, acc, xs, ws, b, s, lb, resid, codes, scales, rows, d,
+           mask)
     return resid, codes, scales
 
 
+def ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
+    """B5 after W2: ``x' = x + bf16(acc * xs * w_scale + b)`` (the bf16
+    residual add), then LN1 of ``x'`` -> (x', int8 codes, f32 row scales
+    (..., 1)).  x (..., D) bf16; acc (..., D) int32 with row scales xs."""
+    if not _dispatch(x):
+        return ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
+    out = _acc_add_ln("ttasr_ln_quant_acc", x, acc, xs, w_scale, b, scale, bias)
+    ln_quant_acc.launches += 1
+    return out
+
+
+def add_ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
+    """B8 after wo: ``s = f32(x) + f32(y)``, y = ``acc * xs * w_scale + b``
+    rounded to x's type -> (s in x's type, int8 codes and f32 row scales
+    (..., 1) of LN2 of the f32 sum ``s``).  x (..., D) bf16 on the card;
+    acc (..., D) int32 with row scales xs."""
+    if not _dispatch(x):
+        return add_ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
+    out = _acc_add_ln("ttasr_add_ln_quant_acc", x, acc, xs, w_scale, b, scale, bias)
+    add_ln_quant_acc.launches += 1
+    return out
+
+
+def qkv_epilogue_acc(acc, xs, w_scale, b, q_scale, out_dtype=torch.bfloat16):
+    """The fused qkv GEMM's epilogue from its int32 accumulators acc (...,
+    3D), row scales xs (..., 1), column scales w_scale (1, 3D) and bias b
+    (3D,) or None: ``acc * xs * w_scale' + b'`` in ``out_dtype``, where
+    w_scale' and b' are w_scale and b with their first D columns times
+    ``q_scale`` (the f32 products; exact for a power of two such as
+    64**-0.5).  Returns the (..., 3D) buffer B6 reads; the kernel writes
+    bf16."""
+    if not _dispatch(acc):
+        return qkv_epilogue_acc_ref(acc, xs, w_scale, b, q_scale, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"the qkv epilogue kernel writes bf16, not {out_dtype}")
+    rows, w, xs, ws = _acc_rows(acc, xs, w_scale)
+    if w % 3:
+        raise ValueError(f"acc: width {w} is not 3 x D")
+    b, mask = _vecs(w, b=b)
+    out = torch.empty(acc.shape, dtype=torch.bfloat16, device=acc.device)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_qkv_epilogue_acc", acc.device, acc, xs, ws, b, out, rows, w,
+           w // 3, float(q_scale), mask)
+    qkv_epilogue_acc.launches += 1
+    return out
+
+
 for _fn in (ln_quant, add_ln_quant, gelu_quant, quant_only, gelu_quant_acc,
-            ln_quant_acc):
+            ln_quant_acc, add_ln_quant_acc, qkv_epilogue_acc):
     _fn.launches = 0

@@ -195,8 +195,9 @@ def act8_epilogue(acc, xs, w_scale, b=None, out_dtype=torch.bfloat16):
     ``acc.float() * xs * w_scale``, then ``+ b.float()``, then the cast to
     ``out_dtype``.  acc (..., M, N) int32, xs (..., M, 1) f32, w_scale
     (1, N) f32.  The row kernels that read the accumulators
-    (``encoder_fused.gelu_quant_acc``, ``ln_quant_acc``) compute this
-    expression, one rounding per operation, before their producer."""
+    (``encoder_fused.gelu_quant_acc``, ``ln_quant_acc``,
+    ``add_ln_quant_acc``, ``qkv_epilogue_acc``) compute this expression,
+    one rounding per operation, before their producer."""
     out = acc.float() * xs * w_scale.reshape(acc.shape[-1])
     if b is not None:
         out = out + b.float()
