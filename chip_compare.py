@@ -2,7 +2,7 @@
 """Times the decode step's int8 kernels of this checkout against those of
 another copy of ``ttasr_torch/csrc`` on one NVIDIA GPU.
 
-    python3 chip_compare.py --other DIR [--phases | --encoder]
+    python3 chip_compare.py --other DIR [--phases | --encoder | --mel]
 
 DIR holds the other sources, for instance the parent commit's
 ``ttasr_torch/csrc`` written out with ``git show`` or ``git archive``.  Both
@@ -43,6 +43,19 @@ the qkv GEMM (``add_ln_quant_acc``, ``qkv_epilogue_acc``) at one and 48
 windows in turns with the parent route's torch epilogue and bf16 entry,
 each beside its byte bound.
 
+``--mel`` compares B18 (``mel.cu``) instead: the other copy's entry point
+of the dense design (before the in-kernel FFT: the DFT basis and the
+filterbank in, its clamp and rescale as torch ops after it, as its wrapper
+called it) and this checkout's ``log_mel_spectrogram_fused``, in turns at B = 1 (the 45 s clip) and at 48
+windows (``chip_smoke._mel_batch``): ``time_ms``, device ms, each output's
+distance from the float64 plain version (also on a 30 s clip whose loud
+onset puts the max - 8 floor in play, and a loud tone over faint noise),
+and the CUDA kernels of one call of each, by name, from torch.profiler;
+then ptxas's register and spill report of this checkout's ``mel.cu`` and,
+from an instrumented copy, the FFT kernel's clock64 cycles per tile in
+each phase (thread 0 of every block, after the phase's barrier) at both
+sizes.
+
 The parent of the persistent MLP kernel took B4 and B14 without their
 scratch, counters and schedule: a DIR whose ``decoder_mlp.cu`` has no
 ``mlp_persistent_kernel`` is called with that argument list.  The instrumentation is text inserted at
@@ -56,7 +69,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import shutil
+import subprocess
 import sys
 import tempfile
 
@@ -66,6 +81,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "ttasr_torch", "csrc")
 SOURCES = ("decoder_blocks.cu", "decoder_mlp.cu", "cross_attention.cu", "self_attention.cu")
 ENCODER_SOURCES = ("encoder_fused.cu",)
+MEL_SOURCES = ("mel.cu",)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -313,6 +329,151 @@ def new_encoder_entries(cs, card: str) -> None:
                 f"route's: {same} ({card})", flush=True)
         del x, entries
         torch.cuda.empty_cache()
+
+
+def _mel_test_clips(n: int = 480000):
+    """A 30 s clip of faint noise with a loud chirp from 12 s, and a loud
+    7 kHz tone over faint noise (``tests/test_torch_mel_fft.py``'s)."""
+    import torch
+
+    t = np.arange(n) / 16000
+    onset = 1e-3 * np.random.default_rng(5).standard_normal(n)
+    on = t >= 12.0
+    onset[on] += 0.8 * np.sin(2 * np.pi * (200 + 150 * (t[on] - 12.0)) * t[on])
+    tone = (0.9 * np.sin(2 * np.pi * 7000 * t)
+            + 3e-4 * np.random.default_rng(7).standard_normal(n))
+    return {name: torch.from_numpy(a.astype(np.float32)).cuda()
+            for name, a in (("loud onset", onset), ("7 kHz tone", tone))}
+
+
+# clock64 marks after each phase of mel.cu's FFT kernel, thread 0's sums
+MEL_PHASES = ("staging wait", "stage 1", "stage 2 and the split", "projection",
+              "tile max")
+MEL_MARKS = [
+    ("mel.cu", "namespace {\n", "__device__ unsigned long long g_mel_phase[8];\nnamespace {\n"),
+    ("mel.cu", "    const int nf = min(kFrames, kNFrames - f0);\n",
+     "    const int nf = min(kFrames, kNFrames - f0);\n    const long long c0 = clock64();\n"),
+    ("mel.cu", "    __syncthreads();   // ... from every thread; the tables are in\n",
+     "    __syncthreads();   // ... from every thread; the tables are in\n"
+     "    const long long c1 = clock64();\n"),
+    ("mel.cu", "    // stage 2, float64, a thread per",
+     "    const long long c2 = clock64();\n    // stage 2, float64, a thread per"),
+    ("mel.cu", "    // mel m of frame j over its bins",
+     "    const long long c3 = clock64();\n    // mel m of frame j over its bins"),
+    ("mel.cu", "#pragma unroll\n    for (int off = 16; off > 0; off >>= 1) vmax",
+     "    __syncthreads();\n    const long long c4 = clock64();\n"
+     "#pragma unroll\n    for (int off = 16; off > 0; off >>= 1) vmax"),
+    ("mel.cu", "      tile_max[tile] = m;\n",
+     "      tile_max[tile] = m;\n      const long long c[6] = {c0, c1, c2, c3, c4, clock64()};\n"
+     "      for (int i = 0; i < 5; ++i) atomicAdd(&g_mel_phase[i], (unsigned long long)(c[i + 1] - c[i]));\n"
+     "      atomicAdd(&g_mel_phase[7], 1ull);\n"),
+]
+MEL_READ = """
+extern "C" int ttasr_mel_phases(unsigned long long* host, int reset) {
+  unsigned long long zero[8] = {0};
+  if (reset) return (int)cudaMemcpyToSymbol(g_mel_phase, zero, sizeof(zero));
+  return (int)cudaMemcpyFromSymbol(host, g_mel_phase, sizeof(zero));
+}
+"""
+
+
+def mel_phases(cs, inputs: dict, out_dir: str, card: str) -> None:
+    """This checkout's FFT kernel, instrumented (MEL_MARKS): clock64 cycles
+    per tile in each phase, over 10 calls on each input."""
+    import torch
+
+    from ttasr_torch.ops import mel_fused
+
+    from ttasr_torch.ops import _build
+
+    ptxas = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                            os.path.join(out_dir, "mel_v.o"), os.path.join(CSRC, "mel.cu")],
+                           capture_output=True, text=True, check=True)
+    report, kernel = [], "?"
+    for line in (ptxas.stdout + ptxas.stderr).splitlines():
+        if "Compiling entry function" in line:
+            kernel = re.search(r"(log_mel\w*_kernel)", line).group(1)
+        elif "registers" in line or "spill" in line:
+            report.append(f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
+    print("mel.cu, ptxas: " + "; ".join(report), flush=True)
+    src = edited(out_dir, "csrc_mel_phases", MEL_MARKS)
+    with open(os.path.join(src, "mel.cu"), "a") as f:
+        f.write(MEL_READ)
+    dll = build(src, out_dir, "melphases", MEL_SOURCES)
+    dll.ttasr_mel_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    dll.ttasr_mel_phases.restype = ctypes.c_int
+    n_mels = cs.N_MELS
+    for name, x in inputs.items():
+        x2 = x.reshape(-1, x.shape[-1])
+        b, n = x2.shape
+        consts = mel_fused._kernel_constants(n_mels, x.device)
+        out = torch.empty((b, n_mels, 3000), device=x.device)
+        tile_max = torch.empty((b, mel_fused.TILES), device=x.device)
+        dll.ttasr_mel_phases(None, 1)
+        for _ in range(10):
+            call(dll, "ttasr_log_mel", x2, *consts, out, tile_max, b, n, n_mels,
+                 consts[-1].numel())
+        torch.cuda.synchronize()
+        sums = (ctypes.c_ulonglong * 8)()
+        dll.ttasr_mel_phases(sums, 0)
+        tiles = max(sums[7], 1)
+        print(f"mel.cu {name}, clock64 cycles per tile (thread 0, after each phase's "
+              f"barrier): " + ", ".join(f"{what} {sums[i] / tiles:.0f}"
+                                        for i, what in enumerate(MEL_PHASES))
+              + f" ({card})", flush=True)
+
+
+def mel_routes(cs, other, out_dir: str, card: str) -> None:
+    """B18 through the other build (``other``) and this checkout in turns
+    (see the module docstring)."""
+    import torch
+
+    from ttasr_torch.ops import mel_fused
+    from ttasr_torch.ops.mel import _dft_basis, mel_filter_bank
+
+    if hasattr(other, "ttasr_log_mel_tail"):
+        raise RuntimeError("--mel compares against a mel.cu of the dense design")
+    other.ttasr_log_mel.argtypes = [_P] * 4 + [_I] * 3 + [_P]  # x, basis, fb, out
+    n_mels = cs.N_MELS
+    cos, sin = _dft_basis()
+    basis = np.zeros((400, 224, 2), np.float32)
+    basis[:, :201, 0], basis[:, :201, 1] = cos, sin
+    dense = [torch.from_numpy(a).cuda() for a in (basis, np.ascontiguousarray(
+        mel_filter_bank(n_mels)))]
+
+    def parent(x):
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.empty((x2.shape[0], n_mels, 3000), device=x.device)
+        call(other, "ttasr_log_mel", x2, *dense, out, x2.shape[0], x2.shape[1], n_mels)
+        peak = out.amax(dim=(1, 2), keepdim=True)
+        out = (torch.maximum(out, peak - 8.0) + 4.0) / 4.0
+        return out.reshape(x.shape[:-1] + (n_mels, 3000))
+
+    fns = {"other": parent, "this": lambda x: mel_fused.log_mel_spectrogram_fused(x, n_mels)}
+    clips = {name: torch.from_numpy(cs.synth_speech(np.random.default_rng(seed),
+                                                    seconds)[0]).cuda()
+             for name, seconds, seed in cs.AUDIO}
+    inputs = {"B=1 (45 s)": clips["speech45"], f"B={cs.MEL_WINDOWS}": cs._mel_batch(clips)}
+    for name, x in {**inputs, **_mel_test_clips()}.items():
+        want = mel_fused.log_mel_spectrogram_fused_ref(x, n_mels)
+        errs = "; ".join(f"{tag} {(fn(x) - want).abs().max().item():.3e}"
+                         for tag, fn in fns.items())
+        print(f"log-mel {name}: max |out - float64 plain version|: {errs} (bound 2e-4) "
+              f"({card})", flush=True)
+    for name, x in inputs.items():
+        times = {tag: [] for tag in fns}
+        for tag in ("other", "this", "this", "other"):
+            f = (lambda fn=fns[tag]: fn(x))
+            times[tag].append((cs.time_ms(f), device_ms(f)))
+        mean = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
+        print(f"log-mel {name}: " + "; ".join(
+            f"{k} time_ms {m[0]:.4f}, device {m[1]:.4f}" for k, m in mean.items())
+            + f" ms ({card})", flush=True)
+    x = inputs[f"B={cs.MEL_WINDOWS}"]
+    for tag, fn in fns.items():
+        print(f"log-mel B={cs.MEL_WINDOWS}, {tag}: one call's CUDA kernels "
+              f"{cs._kernel_names(lambda: fn(x))} ({card})", flush=True)
+    mel_phases(cs, inputs, out_dir, card)
 
 
 def device_ms(fn, n: int = 30) -> float:
@@ -641,6 +802,7 @@ def main() -> int:
     parser.add_argument("--phases", action="store_true", help="print the phase timelines too")
     parser.add_argument("--encoder", action="store_true",
                         help="compare the encoder's row kernels instead")
+    parser.add_argument("--mel", action="store_true", help="compare B18 (mel.cu) instead")
     opts = parser.parse_args()
     import torch
 
@@ -655,6 +817,10 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        if opts.mel:
+            mel_routes(cs, build(os.path.abspath(opts.other), tmp, "other", MEL_SOURCES), tmp,
+                       card)
+            return 0
         if opts.encoder:
             builds = {tag: build(src, tmp, tag, ENCODER_SOURCES) for tag, src in (
                 ("other", os.path.abspath(opts.other)), ("this", CSRC))}

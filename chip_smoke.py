@@ -83,12 +83,15 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    package), through their entry points as the JAX golden test drives the
    Pallas kernels: B18 at 128 mels on the 20 s and 45 s clips (padded and
    cut) at B = 1 and on 48 windows, within 2e-4 of its plain version (the
-   port's matmul frontend in float64); B19 at (1, 1500, 20, 64) in
-   bf16 and float32 within ``BF16_REL`` x max|plain|, its float32 output
-   bf16-rounded; exact launch counts; timed as in phase 4, B18 beside the
-   port's float32 matmul frontend (whose distance from the plain version is
-   printed), B19 beside ``scaled_dot_product_attention`` (TFLOP/s and
-   the share of the bound printed);
+   port's matmul frontend in float64), two launches a call (the FFT
+   kernel, then the clamp and rescale), and one call's CUDA kernels under
+   torch.profiler both of ``mel.cu`` (no torch op on its output); B19 at
+   (1, 1500, 20, 64) in bf16 and float32 within ``BF16_REL`` x
+   max|plain|, its float32 output bf16-rounded; exact launch counts; timed
+   as in phase 4, B18 at each size beside the port's float32 matmul
+   frontend (whose distance from the plain version is printed) with its
+   share of the bound, B19 beside ``scaled_dot_product_attention``
+   (TFLOP/s and the share of the bound printed);
 9. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
    compute_type="bfloat16")`` with random weights from a seeded generator,
    on two synthesized speech-like WAVs (20 s and 45 s, so the seek loop
@@ -626,6 +629,21 @@ def _kernels_per_call(fn, calls: int = 10) -> float:
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+
+
+def _kernel_names(fn) -> dict:
+    """{CUDA kernel name: launches} of one call of ``fn``, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def _b4_is_b15_then_b14(case, args, got) -> None:
@@ -1566,7 +1584,8 @@ def check_standalone_kernels(card: str) -> tuple:
     attn_out = {key: encoder_self_attention(*x) for key, x in attn_in.items()}
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
-    _expect("phase 8", launches, {"log_mel_spectrogram_fused": len(mel_in),
+    # B18: the FFT kernel, then the one that clamps and rescales
+    _expect("phase 8", launches, {"log_mel_spectrogram_fused": 2 * len(mel_in),
                                   "encoder_self_attention": len(attn_in)})
     print(f"phase 8 launches: {json.dumps(launches)}")
 
@@ -1598,29 +1617,31 @@ def check_standalone_kernels(card: str) -> tuple:
               f"B19 {key}: output not rounded to bf16")
         worst_attn = max(worst_attn, err)
 
-    times = {}
-    for key, x in mel_in.items():
-        times[key] = in_turns(lambda: log_mel_spectrogram_fused(x, N_MELS),
-                              lambda: log_mel_spectrogram_fused_ref(x, N_MELS))
-        print(f"log_mel_spectrogram_fused {key}: kernel {times[key][0]:.4f} ms, plain "
-              f"{times[key][1]:.4f} ms ({card})")
-    key = f"B={MEL_WINDOWS}"  # the numbers of the kernels line
-    x = mel_in[key]
+    names = _kernel_names(lambda: log_mel_spectrogram_fused(mel_in[f"B={MEL_WINDOWS}"],
+                                                            N_MELS))
+    print(f"log_mel_spectrogram_fused B={MEL_WINDOWS}: one call's CUDA kernels "
+          f"{json.dumps(names)}")
+    check(len(names) == 2 and set(names.values()) == {1}
+          and all("log_mel" in nm for nm in names),
+          f"B18 ran other kernels than mel.cu's two: {names}")
+
     n_fb = int(np.count_nonzero(mel_filter_bank(N_MELS)))
-    flop = x.shape[0] * 3000 * _log_mel_frame_flop(n_fb)
-    measured = {"log_mel_spectrogram_fused": dict(
-        max_abs_err=worst_mel, ms=times[key][0], plain_ms=times[key][1],
-        library_ms=time_ms(lambda: log_mel_spectrogram(x, N_MELS)),
-        **bound([x[:, :480000], mel_out[key]], flop, "f32"))}
-    m = measured["log_mel_spectrogram_fused"]
-    dense = x.shape[0] * 3000 * (N_FFT * N_FREQS * 2 * 2 + N_FREQS * N_MELS * 2)
-    print(f"log_mel_spectrogram_fused {key}: library (ops/mel.py, f32 cuBLAS "
-          f"matmuls and unfold) {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-          f"({m['bound_by']}; {flop / 1e9:.2f} GFLOP by a real FFT and the "
-          f"{n_fb} nonzeros of the mel bank, {flop / PEAK_OPS_PER_S['f32'] * 1e3:.4f} ms "
-          f"at the f32 peak; the kernel's dense DFT and bank do "
-          f"{dense / 1e9:.1f} GFLOP, {dense / PEAK_OPS_PER_S['f32'] * 1e3:.4f} ms) "
-          f"({card})")
+    measured = {}
+    for key, x in mel_in.items():
+        kernel_ms, plain_ms = in_turns(lambda: log_mel_spectrogram_fused(x, N_MELS),
+                                       lambda: log_mel_spectrogram_fused_ref(x, N_MELS))
+        flop = x.reshape(-1, x.shape[-1]).shape[0] * 3000 * _log_mel_frame_flop(n_fb)
+        m = dict(max_abs_err=worst_mel, ms=kernel_ms, plain_ms=plain_ms,
+                 library_ms=time_ms(lambda: log_mel_spectrogram(x, N_MELS)),
+                 **bound([x[..., :480000], mel_out[key]], flop, "f32"))
+        print(f"log_mel_spectrogram_fused {key}: kernel {kernel_ms:.4f} ms, plain (float64) "
+              f"{plain_ms:.4f} ms, library (ops/mel.py, f32 cuBLAS matmuls and unfold) "
+              f"{m['library_ms']:.4f} ms; bound {m['bound_ms']:.4f} ms ({m['bound_by']}; "
+              f"{flop / 1e9:.3f} GFLOP by a real FFT and the {n_fb} nonzeros of the mel "
+              f"bank, {flop / PEAK_OPS_PER_S['f32'] * 1e3:.4f} ms at the f32 peak), "
+              f"{m['bound_ms'] / kernel_ms:.1%} of it ({card})")
+        if key == f"B={MEL_WINDOWS}":  # the numbers of the kernels line
+            measured["log_mel_spectrogram_fused"] = m
 
     b, t, h, dh = ATTN_SHAPE
     for key, x in attn_in.items():

@@ -24,7 +24,9 @@ the parent route (the qkv and wo torch epilogues, the bf16
 LayerNorms, at 1 layer and 3, and with separate q/k/v leaves, where only
 wo's epilogue moves; and on float32 weights, where the two epilogues
 round to float32 as the parent's did (the JAX encoder's ``out_dtype=
-x.dtype``), not to bf16.
+x.dtype``), not to bf16.  W1's and W2's outputs, by contrast, are bf16 on an
+f32 layer in both packages (``_mlp_act8`` with ``x_quant``): an f32 layer's
+MLP through JAX and through the port, h and y held to each other.
 """
 
 import dataclasses
@@ -253,3 +255,64 @@ def test_epilogue_wrappers_raise_off_cpu_and_cuda(name):
              "qkv_epilogue_acc": lambda: t_fused.qkv_epilogue_acc(acc, xs, v, v, 0.125)}
     with pytest.raises(ValueError, match="meta"):
         calls[name]()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_f32_layer_mlp_rounds_h_and_y_to_bf16_as_jax_does(seed):
+    """An f32 fused-quant encoder layer's MLP: JAX's ``_mlp_act8`` with
+    ``x_quant`` given takes ``out_dtype=bfloat16`` for W1 and ``h.dtype``
+    for W2 (``ttasr/models/whisper/model.py:313-323``), so h and y are bf16
+    on float32 weights too; the port's ``_mlp_act8_acc`` (``gelu_quant_acc``
+    on W1's accumulators) and W2's epilogue tail (``encode``'s last layer,
+    ``ln_quant_acc``'s add in the next) round them alike.  On the same
+    seeded codes and f32 weights and biases: h bit for bit, the hidden codes
+    within the envelope (|delta| <= 1 on under 0.1 %, scales rtol 1e-6),
+    y bit for bit on rows whose codes agree and within 1e-2 x max |y|
+    elsewhere (a code one step off moves its row), and the next layer's
+    residual x + y in f32 alike."""
+    from ttasr.models.whisper.model import _mlp_act8 as j_mlp_act8
+
+    d, f = 256, 1024
+    rng = np.random.default_rng(seed)
+    q2 = rng.integers(-127, 128, (2, ROWS, d), dtype=np.int8)
+    s2 = (rng.uniform(1e-3, 2e-2, (2, ROWS, 1))
+          * rng.uniform(0.05, 4.0, (2, ROWS, 1))).astype(np.float32)
+    w1, w2 = (j_quant.quantize_tensor(jnp.asarray(rng.standard_normal(shape) * 0.05,
+                                                  jnp.float32))
+              for shape in ((d, f), (f, d)))
+    b1, b2 = (jnp.asarray(rng.standard_normal(n) * 0.1, jnp.float32) for n in (f, d))
+    x = jnp.asarray(rng.standard_normal((2, ROWS, d)), jnp.float32)
+    jq = (jnp.asarray(q2), jnp.asarray(s2))
+    jy = j_mlp_act8(x, {"w1": w1, "b1": b1, "w2": w2, "b2": b2}, x_quant=jq,
+                    fused_quant=True, interpret=True)
+    jh = j_quant.quant_matmul_act8(*jq, w1, b1, out_dtype=jnp.bfloat16)  # _mlp_act8's h
+    jhq, jhs = j_fused.gelu_quant(jh, interpret=True)
+
+    def leaf(w):
+        return {"q": torch.tensor(np.asarray(w["q"])), "s": torch.tensor(np.asarray(w["s"]))}
+
+    blk = {"w1": leaf(w1), "w2": leaf(w2), "b1": torch.tensor(np.asarray(b1)),
+           "b2": torch.tensor(np.asarray(b2))}
+    tq = (torch.from_numpy(q2), torch.from_numpy(s2))
+    acc1 = t_quant.int8_accumulators(tq[0], blk["w1"])
+    h = t_quant.act8_epilogue(acc1, tq[1], blk["w1"]["s"], blk["b1"], torch.bfloat16)
+    hq, hs = t_fused.gelu_quant_acc(acc1, tq[1], blk["w1"]["s"], blk["b1"])
+    w2_ops = tm._mlp_act8_acc(blk, tq)
+    y = t_quant.act8_epilogue(*w2_ops, out_dtype=torch.bfloat16)
+    assert jh.dtype == jy.dtype == jnp.bfloat16 and y.dtype == torch.bfloat16
+    np.testing.assert_array_equal(h.float().numpy(), np.asarray(jh.astype(jnp.float32)))
+    _assert_envelope(hq, hs, jhq, jhs)
+    torch.testing.assert_close(w2_ops[1], hs, rtol=0, atol=0)
+    jyf, yf = np.asarray(jy.astype(jnp.float32)), y.float().numpy()
+    same = (hq.numpy() == np.asarray(jhq)).all(-1)
+    np.testing.assert_array_equal(yf[same], jyf[same])
+    assert np.abs(yf - jyf).max() <= 1e-2 * np.abs(jyf).max()
+    # not the float32 rounding of the layer's own type
+    assert not np.array_equal(t_quant.act8_epilogue(*w2_ops, out_dtype=torch.float32).numpy(),
+                              jyf)
+    tx = torch.from_numpy(np.asarray(x))
+    ln_s, ln_b = torch.ones(d), torch.zeros(d)
+    x2 = t_fused.ln_quant_acc_ref(tx, *w2_ops, ln_s, ln_b)[0]
+    assert x2.dtype == torch.float32
+    np.testing.assert_array_equal(x2[torch.from_numpy(same)].numpy(),
+                                  np.asarray(x + jy)[same])

@@ -51,15 +51,28 @@ def test_matches_pallas_interpret(case):
 
 
 def test_kernel_constants_are_the_ports_copies():
-    from ttasr_torch.ops.mel import _dft_basis, mel_filter_bank
+    """The kernel's tables on the device are the host's: the window that
+    ``ops/mel.py``'s DFT basis folds in (its cos(0) column), the float64
+    twiddles W_200^e (e < 200) and W_400^k (k <= 100) of the FFT's length
+    and the frame's, and the CSR form of the port's filterbank (each mel a
+    run of bins from its first)."""
+    from ttasr_torch.ops.mel import N_FFT, _dft_basis, mel_filter_bank
 
-    basis, fb = t_mel._kernel_constants(128, torch.device("cpu"))
-    cos, sin = _dft_basis()
-    assert basis.shape == (400, t_mel.FREQ_PAD, 2) and basis.is_contiguous()
-    np.testing.assert_array_equal(basis[:, :201, 0].numpy(), cos)
-    np.testing.assert_array_equal(basis[:, :201, 1].numpy(), sin)
-    assert not basis[:, 201:].any()
-    np.testing.assert_array_equal(fb.numpy(), mel_filter_bank(128))
+    tw, window, indptr, first, weights = t_mel._kernel_constants(128, torch.device("cpu"))
+    assert all(t.is_contiguous() for t in (tw, window, indptr, first, weights))
+    assert tw.dtype == torch.float64 and window.dtype == weights.dtype == torch.float32
+    assert indptr.dtype == first.dtype == torch.int32
+    np.testing.assert_array_equal(window.numpy(), _dft_basis()[0][:, 0])
+    assert t_mel.N_FFT_HALF == N_FFT // 2 and tw.shape == (N_FFT // 2 + N_FFT // 4 + 1, 2)
+    ang = np.concatenate([2 * np.pi * np.arange(N_FFT // 2) / (N_FFT // 2),
+                          2 * np.pi * np.arange(N_FFT // 4 + 1) / N_FFT])
+    np.testing.assert_array_equal(tw.numpy(), np.stack([np.cos(ang), -np.sin(ang)], 1))
+    dense = np.zeros((201, 128), np.float32)
+    for m in range(128):
+        lo, hi = indptr[m].item(), indptr[m + 1].item()
+        dense[first[m]:first[m] + hi - lo, m] = weights[lo:hi].numpy()
+    np.testing.assert_array_equal(dense, mel_filter_bank(128))
+    assert weights.numel() == np.count_nonzero(mel_filter_bank(128)) == 394
 
 
 def test_wrapper_refuses_what_it_cannot_run(monkeypatch):

@@ -45,8 +45,11 @@ ARGTYPES = {
     # q, k, v, scratch (float32 inputs rounded to bf16), out; B, T, D,
     # dtype; stream
     "ttasr_encoder_self_attention": [_P] * 5 + [_I] * 4 + [_P],
-    # x, basis, fb, out; B, n, n_mels; stream
-    "ttasr_log_mel": [_P] * 4 + [_I] * 3 + [_P],
+    # x, twiddles, window, indptr, first, weights, out, tile_max; B, n,
+    # n_mels, nnz; stream
+    "ttasr_log_mel": [_P] * 8 + [_I] * 4 + [_P],
+    # out, tile_max; B, n_mels; stream
+    "ttasr_log_mel_tail": [_P] * 2 + [_I] * 2 + [_P],
     # x, ln_s, ln_b, codes, scales; rows, D, vec_bf16 (bits 0, 1, 2: b,
     # ln_s, ln_b are bf16, else f32); stream
     "ttasr_ln_quant": [_P] * 5 + [_I] * 3 + [_P],

@@ -1,4 +1,4 @@
-"""Whisper log-mel in one kernel (B18): the Hopper kernel and its plain
+"""Whisper log-mel in one kernel (B18): the Hopper kernels and their plain
 version.
 
 Port of ``ttasr/ops/mel_pallas.py::log_mel_spectrogram_pallas``:
@@ -9,15 +9,21 @@ spectrum projected on the Slaney mel bank; ``log10(max(mel, 1e-10))``,
 then the per-window max - 8 clamp and ``(x + 4) / 4``.  Returns
 ``(n_mels, 3000)`` or ``(B, n_mels, 3000)`` float32.
 
-:func:`log_mel_spectrogram_fused` launches ``ttasr_torch/csrc/mel.cu``
-for CUDA tensors (framing, DFT, power, mel projection and log10 in the
-kernel's own float32 FMA; the clamp and rescale after it, as the TPU
-version does them after its ``pallas_call``) and runs
-:func:`log_mel_spectrogram_fused_ref` for CPU tensors; it counts its
-launches in ``log_mel_spectrogram_fused.launches``.  The kernel's DFT basis
-and filterbank are the port's copies in :mod:`ttasr_torch.ops.mel`.  The
-engine's frontend stays :func:`ttasr_torch.ops.mel.log_mel_spectrogram`,
-as the JAX engine's stays ``ttasr/ops/mel.py``.
+:func:`log_mel_spectrogram_fused` launches the two kernels of
+``ttasr_torch/csrc/mel.cu`` for CUDA tensors and runs
+:func:`log_mel_spectrogram_fused_ref` for CPU tensors.  The first kernel
+computes each frame's 400-point real transform as a 200-point complex FFT
+of the packed pairs ``x[2n] + i x[2n+1]`` (radix 8, then 5 x 5, and the
+split step, in float64), the power, the mel projection over the
+bank's nonzeros (CSR) and log10, and writes one max per tile of frames; the second reduces each
+window's max from those and applies the clamp and rescale in place.  No
+torch op runs on the output.  The wrapper counts both launches in
+``log_mel_spectrogram_fused.launches``.  Its constants are built here on
+the host: the float64 twiddles, the window (rounded once to float32: the
+one the port's DFT basis in :mod:`ttasr_torch.ops.mel` folds in) and the
+CSR form of :func:`ttasr_torch.ops.mel.mel_filter_bank`.  The engine's
+frontend stays :func:`ttasr_torch.ops.mel.log_mel_spectrogram`, as the JAX
+engine's stays ``ttasr/ops/mel.py``.
 """
 
 from __future__ import annotations
@@ -29,38 +35,72 @@ import torch
 
 from ttasr_torch import resolve_device
 from ttasr_torch.ops.mel import (
+    N_FFT,
     N_FRAMES,
-    N_FREQS,
-    _dft_basis,
     log_mel_spectrogram,
     mel_filter_bank,
 )
 
-FREQ_PAD = 224  # the kernel's frequency columns: 201 bins, 7 per lane
+N_FFT_HALF = N_FFT // 2  # 200: the complex FFT's length
+TILE_FRAMES = 16  # frames per tile of the first kernel (mel.cu kFrames)
+TILES = -(-N_FRAMES // TILE_FRAMES)  # tiles per window, each with its max
 MAX_MELS = 128
+MAX_NNZ = 2 * (N_FFT_HALF + 1)  # each bin lies in at most two triangles
 
 
 def log_mel_spectrogram_fused_ref(audio, n_mels: int = 80):
     """Plain version: the port's matmul frontend on float input (the path
     the JAX golden test holds the Pallas kernel against), computed in
     float64 and rounded to float32 at the end.  Float64, because the
-    low-power bins near the max - 8 floor cancel in the DFT: on an H100
-    the frontend's float32 cuBLAS products land up to 2.7e-4 from the
-    float64 values there, the kernel's FMA chains within 7.3e-5, so only a
-    plain version nearer the exact values can hold the kernel to 2e-4."""
+    low-power bins near the max - 8 floor cancel in the transform: on an
+    H100 the frontend's float32 cuBLAS products land up to 2.7e-4 from the
+    float64 values there, more than the 2e-4 contract."""
     return log_mel_spectrogram(audio.to(torch.float32), n_mels, dtype=torch.float64)
+
+
+@lru_cache(maxsize=1)
+def fft_tables() -> tuple:
+    """(twiddles (301, 2) float64, window (400,) float32).  Rows 0-199 of
+    the twiddles are W_200^e = exp(-2 pi i e / 200) as (cos, -sin), which
+    also give the radix-8 and radix-5 butterflies' constants (e = 25, 40,
+    80); rows 200-300 are W_400^k, k = 0..100, for the split step (past
+    100 the kernel takes W_400^k = -conj(W_400^(200 - k))).  Float64, as the
+    kernel's transform is.  The window is the periodic Hann window, rounded
+    once to float32."""
+    ang = np.concatenate([2.0 * np.pi * np.arange(N_FFT_HALF) / N_FFT_HALF,
+                          2.0 * np.pi * np.arange(N_FFT_HALF // 2 + 1) / N_FFT])
+    twiddles = np.stack([np.cos(ang), -np.sin(ang)], axis=1)
+    window = np.hanning(N_FFT + 1)[:-1].astype(np.float32)
+    return twiddles, window
+
+
+@lru_cache(maxsize=4)
+def mel_csr(n_mels: int) -> tuple:
+    """The mel bank as CSR over mels whose nonzeros are runs of bins:
+    (indptr (n_mels + 1,), first bin (n_mels,) int32, weights (nnz,)
+    float32), mel m's weights those of bins first[m], first[m] + 1, ...
+    (the float32 values of :func:`mel_filter_bank`).  A triangle's
+    nonzeros are one run; raises if a bank's are not."""
+    fb = mel_filter_bank(n_mels)  # (201, n_mels)
+    mels, bins = np.nonzero(fb.T)  # row-major: by mel, then bin
+    indptr = np.searchsorted(mels, np.arange(n_mels + 1))
+    first = np.zeros(n_mels, np.int64)
+    for m in range(n_mels):
+        run = bins[indptr[m]:indptr[m + 1]]
+        if run.size:
+            if (np.diff(run) != 1).any():
+                raise ValueError(f"mel {m}'s nonzeros are not one run of bins")
+            first[m] = run[0]
+    return (indptr.astype(np.int32), first.astype(np.int32),
+            fb[bins, mels].astype(np.float32))
 
 
 @lru_cache(maxsize=8)
 def _kernel_constants(n_mels: int, device) -> tuple:
-    """(400, 224, 2) interleaved (cos, sin) with the window folded in, zero
-    past bin 200, and the (201, n_mels) filterbank, on ``device``."""
-    cos, sin = _dft_basis()
-    basis = np.zeros((cos.shape[0], FREQ_PAD, 2), np.float32)
-    basis[:, :N_FREQS, 0] = cos
-    basis[:, :N_FREQS, 1] = sin
-    fb = np.ascontiguousarray(mel_filter_bank(n_mels))
-    return tuple(torch.from_numpy(a).to(device) for a in (basis, fb))
+    """The twiddles, window and CSR bank on ``device``, copied once (a copy
+    from host memory inside a CUDA graph capture would fail)."""
+    arrays = (*fft_tables(), *mel_csr(n_mels))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
 
 def log_mel_spectrogram_fused(audio, n_mels: int = 80):
@@ -85,12 +125,14 @@ def log_mel_spectrogram_fused(audio, n_mels: int = 80):
         raise ValueError("audio too large for the kernel's int indexing")
     from ttasr_torch.ops._build import launch
 
-    basis, fb = _kernel_constants(n_mels, x.device)
-    log_spec = torch.empty((b, n_mels, N_FRAMES), dtype=torch.float32, device=x.device)
-    launch("ttasr_log_mel", x.device, x, basis, fb, log_spec, b, n, n_mels)
+    twiddles, window, indptr, first, weights = _kernel_constants(n_mels, x.device)
+    out = torch.empty((b, n_mels, N_FRAMES), dtype=torch.float32, device=x.device)
+    tile_max = torch.empty((b, TILES), dtype=torch.float32, device=x.device)
+    launch("ttasr_log_mel", x.device, x, twiddles, window, indptr, first, weights,
+           out, tile_max, b, n, n_mels, weights.numel())
     log_mel_spectrogram_fused.launches += 1
-    peak = log_spec.amax(dim=(1, 2), keepdim=True)
-    out = (torch.maximum(log_spec, peak - 8.0) + 4.0) / 4.0
+    launch("ttasr_log_mel_tail", x.device, out, tile_max, b, n_mels)
+    log_mel_spectrogram_fused.launches += 1
     return out[0] if squeeze else out
 
 
