@@ -3,6 +3,7 @@
 another copy of ``ttasr_torch/csrc`` on one NVIDIA GPU.
 
     python3 chip_compare.py --other DIR [--phases | --encoder | --mel]
+    python3 chip_compare.py --server
 
 DIR holds the other sources, for instance the parent commit's
 ``ttasr_torch/csrc`` written out with ``git show`` or ``git archive``.  Both
@@ -61,12 +62,24 @@ scratch, counters and schedule: a DIR whose ``decoder_mlp.cu`` has no
 ``mlp_persistent_kernel`` is called with that argument list.  The instrumentation is text inserted at
 fixed places of the sources and fails loudly when they change.
 
+``--server`` (no DIR) times the serving layer's dispatch instead: the task
+API's call of phase 14 (``chip_smoke._uploads``) over four uploads at once
+through ``shared_server(engine, slots=4)`` and
+``transcribe_batched_with_server`` on the int8 engine with its defaults,
+four times in turns: as the checkout runs it (the next group dispatched
+while one decodes, its device work waiting for that group's), with the
+engine's device lock taken off (two groups' decode loops at once), with
+``TTASR_PIPELINE_GROUPS=1``, and as the checkout runs it again; each with
+its wall, ms per decode step, sweeps and dispatches started while another
+group was in flight.
+
 Imports nothing of jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import os
 import re
@@ -796,14 +809,55 @@ def phases(cs, dll, card: str) -> None:
                   flush=True)
 
 
+# the four uploads of the task API's call that --server times
+SERVER_UPLOADS = (("upload0", 12.0, 10), ("upload1", 16.0, 11), ("upload2", 10.0, 12),
+                  ("upload3", 14.0, 13))
+SERVER_RUNS = ("device lock (this checkout)", "no device lock", "TTASR_PIPELINE_GROUPS=1",
+               "device lock (this checkout)")
+
+
+def server_dispatch(cs, card: str) -> None:
+    """The task API's call three ways on the int8 engine (``--server``)."""
+    from ttasr_torch.engine.transcriber import WhisperEngine
+
+    engine = WhisperEngine("large-v3", compute_type="int8", device="cuda")
+    lock = engine._device_lock
+    with tempfile.TemporaryDirectory() as tmp:
+        seconds, _ = cs._write_wavs(tmp, SERVER_UPLOADS)
+        paths = [os.path.join(tmp, f"{name}.wav") for name, _, _ in SERVER_UPLOADS]
+        for label in SERVER_RUNS:
+            if label == "no device lock":
+                engine._device_lock = contextlib.nullcontext()
+            if label.startswith("TTASR_PIPELINE_GROUPS"):
+                os.environ["TTASR_PIPELINE_GROUPS"] = "1"
+            try:
+                before = dict(engine.decode_stats)
+                results, groups, wall = cs._uploads(engine, paths)
+            finally:
+                engine._device_lock = lock
+                os.environ.pop("TTASR_PIPELINE_GROUPS", None)
+            failed = [r for r in results if isinstance(r, BaseException)]
+            cs.check(not failed, f"{label}: {failed}")
+            steps = sum(engine.decode_stats[k] - before[k]
+                        for k in ("beam_steps", "greedy_steps"))
+            print(f"task API call, {label}: wall {wall:.2f} s = {wall / seconds:.4f} s per "
+                  f"audio second, {steps} decode steps, {1e3 * wall / steps:.2f} ms per step, "
+                  f"{groups.sweeps} sweeps, {groups.overlapped} dispatches while another "
+                  f"group was in flight ({card})", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--other", required=True, help="another copy of ttasr_torch/csrc")
+    parser.add_argument("--other", help="another copy of ttasr_torch/csrc")
+    parser.add_argument("--server", action="store_true",
+                        help="time the serving layer's dispatch instead (no --other)")
     parser.add_argument("--phases", action="store_true", help="print the phase timelines too")
     parser.add_argument("--encoder", action="store_true",
                         help="compare the encoder's row kernels instead")
     parser.add_argument("--mel", action="store_true", help="compare B18 (mel.cu) instead")
     opts = parser.parse_args()
+    if not opts.server and not opts.other:
+        parser.error("--other is required unless --server is given")
     import torch
 
     if not torch.cuda.is_available():
@@ -816,6 +870,9 @@ def main() -> int:
     resolve_device("cuda")
     card = cs.card_line()
     print(card, flush=True)
+    if opts.server:
+        server_dispatch(cs, card)
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         if opts.mel:
             mel_routes(cs, build(os.path.abspath(opts.other), tmp, "other", MEL_SOURCES), tmp,

@@ -150,7 +150,29 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    held to the controls' (``CONTROL_MARGIN``); exact launch counts in
    every leg;
 13. drives the int8 engine with ``encoder_act_int8=False`` (the bf16
-   encoder on int8 weights, B11) on one file, with its launch counts.
+   encoder on int8 weights, B11) on one file, with its launch counts;
+14. drives the server path on the main path's engine (it runs between 12
+   and 13): the task API's call, two synthesized WAVs (``UPLOADS``)
+   loaded with ``int16=True`` and submitted at once through
+   ``shared_server(engine, slots=4, linger_ms=5)`` and
+   ``transcribe_batched_with_server`` with the task worker's kwargs (no
+   exception, well-formed segments, exact launch counts; the sweeps, rows,
+   most rows in one sweep (> 1) and dispatches started while another group
+   was in flight (>= 1), counted by wrapping the server's
+   ``_decode_batch``; wall per audio second and peak memory beside the
+   sequential ``engine.transcribe`` of the same files); the call's first
+   beam group of 2+ rows and first sampled greedy group re-run directly
+   (``encode_windows``, then the decode with a generator seeded as the
+   server seeded it): tokens, lengths, ``sum_logprob`` and
+   ``no_speech_prob`` bit for bit; each window of that beam group decoded
+   alone, its step-logit gaps and first differing token printed (a report,
+   ROADMAP C3); the CLI's ``concurrency=4`` and ``batched=True`` modes
+   (``CLI_MODE_FILES``) with exact launch counts; a 3 s and a 12 s
+   ``short_window`` request, each bit for bit its direct decode at S = 256
+   and 768; B6 and B3 at T = S = 256 and 768 within the bounds of phases 4
+   and 5; B1, B3 and B4 at 20 rows of 4 audios, B2 at 4 audios x 5 beams
+   and B10 at 4 rows within ``DECODE_REL``, timed beside their plain
+   versions and bounds; and its own seconds.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
@@ -1726,11 +1748,13 @@ def synth_speech(rng, seconds=3.0):
 AUDIO = (("speech20", 20.0, 0), ("speech45", 45.0, 1))
 
 
-def _write_wavs(audio_dir: str, n_files: int):
+def _write_wavs(audio_dir: str, files):
+    """``files``: (name, seconds, seed) of synthesized speech, written as
+    16-bit WAVs; returns their audio seconds and the first audio."""
     from ttasr_torch.audio.io import write_wav
 
     total, first = 0.0, None
-    for name, seconds, seed in AUDIO[:n_files]:
+    for name, seconds, seed in files:
         audio, _ = synth_speech(np.random.default_rng(seed), seconds)
         write_wav(os.path.join(audio_dir, f"{name}.wav"), audio, SR)
         total += seconds
@@ -1738,42 +1762,47 @@ def _write_wavs(audio_dir: str, n_files: int):
     return total, first
 
 
-def _drive_cli(engine, label: str, card: str, counters, n_files: int = 2) -> dict:
-    """process_audio_folder over the first ``n_files`` WAVs with
-    ``engine``; counts are set to 0 just before and read just after.
-    Returns the counts, the decode stats, the first audio and timing."""
+def _drive_cli(engine, label: str, card: str, counters, n_files: int = 2,
+               files=None, **mode) -> dict:
+    """process_audio_folder over the first ``n_files`` WAVs of ``AUDIO`` (or
+    ``files``) with ``engine`` and the CLI's ``mode`` keywords
+    (``concurrency``, ``batched``); counts are set to 0 just before and read
+    just after.  Returns the counts, the decode stats of the run, the first
+    audio and timing."""
     import torch
 
     from ttasr_torch.cli.asr import process_audio_folder
 
+    files = AUDIO[:n_files] if files is None else files
     with tempfile.TemporaryDirectory() as tmp:
         audio_dir = os.path.join(tmp, "audio")
         os.makedirs(audio_dir)
-        audio_seconds, first = _write_wavs(audio_dir, n_files)
+        audio_seconds, first = _write_wavs(audio_dir, files)
+        before = dict(engine.decode_stats)
         for fn in counters:
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = process_audio_folder(audio_dir, model="large-v3", engine=engine,
-                                      results_json_dir=tmp)
+                                      results_json_dir=tmp, **mode)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {fn.__name__: fn.launches for fn in counters}
 
     check(result is not None, f"{label}: process_audio_folder returned None")
     entries = result["detailed_results"]
-    check(len(entries) == n_files,
-          f"{label}: expected {n_files} results, got {len(entries)}")
+    check(len(entries) == len(files),
+          f"{label}: expected {len(files)} results, got {len(entries)}")
     for entry in entries:
         check("error" not in entry, f"{label} {entry['audio_file']}: {entry.get('error')}")
-    stats = dict(engine.decode_stats)
+    stats = {k: engine.decode_stats[k] - before[k] for k in before}
     print(f"{label} decode stats: {json.dumps(stats)}")
     check(stats["beam_decodes"] > 0 and stats["beam_steps"] > 0,
           f"{label}: no beam decode step ran")
     check(stats["nonfinite_logits"] == 0, f"{label}: a decode produced non-finite logits")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{label}: {n_files} files, {audio_seconds:.1f} s of audio, wall {wall:.2f} s = "
+    print(f"{label}: {len(files)} files, {audio_seconds:.1f} s of audio, wall {wall:.2f} s = "
           f"{wall / audio_seconds:.4f} s per audio second, peak memory "
           f"{peak_gib:.2f} GiB ({card})")
     print(f"{label} launches: {json.dumps(counts)}")
@@ -1896,6 +1925,29 @@ def _int8_counters():
             blk.ln_q_cross_int8, mlp.mlp_int8_fused]
 
 
+def _expect_int8_launches(label, counts, st, act8: bool = True) -> None:
+    """The int8 engine's launches against its decode stats: B1, B3 and B4
+    32 times per decode step, B2 per beam step, B10 per greedy step, and
+    the encoder's kernels 32 times per pass (B11 for the bf16 encoder)."""
+    steps = st["beam_steps"] + st["greedy_steps"]
+    passes = st["encoder_passes"]
+    check(passes > 0 and steps > 0, f"{label}: no encoder pass or step")
+    want = {"qkv_int8_fused": N_LAYERS * steps,
+            "attnout_ln_q_cross_int8": N_LAYERS * steps,
+            "mlp_with_crossout_int8": N_LAYERS * steps,
+            "self_attn_step_indirect_int8": N_LAYERS * st["beam_steps"],
+            "self_attn_step_int8": N_LAYERS * st["greedy_steps"]}
+    if act8:
+        want.update(_act8_encoder_launches(passes),
+                    encoder_attention_merged_qkv=N_LAYERS * passes)
+    else:
+        want["encoder_attention_merged"] = N_LAYERS * passes
+    _expect(label, counts, want)
+    print(f"{label}: launch counts match the decode stats "
+          f"({st['beam_steps']} beam + {st['greedy_steps']} greedy steps, "
+          f"{st['encoder_passes']} encoder passes, x {N_LAYERS} layers)")
+
+
 def run_int8_path(card: str, act8: bool) -> dict:
     """The batch CLI on the int8 engine: with all its defaults (``act8``,
     the main path: the s8 x s8 encoder, both files; then the decode's
@@ -1916,34 +1968,20 @@ def run_int8_path(card: str, act8: bool) -> dict:
           f"random init in {time.perf_counter() - t0:.1f} s")
     run = _drive_cli(engine, label, card, _int8_counters(), n_files=2 if act8 else 1)
     c, st = run["counts"], run["stats"]
-    steps = st["beam_steps"] + st["greedy_steps"]
-    passes = st["encoder_passes"]
-    check(passes > 0 and steps > 0, f"{label}: no encoder pass or step")
-    want = {"qkv_int8_fused": N_LAYERS * steps,
-            "attnout_ln_q_cross_int8": N_LAYERS * steps,
-            "mlp_with_crossout_int8": N_LAYERS * steps,
-            "self_attn_step_indirect_int8": N_LAYERS * st["beam_steps"],
-            "self_attn_step_int8": N_LAYERS * st["greedy_steps"]}
-    if act8:
-        want.update(_act8_encoder_launches(passes),
-                    encoder_attention_merged_qkv=N_LAYERS * passes)
-    else:
-        want["encoder_attention_merged"] = N_LAYERS * passes
-    _expect(label, c, want)
-    print(f"{label}: launch counts match the decode stats "
-          f"({st['beam_steps']} beam + {st['greedy_steps']} greedy steps, "
-          f"{st['encoder_passes']} encoder passes, x {N_LAYERS} layers)")
+    _expect_int8_launches(label, c, st, act8)
     if act8:
         _encoder_agrees(engine, run["first"], label, plain=plain_encoder_kernels)
     ms = encoder_ms(engine, run["first"], label, card)
-    branches = tp = routes = None
+    branches = tp = routes = server = None
     if act8:
         routes = compare_encoder_routes(engine, run["first"], card)
         branches, main_leg = run_branch_paths(engine, run["first"], card)
         tp = run_tp_paths(engine, run["first"], main_leg, card)
+        server = run_server_path(engine, card)
     del engine
     torch.cuda.empty_cache()
-    return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp, routes=routes)
+    return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp, routes=routes,
+                server=server)
 
 
 # ---------------------------------------------------------------------------
@@ -2349,11 +2387,23 @@ CONTROLS = (("control: B4 through its plain version", _plain_b4),
             ("control: cross-KV projected in head halves", _cross_kv_in_halves))
 
 
-def _segments_well_formed(label, segments) -> None:
+def _segments_well_formed(label, segments, clipped_at=None) -> int:
+    """Text, tokens, finite log-probability, a no-speech probability in
+    [0, 1] and start <= end.  ``clipped_at``: the file's duration on the
+    batched path, which clips a segment's end to it and not its start (as
+    the JAX package does): a segment that starts after it must end at it.
+    Returns how many did."""
+    late = 0
     for seg in segments:
-        check(isinstance(seg.text, str) and seg.tokens and seg.start <= seg.end
-              and np.isfinite(seg.avg_logprob) and 0.0 <= seg.no_speech_prob <= 1.0,
-              f"{label}: malformed segment {seg}")
+        ok = (isinstance(seg.text, str) and seg.tokens and np.isfinite(seg.avg_logprob)
+              and 0.0 <= seg.no_speech_prob <= 1.0)
+        if clipped_at is not None and seg.start > clipped_at:
+            late += 1
+            ok = ok and seg.end == clipped_at
+        else:
+            ok = ok and seg.start <= seg.end
+        check(ok, f"{label}: malformed segment {seg}")
+    return late
 
 
 def run_tp_paths(engine, audio, main, card: str) -> dict:
@@ -2585,6 +2635,413 @@ def tp_rank_main(rank: int, tmp: str) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the server path (BatchServer, the task API's call, the CLI modes)
+# ---------------------------------------------------------------------------
+
+# the task API's uploads: synthesized speech, one window each.  Two, not
+# four: on random weights every window runs the whole fallback ladder
+# (1 + 5 x ceil(5 N / 4) sweeps of 224 steps for N uploads, ~4 s each), and
+# the phase keeps to 240 s
+UPLOADS = (("upload0", 12.0, 10), ("upload1", 16.0, 11))
+CLI_MODE_FILES = UPLOADS[:1]  # the CLI modes' folder
+# ttasr/api/file_tasks.py TRANSCRIBE_KWARGS, the task worker's decode kwargs
+TASK_KWARGS = dict(language="zh", word_timestamps=False, vad_filter=True, beam_size=5,
+                   condition_on_previous_text=True, initial_prompt="")
+TASK_SLOTS = 4  # the task API's BatchServer: shared_server(engine, slots=4, linger_ms=5)
+SHORT_REQUESTS = ((3.0, 14), (12.0, 15))  # seconds, seed: buckets S = 256 and 768
+
+
+class ServedGroups:
+    """Wraps a server's ``_decode_batch`` and, for the calls made inside it,
+    the engine's ``encode_windows`` / ``run_beam_decode`` /
+    ``run_greedy_decode``: counts sweeps, rows and the dispatches that
+    started while another group was in flight, and keeps each group's
+    inputs (packed PCM, prompts, temperatures, seed, options) and outputs
+    when ``keep(record, kept)`` says so.  ``close()`` takes the wrappers off
+    the engine."""
+
+    def __init__(self, server, engine, keep):
+        import threading
+
+        self.engine, self.keep = engine, keep
+        self.lock, self.local = threading.Lock(), threading.local()
+        self.sweeps = self.rows = self.max_rows = self.overlapped = self.inflight = 0
+        self.kept = []
+        real = server._decode_batch
+
+        def decode_batch(batch):
+            with self.lock:
+                self.sweeps += 1
+                self.rows += len(batch)
+                self.max_rows = max(self.max_rows, len(batch))
+                self.overlapped += int(self.inflight > 0)
+                self.inflight += 1
+            rec = self.local.rec = dict(rows=len(batch),
+                                        temps=[r.temperature for r in batch])
+            try:
+                return real(batch)
+            finally:
+                self.local.rec = None
+                with self.lock:
+                    self.inflight -= 1
+                    if "out" in rec and self.keep(rec, self.kept):
+                        self.kept.append(rec)
+
+        def encode(audio, *, window_samples=None):
+            rec = getattr(self.local, "rec", None)
+            if rec is not None:
+                rec.update(audio=np.array(audio), window=window_samples)
+            return type(engine).encode_windows(engine, audio, window_samples=window_samples)
+
+        def decoder(kind):
+            real_fn = getattr(type(engine), f"run_{kind}_decode")
+
+            def run(enc_out, prompt, pad, rng, *args, opts):
+                out = real_fn(engine, enc_out, prompt, pad, rng, *args, opts=opts)
+                rec = getattr(self.local, "rec", None)
+                if rec is not None:
+                    rec.update(kind=kind, prompt=np.array(prompt), pad=np.array(pad),
+                               seed=rng.initial_seed(), args=args, opts=opts,
+                               out={k: out[k].clone() for k in OUT_KEYS})
+                return out
+            return run
+
+        server._decode_batch = decode_batch
+        engine.encode_windows = encode
+        engine.run_beam_decode = decoder("beam")
+        engine.run_greedy_decode = decoder("greedy")
+
+    def close(self):
+        for name in ("encode_windows", "run_beam_decode", "run_greedy_decode"):
+            delattr(self.engine, name)
+
+    def summary(self, label):
+        print(f"{label}: {self.sweeps} sweeps, {self.rows} rows served, at most "
+              f"{self.max_rows} rows in one sweep, {self.overlapped} dispatches started "
+              f"while another group was in flight")
+
+
+OUT_KEYS = ("tokens", "lengths", "sum_logprob", "no_speech_prob")
+
+
+def _rerun_group(engine, rec, label):
+    """The kept group's packed batch decoded directly (``encode_windows``,
+    then ``run_beam_decode`` / ``run_greedy_decode`` with a generator seeded
+    as the server seeded it): every output bit for bit.  Returns the encoder
+    output and the step logits of the rerun."""
+    import torch
+
+    with _step_logits() as logits:
+        enc = engine.encode_windows(rec["audio"], window_samples=rec["window"])
+        gen = torch.Generator(device=engine.device).manual_seed(rec["seed"])
+        decode = engine.run_beam_decode if rec["kind"] == "beam" else engine.run_greedy_decode
+        out = decode(enc, rec["prompt"], rec["pad"], gen, *rec["args"], opts=rec["opts"])
+    same = {k: torch.equal(out[k], rec["out"][k]) for k in OUT_KEYS}
+    print(f"{label}: {rec['rows']} rows of {rec['audio'].shape[0]} slots, temperatures "
+          f"{rec['temps']}, seed {rec['seed']}, S = {enc.shape[1]}: the direct decode of the "
+          f"same packed batch equals the served one bit for bit: {json.dumps(same)}")
+    check(all(same.values()), f"{label}: the served decode differs from the direct "
+          f"decode of the same packed batch: {same}")
+    return enc, out, logits
+
+
+def _beam_rows_alone(engine, rec, out, logits):
+    """C3's rule, as a report: each packed window of the kept beam group
+    decoded alone (batch 1), its tokens and step logits against its beams'
+    rows of the packed decode."""
+    import torch
+
+    from ttasr_torch.models.whisper.decode import pad_prompts
+
+    k = rec["opts"].beam_size
+    for i in range(rec["rows"]):
+        prompt, pad = pad_prompts([rec["prompt"][i, rec["pad"][i]:].tolist()], engine.ti.eot)
+        with _step_logits() as alone_logits:
+            enc = engine.encode_windows(rec["audio"][i:i + 1], window_samples=rec["window"])
+            alone = engine.run_beam_decode(
+                enc, prompt, pad, torch.Generator(device=engine.device).manual_seed(0),
+                opts=rec["opts"])
+        packed_rows = [x[i * k:(i + 1) * k] for x in logits]
+        gaps = sorted(g for g, _ in _logit_gaps(alone_logits, packed_rows))
+        packed = {"tokens": out["tokens"][i:i + 1], "lengths": out["lengths"][i:i + 1]}
+        diff = _first_difference(packed, alone)
+        print(f"  window {i} alone vs packed (report, ROADMAP C3): step-logit gaps worst "
+              f"{gaps[-1]:.3e}, median {gaps[len(gaps) // 2]:.3e} over {len(gaps)} steps; "
+              + ("tokens equal" if diff is None else f"first differing token at step {diff[1]}"))
+
+
+def _uploads(engine, paths):
+    """The task API's call: every path submitted at once as an upload (PCM
+    loaded with ``int16=True`` off the loop), through ``shared_server(engine,
+    slots=4, linger_ms=5)`` and ``transcribe_batched_with_server`` with the
+    task worker's kwargs.  Returns the results (an exception where one
+    failed), the group wrapper and the wall."""
+    import asyncio
+
+    from ttasr_torch.audio.io import load_audio
+    from ttasr_torch.engine.batched import transcribe_batched_with_server
+    from ttasr_torch.engine.serving import shared_server
+
+    def keep(rec, kept):  # the first beam group of 2+ rows, the first sampled one
+        beam = rec["kind"] == "beam"
+        wanted = rec["rows"] >= 2 if beam else any(t > 0 for t in rec["temps"])
+        return wanted and all((r["kind"] == "beam") != beam for r in kept)
+
+    async def call():
+        server = await shared_server(engine, slots=TASK_SLOTS, linger_ms=5)
+        groups = ServedGroups(server, engine, keep)
+        loop = asyncio.get_running_loop()
+
+        async def upload(path):
+            audio, _ = await loop.run_in_executor(None, lambda: load_audio(path, int16=True))
+            return await transcribe_batched_with_server(engine, server, audio, **TASK_KWARGS)
+
+        try:
+            return await asyncio.gather(*[upload(p) for p in paths],
+                                        return_exceptions=True), groups
+        finally:
+            await server.stop()
+            groups.close()
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, groups = asyncio.run(call())
+    torch.cuda.synchronize()
+    return results, groups, time.perf_counter() - t0
+
+
+def _short_windows(engine):
+    """One 3 s and one 12 s request with ``short_window=True`` through a
+    BatchServer: each group equals the direct decode of its packed batch at
+    the bucket's window (S = 256 and 768) bit for bit."""
+    import asyncio
+
+    from ttasr_torch.engine.serving import BatchServer, window_bucket
+
+    prompt = engine.tokenizer.sot_sequence("zh", "transcribe", predict_timestamps=True)
+
+    async def call():
+        server = BatchServer(engine, slots=TASK_SLOTS, linger_ms=5)
+        await server.start()
+        groups = ServedGroups(server, engine, lambda rec, kept: True)
+        try:
+            for seconds, seed in SHORT_REQUESTS:
+                audio = synth_speech(np.random.default_rng(seed), seconds)[0]
+                pcm = (np.clip(audio, -1, 1) * 32767).astype(np.int16)
+                await server.transcribe_window(pcm, prompt, short_window=True)
+            return groups
+        finally:
+            await server.stop()
+            groups.close()
+
+    groups = asyncio.run(call())
+    check(len(groups.kept) == len(SHORT_REQUESTS), f"short windows: {len(groups.kept)} groups")
+    for (seconds, _), rec in zip(SHORT_REQUESTS, groups.kept):
+        bucket = window_bucket(int(seconds * SR))
+        check(rec["window"] == bucket and rec["audio"].shape == (TASK_SLOTS, bucket),
+              f"short window {seconds} s: encoded {rec['audio'].shape}")
+        enc, _, _ = _rerun_group(engine, rec, f"short window {seconds} s (bucket {bucket} "
+                                 f"samples)")
+        check(enc.shape[1] == bucket // 320, f"short window: S = {enc.shape[1]}")
+
+
+def _short_window_kernels(card: str) -> None:
+    """B6 and then B3 at the short buckets' T = S = 256 and 768, four audios
+    (the server's slots), within the bounds of phases 4 and 5."""
+    import torch
+
+    from ttasr_torch.ops import decoder_blocks as blk
+    from ttasr_torch.ops.encoder_attention import (
+        encoder_attention_merged_qkv,
+        encoder_attention_merged_qkv_ref,
+    )
+    from ttasr_torch.ops.int4 import pack_int4
+    from ttasr_torch.ops.quant import quantize_kv_sym
+
+    inp = Inputs(14)
+    lay = inp.layer()
+    colscale = torch.ones(3 * D, device="cuda")
+    colscale[:D] = 0.125
+    for t in (256, 768):
+        qkv = (inp.randn(TASK_SLOTS, t, 3 * D) * colscale).to(torch.bfloat16)
+        got, want = encoder_attention_merged_qkv(qkv, t), encoder_attention_merged_qkv_ref(qkv, t)
+        err, scale = _max_err(got, want), want.float().abs().max().item()
+        print(f"encoder_attention_merged_qkv B={TASK_SLOTS} T={t}: max_abs_err {err:.3e} "
+              f"(bound {BF16_REL * scale:.3e})")
+        check(err <= BF16_REL * scale, f"B6 at T={t} disagrees with its plain version: {err}")
+        ms, plain_ms = in_turns(lambda: encoder_attention_merged_qkv(qkv, t),
+                                lambda: encoder_attention_merged_qkv_ref(qkv, t))
+        b = bound([qkv, got], 4.0 * TASK_SLOTS * t * t * D, "bf16")
+        print(f"encoder_attention_merged_qkv B={TASK_SLOTS} T={t}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{b['bound_ms'] / ms:.1%} of the bound ({card})")
+    for s in (256, 768):
+        cache = []
+        for _ in range(2):
+            codes, scales = quantize_kv_sym(inp.randn(TASK_SLOTS, s, H, 64, scale=0.5), 7)
+            cache += [pack_int4(codes.reshape(TASK_SLOTS, s, D)),
+                      scales.transpose(1, 2).contiguous()]
+        args = (inp.randn(TASK_SLOTS, 5, D, scale=0.5), inp.randn(TASK_SLOTS, 5, D, scale=0.5),
+                lay["wo"], lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"],
+                lay["wqc"], lay["wqc_s"], lay["bqc"], *cache, s)
+        got, want = blk.attnout_ln_q_cross_int8(*args), blk.attnout_ln_q_cross_int8_ref(*args)
+        case = f"B={TASK_SLOTS} K=5 S={s} int4 cross-KV"
+        check(bool(torch.isfinite(got[1]).all()), f"B3 {case}: not finite")
+        _hold("attnout_ln_q_cross_int8", case + " x'", got[0], want[0], 0.0)
+        _hold("attnout_ln_q_cross_int8", case + " cross", got[1], want[1], 0.0)
+
+
+def _server_shape_kernels(card: str) -> dict:
+    """B1, B3 and B4 at 20 rows of 4 audios (the task API's beam group), B2
+    at 4 audios x 5 beams through the ancestry map and B10 at 4 rows of 4
+    audios, against their plain versions within DECODE_REL, timed in turns
+    with them (``time_ms``) beside their bounds."""
+    import torch
+
+    from ttasr_torch.ops import decoder_blocks as blk
+    from ttasr_torch.ops import decoder_mlp as mlp
+
+    inp = Inputs(15)
+    lay = inp.layer()
+    b, k = TASK_SLOTS, 5
+    r = b * k
+    x = inp.randn(r, D, scale=0.5)
+    cases = {}
+    b1 = (x, lay["ln1_s"], lay["ln1_b"], lay["wqkv"], lay["wqkv_s"], lay["bqkv"])
+    cases["qkv_int8_fused"] = (blk.qkv_int8_fused, blk.qkv_int8_fused_ref, b1,
+                               2.0 * r * D * 3 * D, f"R={r}")
+    b3 = (inp.randn(b, k, D, scale=0.5), inp.randn(b, k, D, scale=0.5),
+          lay["wo"], lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"],
+          lay["wqc"], lay["wqc_s"], lay["bqc"], *inp.cross_kv(b, True), S_REAL)
+    cases["attnout_ln_q_cross_int8"] = (
+        blk.attnout_ln_q_cross_int8, blk.attnout_ln_q_cross_int8_ref, b3,
+        2.0 * 2 * r * D * D + 2.0 * 2 * r * S_REAL * D, f"B={b} K={k} int4 cross-KV")
+    b4 = (x, inp.randn(r, D, scale=0.5), lay["woc"], lay["woc_s"], lay["boc"],
+          lay["ln2_s"], lay["ln2_b"], lay["w1"], lay["w1_s"], lay["b1"], lay["w2"],
+          lay["w2_s"], lay["b2"])
+    cases["mlp_with_crossout_int8"] = (mlp.mlp_with_crossout_int8,
+                                       mlp.mlp_with_crossout_int8_ref, b4,
+                                       2.0 * r * (D * D + 2 * D * FFN), f"R={r}")
+    length, slot = 480, 477
+    for name, kk in (("self_attn_step_indirect_int8", k), ("self_attn_step_int8", 1)):
+        pads = [0] * k + [3] * k + [40] * k + [100] * k if kk == k else [0, 3, 40, 100]
+        fn, ref, args = _self_step(inp, b, kk, length, slot, pads, True)
+        positions = float((slot + 1 - args[-2]).sum().item())
+        cases[name] = (functools.partial(fn, n_heads=H, int4=True),
+                       functools.partial(ref, n_heads=H, int4=True), args,
+                       2.0 * 2 * positions * D, f"B={b} K={kk} len={length} int4")
+    res = {}
+    for name, (fn, ref, args, ops, case) in cases.items():
+        got, want = fn(*args), ref(*args)
+        case += " (the server's shape)"
+        if isinstance(got, torch.Tensor):
+            err = _hold(name, case, got, want, 0.0)
+        elif name.startswith("self_attn"):  # the output, then the new codes and scales
+            for i in range(1, 5):
+                check(torch.equal(got[i], want[i]),
+                      f"{name} {case}: new codes or scales differ from the plain version")
+            err = _hold(name, case, got[0], want[0], 0.0)
+        else:  # B3: x' and the cross-attention output
+            err = _hold(name, case + " cross", got[1], want[1],
+                        _hold(name, case + " x'", got[0], want[0], 0.0))
+        ms, plain_ms = in_turns(lambda: fn(*args), lambda: ref(*args))
+        bnd = bound(_tensors(args, fn(*args)), ops, "bf16")
+        res[name] = dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
+        print(f"{name} {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / ms:.1%} of "
+              f"the bound ({card})")
+    return res
+
+
+def run_server_path(engine, card: str) -> dict:
+    """Phase 14 on the main path's engine: the task API's call (four
+    uploads at once through the shared server and
+    ``transcribe_batched_with_server``) beside the sequential
+    ``engine.transcribe`` of the same files; one beam group and one sampled
+    greedy group of that call re-run directly, bit for bit; the CLI's
+    ``concurrency=4`` and ``batched=True`` modes; two short-window requests;
+    B6 and B3 at the short buckets, and the decode kernels at the server's
+    shapes.  Launches are exact against the decode stats in every run."""
+    import torch
+
+    t_phase = time.perf_counter()
+    counters = _int8_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_seconds, _ = _write_wavs(tmp, UPLOADS)
+        paths = [os.path.join(tmp, f"{name}.wav") for name, _, _ in UPLOADS]
+        label = f"task API call ({len(paths)} uploads, {TASK_SLOTS} slots)"
+        before = dict(engine.decode_stats)
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        results, groups, wall = _uploads(engine, paths)
+        counts = {fn.__name__: fn.launches for fn in counters}
+        st = {k: engine.decode_stats[k] - before[k] for k in before}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for path, res in zip(paths, results):
+            name = os.path.basename(path)
+            check(not isinstance(res, BaseException), f"{label} {name}: {res!r}")
+            segments, info = res
+            # clipped_at= copies the reference's clip of the end only
+            # (ROADMAP C6): the fix of C6 drops it, and a late start fails
+            late = _segments_well_formed(f"{label} {name}", segments,
+                                         clipped_at=info.duration)
+            print(f"  {name}: {len(segments)} segments ({late} starting after the file's "
+                  f"end, their end clipped to it), {sum(len(s.text) for s in segments)} "
+                  f"chars, {info.duration:.1f} s, {info.duration_after_vad:.1f} s after VAD")
+        print(f"{label} decode stats: {json.dumps(st)}")
+        check(st["nonfinite_logits"] == 0, f"{label}: a decode produced non-finite logits")
+        groups.summary(label)
+        check(groups.max_rows > 1, f"{label}: no sweep carried more than one row")
+        check(groups.overlapped >= 1, f"{label}: no dispatch while another group was in flight")
+        _expect_int8_launches(label, counts, st)
+        print(f"{label}: {audio_seconds:.1f} s of audio, wall {wall:.2f} s = "
+              f"{wall / audio_seconds:.4f} s per audio second, peak memory {peak:.2f} GiB "
+              f"({card})")
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for path in paths:
+            segments, _ = engine.transcribe(path, **TASK_KWARGS)
+            _segments_well_formed(f"sequential {os.path.basename(path)}", segments)
+        torch.cuda.synchronize()
+        seq_wall = time.perf_counter() - t0
+        seq_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"sequential engine.transcribe of the same files: wall {seq_wall:.2f} s = "
+              f"{seq_wall / audio_seconds:.4f} s per audio second, peak memory "
+              f"{seq_peak:.2f} GiB ({card})")
+
+    kinds = sorted(r["kind"] for r in groups.kept)
+    check(kinds == ["beam", "greedy"], f"{label}: kept groups {kinds}")
+    for rec in groups.kept:
+        what = "beam group" if rec["kind"] == "beam" else "sampled greedy group"
+        _, out, logits = _rerun_group(engine, rec, f"{label}, its first {what}")
+        if rec["kind"] == "beam":
+            _beam_rows_alone(engine, rec, out, logits)
+        del logits
+
+    modes = {}
+    for mode in ({"concurrency": TASK_SLOTS}, {"batched": True}):
+        mode_label = f"CLI {json.dumps(mode)}"
+        run = _drive_cli(engine, mode_label, card, counters, files=CLI_MODE_FILES, **mode)
+        _expect_int8_launches(mode_label, run["counts"], run["stats"])
+        modes[mode_label] = run["wall"] / run["audio_seconds"]
+
+    _short_windows(engine)
+    _short_window_kernels(card)
+    kernels = _server_shape_kernels(card)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14 (the server path): {seconds:.1f} s")
+    return dict(sweeps=groups.sweeps, rows=groups.rows, max_rows=groups.max_rows,
+                overlapped=groups.overlapped, wall_per_audio_s=wall / audio_seconds,
+                sequential_wall_per_audio_s=seq_wall / audio_seconds, cli_modes=modes,
+                kernels=kernels, seconds=seconds)
 
 
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces

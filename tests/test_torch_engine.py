@@ -8,10 +8,12 @@ CLI against the JAX engine.
 - bfloat16: encoder states and decode-step logits held to the bound the
   JAX package recorded for bf16 reassociation (PERF_NOTES "TPU numeric
   parity": step logits within 1.4 % relative, argmax agreement).
-- the CLI folder function with the port engine, and the modes that are
-  not ported yet raise.
+- the CLI folder function with the port engine, and its entry point in
+  the sequential mode and with ``--concurrency 2`` (the served modes are
+  held against the JAX CLI in ``tests/test_torch_batched.py``).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -30,6 +32,7 @@ from ttasr.models.whisper import model as jm
 from ttasr.models.whisper.config import PRESETS as J_PRESETS
 from ttasr.text.tokenizer import build_byte_fallback_tokenizer
 from ttasr_torch.cli import asr as t_cli
+from ttasr_torch.engine import transcriber as t_tr
 from ttasr_torch.engine.transcriber import WhisperEngine as TEngine
 from ttasr_torch.models.whisper import decode as td
 from ttasr_torch.models.whisper.config import PRESETS as T_PRESETS
@@ -153,18 +156,20 @@ def test_cli_main_entry_point(tmp_path, monkeypatch):
     write_wav(str(audio_dir / "a.wav"), audio, 16000)
     monkeypatch.chdir(tmp_path)
     t_cli.main([str(audio_dir), "--model", NAME, "--device", "cpu"])
-    assert (tmp_path / "asr_comparison_results.json").exists()
+    results = tmp_path / "asr_comparison_results.json"
+    assert results.exists()
     assert (audio_dir / "a_asr.txt").exists()
-    with pytest.raises(NotImplementedError):
-        t_cli.main([str(audio_dir), "--model", NAME, "--device", "cpu",
-                    "--concurrency", "2"])
-
-
-@pytest.mark.parametrize("kw", [{"concurrency": 2}, {"batched": True}])
-def test_cli_rejects_unported_modes(engines_f32, tmp_path, kw):
-    _, te = engines_f32
-    with pytest.raises(NotImplementedError):
-        t_cli.process_audio_folder(str(tmp_path), engine=te, **kw)
+    results.unlink()
+    # the served run's ladder at T = 0 only: on random weights every rung
+    # fails its gates, and each sampled rung is best_of requests
+    parse = t_tr._parse_transcribe_kwargs
+    monkeypatch.setattr(t_tr, "_parse_transcribe_kwargs",
+                        lambda kwargs: parse(dict(kwargs, temperature=(0.0,))))
+    t_cli.main([str(audio_dir), "--model", NAME, "--device", "cpu",
+                "--concurrency", "2"])
+    entries = json.loads(results.read_text(encoding="utf-8"))["detailed_results"]
+    assert [e["audio_file"] for e in entries] == ["a.wav"]
+    assert "error" not in entries[0]
 
 
 def test_engine_rejects_unported_and_missing_device(monkeypatch):

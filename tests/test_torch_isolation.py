@@ -12,8 +12,10 @@ copies of the JAX package's host modules behave as the originals.
   ``write_wav``/``load_audio`` round trip with resampling,
   ``compare_texts`` and ``postprocess_transcript`` on ``sample_corpus/``,
   the mel constants (the DFT basis and filterbank that the fused log-mel
-  kernel reads too), the ``TTASR_UNFUSED_RULES`` truthiness, and
-  ``chip_smoke.synth_speech``.
+  kernel reads too), the ``TTASR_UNFUSED_RULES`` truthiness,
+  ``chip_smoke.synth_speech``, and the subtitle writers of
+  ``engine/results.py`` (``format_srt_timestamp``, ``segments_to_srt``,
+  ``segments_to_txt``).
 """
 
 import csv
@@ -33,6 +35,7 @@ from tools import train_vad as j_train_vad
 from ttasr.audio import io as j_io
 from ttasr.audio import vad as j_vad
 from ttasr.cli import asr as j_cli
+from ttasr.engine import results as j_results
 from ttasr.ops import mel as j_mel
 from ttasr.text import cer as j_cer
 from ttasr.text import normalize as j_norm
@@ -40,6 +43,7 @@ from ttasr.text import tokenizer as j_tok
 from ttasr_torch.audio import io as t_io
 from ttasr_torch.audio import vad as t_vad
 from ttasr_torch.cli import asr as t_cli
+from ttasr_torch.engine import results as t_results
 from ttasr_torch.ops import mel as t_mel
 from ttasr_torch.text import cer as t_cer
 from ttasr_torch.text import normalize as t_norm
@@ -64,7 +68,9 @@ _ISOLATED = textwrap.dedent("""
     assert {{"ttasr_torch.ops.cross_attention", "ttasr_torch.ops.beam_gather",
              "ttasr_torch.ops.decoder_blocks", "ttasr_torch.parallel.distributed",
              "ttasr_torch.parallel.sharding", "ttasr_torch.parallel.tp",
-             "ttasr_torch.ops.mel_fused", "ttasr_torch.ops.encoder_attention"}} <= set(names), names
+             "ttasr_torch.ops.mel_fused", "ttasr_torch.ops.encoder_attention",
+             "ttasr_torch.engine.serving", "ttasr_torch.engine.batched",
+             "ttasr_torch.engine.registry"}} <= set(names), names
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
@@ -273,3 +279,19 @@ def test_chip_smoke_synth_speech_matches():
         want = j_train_vad.synth_speech(np.random.default_rng(seed), seconds)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+def test_subtitle_writer_copies_match():
+    segments = [
+        t_results.Segment(id=i, seek=0, start=start, end=end, text=text,
+                          tokens=[1], avg_logprob=-0.1, compression_ratio=1.0,
+                          no_speech_prob=0.0)
+        for i, (start, end, text) in enumerate([
+            (0.0, 1.234, "今天天氣很好"), (1.2345, 61.0005, " line\r\nbreak "),
+            (3599.9996, 3725.25, ""), (-1.0, None, "台灣的夜市很熱鬧")])]
+    for t in (None, -2.0, 0.0, 0.0004, 0.0005, 1.2345, 59.9999, 3600.0, 3725.25,
+              86399.9995):
+        assert t_results.format_srt_timestamp(t) == j_results.format_srt_timestamp(t)
+    assert t_results.segments_to_srt(segments) == j_results.segments_to_srt(segments)
+    assert t_results.segments_to_txt(segments) == j_results.segments_to_txt(segments)
+    assert t_results.segments_to_srt([]) == j_results.segments_to_srt([]) == ""

@@ -17,18 +17,24 @@ copies:
   CWD).
 
 The engine is ``ttasr_torch``'s ``WhisperEngine(model,
-compute_type="bfloat16")`` unless one is injected.  ``--concurrency > 1``
-and ``--batched`` need the continuous-batching server, which is not ported
-yet: they raise instead of silently running files one by one.
+compute_type="bfloat16")`` unless one is injected.  ``--concurrency N``
+(N > 1) runs every file's seek loop at once through one
+:class:`~ttasr_torch.engine.serving.BatchServer` of N slots
+(:func:`~ttasr_torch.engine.serving.transcribe_files`); ``--batched`` decodes
+each file's VAD chunks concurrently through one
+:class:`~ttasr_torch.engine.batched.BatchedInferencePipeline` (no prompt
+carry), shared by all files.  A file whose served decode failed gets its
+error entry; nothing falls back to the sequential loop.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import glob
 import json
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 from ttasr_torch.text.cer import compare_texts
 from ttasr_torch.text.normalize import postprocess_transcript
@@ -81,22 +87,24 @@ def build_engine(model: str = "models", device="cuda"):
     return WhisperEngine(model, compute_type="bfloat16", device=device)
 
 
-def _transcribe_file(engine, audio_file: str) -> dict:
-    """One file: transcribe, post-process, write ``{name}_asr.txt`` and
-    score against a reference transcript when one exists."""
+# the reference's decode kwargs (sequential and --concurrency); --batched
+# takes them without vad_filter and condition_on_previous_text
+TRANSCRIBE_KWARGS = dict(language="zh", word_timestamps=False, vad_filter=True,
+                         beam_size=5, condition_on_previous_text=True,
+                         initial_prompt="")
+BATCHED_KWARGS = dict(language="zh", word_timestamps=False, beam_size=5,
+                      initial_prompt="")
+
+
+def _transcribe_file(audio_file: str, run: Callable[[str], tuple]) -> dict:
+    """One file: ``run(audio_file)`` gives its (segments, info); post-process, write
+    ``{name}_asr.txt`` and score against a reference transcript when one
+    exists.  A failure becomes the file's error entry."""
     audio_dir = os.path.dirname(audio_file)
     audio_name = os.path.splitext(os.path.basename(audio_file))[0]
     output_path = os.path.join(audio_dir, f"{audio_name}_asr.txt")
     try:
-        segments, info = engine.transcribe(
-            audio_file,
-            language="zh",
-            word_timestamps=False,
-            vad_filter=True,
-            beam_size=5,
-            condition_on_previous_text=True,
-            initial_prompt="",
-        )
+        segments, info = run(audio_file)
         text = "".join(seg.text for seg in segments)
         processed_text = postprocess_transcript(text)
 
@@ -153,10 +161,6 @@ def process_audio_folder(folder_path: str,
     engine (built from ``model`` on ``device`` unless one is injected).
     Returns the aggregate result dict (also written to JSON), or None when
     no audio was found.  A model that fails to load raises."""
-    if concurrency > 1 or batched:
-        raise NotImplementedError(
-            "--concurrency > 1 and --batched need BatchServer / "
-            "BatchedInferencePipeline, not ported to ttasr_torch yet")
     audio_files = list_audio_files(folder_path)
     if not audio_files:
         print(f"在資料夾 {folder_path} 中找不到音檔")
@@ -166,10 +170,41 @@ def process_audio_folder(folder_path: str,
         engine = build_engine(model, device=device)
         print(f"模型載入成功: {model}")
 
+    # continuous batching across files: windows of up to ``concurrency``
+    # files pack into shared decode slots (prompt carry stays sequential
+    # within each file); a file's value is its result or its exception
+    served = {}
+    if concurrency > 1:
+        from ttasr_torch.engine.serving import transcribe_files
+
+        served = asyncio.run(transcribe_files(
+            engine, audio_files, slots=concurrency, **TRANSCRIBE_KWARGS))
+    # ONE pipeline (and its BatchServer) serves every --batched file
+    pipeline = None
+    if batched:
+        from ttasr_torch.engine.batched import BatchedInferencePipeline
+
+        pipeline = BatchedInferencePipeline(engine,
+                                            batch_size=max(concurrency, 4))
+
+    def run(audio_file):
+        if audio_file in served:
+            value = served[audio_file]
+            if isinstance(value, BaseException):
+                raise value
+            return value
+        if pipeline is not None:
+            return pipeline.transcribe(audio_file, **BATCHED_KWARGS)
+        return engine.transcribe(audio_file, **TRANSCRIBE_KWARGS)
+
     comparison_results = []
-    for i, audio_file in enumerate(audio_files, 1):
-        print(f"處理音檔 {i}/{len(audio_files)}: {os.path.basename(audio_file)}")
-        comparison_results.append(_transcribe_file(engine, audio_file))
+    try:
+        for i, audio_file in enumerate(audio_files, 1):
+            print(f"處理音檔 {i}/{len(audio_files)}: {os.path.basename(audio_file)}")
+            comparison_results.append(_transcribe_file(audio_file, run))
+    finally:
+        if pipeline is not None:
+            pipeline.close()
 
     with_cer = [r for r in comparison_results if r.get("cer_result")]
     n_cer = len(with_cer)
@@ -215,9 +250,10 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch 裝置 (預設 cuda；無 CUDA 時報錯)")
     parser.add_argument("--concurrency", type=int, default=1,
-                        help="同時處理的檔案數（尚未移植，僅接受 1）")
+                        help="同時處理的檔案數（視窗連續批次化）")
     parser.add_argument("--batched", action="store_true",
-                        help="單檔內 VAD 區塊並行解碼（尚未移植）")
+                        help="單檔內以 VAD 語音區塊並行解碼"
+                             "（BatchedInferencePipeline，不做前文接續）")
     args = parser.parse_args(argv)
     if not os.path.exists(args.folder):
         print(f"資料夾不存在: {args.folder}")

@@ -32,11 +32,25 @@ the batch over the data axis).  A mesh that ``tp_eligible`` refuses raises:
 the reference's GSPMD unfused graph is not ported.  Each rank runs the
 whole encoder on its own card, where the JAX engine shards the encoder's
 weights under GSPMD; the results are the same.
+
+The continuous-batching path is the reference's too:
+:meth:`WhisperEngine.transcribe_with_server` runs the same seek loop with
+each window's fallback ladder routed through a
+:class:`ttasr_torch.engine.serving.BatchServer`
+(:meth:`WhisperEngine._decode_with_fallback_server`, best_of candidates as
+separate window requests), and the host VAD of the served paths runs in one
+serial executor whose pending count the server's coalescing wait reads
+(:func:`run_vad_async`, :func:`vad_pending`).  Decodes may run from
+several threads (a server's decode threads, other servers, direct calls),
+so ``decode_stats`` is updated under a lock.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -78,6 +92,45 @@ from ttasr_torch.parallel.tp import TPDecoder, tp_eligible
 from ttasr_torch.text.tokenizer import WhisperTokenizer, load_tokenizer
 
 TIME_PRECISION = 0.02
+
+# Host VAD of the served paths runs off the event loop in one dedicated
+# single-worker executor: off the loop so concurrent files' VADs never
+# block the server's submit path, single-worker so they finish FIFO and
+# the first file's windows reach the decode slots first.  The pending
+# count tells the BatchServer that more windows are on their way, so it
+# holds a partly filled bulk sweep for them.
+_VAD_POOL = None
+_VAD_PENDING = 0
+_VAD_LOCK = threading.Lock()
+
+
+def _vad_pool() -> ThreadPoolExecutor:
+    global _VAD_POOL
+    with _VAD_LOCK:
+        if _VAD_POOL is None:
+            _VAD_POOL = ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="ttasr-vad")
+    return _VAD_POOL
+
+
+def vad_pending() -> int:
+    """Host VADs queued or running (see BatchServer's coalescing wait)."""
+    return _VAD_PENDING
+
+
+async def run_vad_async(audio_f32: np.ndarray, vad_opts) -> List[dict]:
+    """``get_speech_timestamps`` in the serial VAD executor, with the
+    pending count kept for the server's bulk-coalescing wait."""
+    global _VAD_PENDING
+    pool = _vad_pool()
+    with _VAD_LOCK:
+        _VAD_PENDING += 1
+    try:
+        return await asyncio.get_running_loop().run_in_executor(
+            pool, get_speech_timestamps, audio_f32, vad_opts)
+    finally:
+        with _VAD_LOCK:
+            _VAD_PENDING -= 1
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.bfloat16, "int8": torch.bfloat16}
@@ -126,6 +179,17 @@ def _as_master(audio) -> np.ndarray:
     if a.dtype != np.int16:
         a = np.asarray(a, dtype=np.float32)
     return a
+
+
+def _restore_times(segments: List[Segment], speech_chunks) -> List[Segment]:
+    """Map the segments' times in the VAD-collected audio back to the
+    original audio (no-op without VAD)."""
+    if speech_chunks is not None and segments:
+        ts_map = SpeechTimestampsMap(speech_chunks, SAMPLE_RATE)
+        for seg in segments:
+            seg.start = ts_map.get_original_time(seg.start)
+            seg.end = ts_map.get_original_time(seg.end)
+    return segments
 
 
 def _parse_transcribe_kwargs(kwargs: dict) -> TranscribeOptions:
@@ -209,6 +273,14 @@ class WhisperEngine:
             self.tokenizer, n_vocab=self.cfg.vocab_size)
         self._rng_counter = 0
         # what the decodes did: counts, steps, and any non-finite logits
+        # (decodes may run from several threads: updated under the lock)
+        self._stats_lock = threading.Lock()
+        # one caller's device work at a time, for every server and direct
+        # caller of this engine: two threads running the eager decode loop
+        # at once hand the GIL back and forth at every op (~2.5x a step on
+        # an H100 host, PERF.md), and B4/B14's counters are one buffer per
+        # device.  Re-entrant: a BatchServer holds it around a whole group.
+        self._device_lock = threading.RLock()
         self.decode_stats = {"beam_decodes": 0, "greedy_decodes": 0,
                              "beam_steps": 0, "greedy_steps": 0,
                              "nonfinite_logits": 0, "encoder_passes": 0}
@@ -230,29 +302,33 @@ class WhisperEngine:
             a = np.pad(a, ((0, 0), (0, w - a.shape[-1])))
         elif a.shape[-1] > w:
             a = a[..., :w]
-        mel = log_mel_spectrogram(a, n_mels=self.cfg.num_mel_bins,
-                                  pad_to_chunk=False, device=self.device)
-        out = encode(self.params, self.cfg, mel, act_int8=self._act8,
-                     fused_quant=self._fused_quant)
-        self.decode_stats["encoder_passes"] += 1
+        with self._device_lock:
+            mel = log_mel_spectrogram(a, n_mels=self.cfg.num_mel_bins,
+                                      pad_to_chunk=False, device=self.device)
+            out = encode(self.params, self.cfg, mel, act_int8=self._act8,
+                         fused_quant=self._fused_quant)
+        with self._stats_lock:
+            self.decode_stats["encoder_passes"] += 1
         return out[0] if squeeze else out
 
     # -- low-level window decode ------------------------------------------
 
     def _record(self, kind: str, out: dict) -> None:
-        self.decode_stats[f"{kind}_decodes"] += 1
-        self.decode_stats[f"{kind}_steps"] += out["steps"]
-        self.decode_stats["nonfinite_logits"] += int(not out["logits_finite"])
+        with self._stats_lock:
+            self.decode_stats[f"{kind}_decodes"] += 1
+            self.decode_stats[f"{kind}_steps"] += out["steps"]
+            self.decode_stats["nonfinite_logits"] += int(not out["logits_finite"])
 
     @torch.inference_mode()
     def run_beam_decode(self, enc_out, prompt, pad, rng, opts: DecodingOptions):
         """A beam decode: through the tensor-parallel decoder under a mesh,
         else the single-card program."""
-        if self._tp is not None:
-            out = self._tp.beam(enc_out, prompt, pad, rng, opts=opts, ti=self.ti)
-        else:
-            out = beam_decode(self.params, self.cfg, enc_out, prompt, pad, rng,
-                              opts=opts, ti=self.ti)
+        with self._device_lock:
+            if self._tp is not None:
+                out = self._tp.beam(enc_out, prompt, pad, rng, opts=opts, ti=self.ti)
+            else:
+                out = beam_decode(self.params, self.cfg, enc_out, prompt, pad, rng,
+                                  opts=opts, ti=self.ti)
         self._record("beam", out)
         return out
 
@@ -260,24 +336,24 @@ class WhisperEngine:
     def run_greedy_decode(self, enc_out, prompt, pad, rng, temperature,
                           opts: DecodingOptions):
         """Greedy/sampled counterpart of :meth:`run_beam_decode`."""
-        if self._tp is not None:
-            out = self._tp.greedy(enc_out, prompt, pad, rng, temperature,
-                                  opts=opts, ti=self.ti)
-        else:
-            out = greedy_decode(self.params, self.cfg, enc_out, prompt, pad,
-                                rng, temperature, opts=opts, ti=self.ti)
+        with self._device_lock:
+            if self._tp is not None:
+                out = self._tp.greedy(enc_out, prompt, pad, rng, temperature,
+                                      opts=opts, ti=self.ti)
+            else:
+                out = greedy_decode(self.params, self.cfg, enc_out, prompt, pad,
+                                    rng, temperature, opts=opts, ti=self.ti)
         self._record("greedy", out)
         return out
 
-    def _decode_window(self, enc_out, prompt_ids: List[int],
-                       opts: TranscribeOptions, temperature: float):
-        self._rng_counter += 1
-        rng = torch.Generator(device=self.device).manual_seed(self._rng_counter)
-        prompt, pad = pad_prompts([prompt_ids], self.ti.eot)
+    def _decoding_options(self, opts: TranscribeOptions) -> DecodingOptions:
+        """The window decode's options, the int8 caches' int4 sub-modes
+        included: one builder for the seek loop and the server path, so
+        both decode with the same program."""
         kv_int8 = opts.kv_cache_int8
         if kv_int8 is None:
             kv_int8 = self.kv_cache_int8
-        dec_opts = DecodingOptions(
+        return DecodingOptions(
             beam_size=opts.beam_size,
             length_penalty=opts.length_penalty,
             patience=opts.patience,
@@ -289,6 +365,13 @@ class WhisperEngine:
             cross_kv_int4=self.cross_kv_int4 and kv_int8,
             kv_int4=self.kv_int4 and kv_int8,
         )
+
+    def _decode_window(self, enc_out, prompt_ids: List[int],
+                       opts: TranscribeOptions, temperature: float):
+        self._rng_counter += 1
+        rng = torch.Generator(device=self.device).manual_seed(self._rng_counter)
+        prompt, pad = pad_prompts([prompt_ids], self.ti.eot)
+        dec_opts = self._decoding_options(opts)
         if temperature == 0.0 and opts.beam_size > 1:
             out = self.run_beam_decode(enc_out, prompt, pad, rng, opts=dec_opts)
             pick = 0
@@ -410,19 +493,112 @@ class WhisperEngine:
         if len(audio) == 0:
             return [], info
 
-        segments = self._transcribe_windows(audio, opts)
+        windows = self._seek_loop(audio, opts)
+        try:
+            window, prompt_ids = next(windows)
+            while True:
+                window, prompt_ids = windows.send(self._decode_with_fallback(
+                    self.encode_windows(window[None]), prompt_ids, opts))
+        except StopIteration as done:
+            segments = done.value
+        return _restore_times(segments, speech_chunks), info
 
-        if speech_chunks is not None and segments:
-            ts_map = SpeechTimestampsMap(speech_chunks, SAMPLE_RATE)
-            for seg in segments:
-                seg.start = ts_map.get_original_time(seg.start)
-                seg.end = ts_map.get_original_time(seg.end)
-        return segments, info
+    # -- continuous-batching path ---------------------------------------------
+
+    async def _decode_with_fallback_server(self, server, window, prompt_ids,
+                                           opts: TranscribeOptions,
+                                           return_enc: bool):
+        """:meth:`_decode_with_fallback` routed through a
+        :class:`ttasr_torch.engine.serving.BatchServer`: the same
+        temperature ladder, quality gates and best_of selection, each
+        window decode packed into the server's shared slots."""
+        dec_opts = self._decoding_options(opts)
+        last = None
+        for temperature in opts.temperatures:
+            if temperature > 0.0 and opts.best_of > 1:
+                # best_of candidates as K window requests: they pack into
+                # the server's slots (often the same batch)
+                results = await asyncio.gather(*[
+                    server.transcribe_window(
+                        window, prompt_ids, temperature=temperature,
+                        opts=dec_opts, return_enc=return_enc)
+                    for _ in range(opts.best_of)])
+                lengths = np.asarray([len(r.tokens) for r in results])
+                sums = np.asarray([r.sum_logprob for r in results])
+                penalties = ((5.0 + lengths + 1.0) / 6.0) ** opts.length_penalty
+                result = results[int(np.argmax(
+                    sums / np.maximum(penalties, 1e-9)))]
+            else:
+                result = await server.transcribe_window(
+                    window, prompt_ids, temperature=temperature,
+                    opts=dec_opts, return_enc=return_enc)
+            text = self.tokenizer.decode(result.tokens)
+            ratio = compression_ratio(text)
+            last = (result, ratio, temperature)
+            if not self._needs_fallback(ratio, result.avg_logprob,
+                                        result.no_speech_prob, opts):
+                break
+        return last
+
+    async def transcribe_with_server(self, audio: Union[str, np.ndarray],
+                                     server, **kwargs
+                                     ) -> Tuple[List[Segment], TranscriptionInfo]:
+        """The seek loop of :meth:`transcribe` with each window's decodes
+        routed through a :class:`ttasr_torch.engine.serving.BatchServer`,
+        so windows of concurrent files pack into shared decode slots.
+
+        Decode-equivalent to :meth:`transcribe`: the same fallback ladder
+        (best_of sampling included), no-speech gate and
+        ``prompt_reset_on_temperature``; prompt carry stays sequential
+        within a file (:func:`ttasr_torch.engine.serving.transcribe_files`
+        runs many files at once).  The language is not detected here:
+        ``language=None`` decodes as ``"zh"``, as in the reference."""
+        opts = _parse_transcribe_kwargs(kwargs)
+        if isinstance(audio, (str, bytes)):
+            audio, _ = load_audio(audio, sr=SAMPLE_RATE, int16=True)
+        audio = _as_master(audio)
+        duration = len(audio) / SAMPLE_RATE
+
+        speech_chunks = None
+        duration_after_vad = duration
+        if opts.vad_filter:
+            vad_opts = opts.vad_parameters or VadOptions()
+            speech_chunks = await run_vad_async(_host_f32(audio), vad_opts)
+            audio = collect_chunks(audio, speech_chunks)
+            duration_after_vad = len(audio) / SAMPLE_RATE
+
+        info = TranscriptionInfo(
+            language=opts.language or "zh", language_probability=1.0,
+            duration=duration, duration_after_vad=duration_after_vad,
+        )
+        if len(audio) == 0:
+            return [], info
+
+        # session scope: lets the server wave-coalesce partial bulk sweeps
+        # across concurrent prompt-carry files
+        windows = self._seek_loop(audio, opts)
+        with server.session():
+            try:
+                window, prompt_ids = next(windows)
+                while True:
+                    result, ratio, temperature = await self._decode_with_fallback_server(
+                        server, window, prompt_ids, opts,
+                        return_enc=opts.word_timestamps)
+                    window, prompt_ids = windows.send(
+                        (result.tokens, result.avg_logprob, result.no_speech_prob,
+                         ratio, temperature))
+            except StopIteration as done:
+                segments = done.value
+        return _restore_times(segments, speech_chunks), info
 
     # -- seek loop ------------------------------------------------------------
 
-    def _transcribe_windows(self, audio: np.ndarray,
-                            opts: TranscribeOptions) -> List[Segment]:
+    def _seek_loop(self, audio: np.ndarray, opts: TranscribeOptions):
+        """The 30 s seek loop over ``audio``, as a generator: it yields each
+        window and its prompt, is sent the window's (tokens, avg_logprob,
+        no_speech_prob, compression ratio, temperature) from the fallback
+        ladder, and returns the segments.  :meth:`transcribe` drives it with
+        direct decodes, :meth:`transcribe_with_server` through a server."""
         tok = self.tokenizer
         content_frames = max(len(audio) // HOP_LENGTH, 1)
         seek = 0
@@ -441,8 +617,6 @@ class WhisperEngine:
             segment_frames = min(N_FRAMES, content_frames - seek)
             segment_duration = segment_frames * HOP_LENGTH / SAMPLE_RATE
 
-            enc_out = self.encode_windows(window[None])
-
             previous = (all_tokens[prompt_reset_since:]
                         if opts.condition_on_previous_text else [])
             prompt_ids = build_prompt(
@@ -457,7 +631,7 @@ class WhisperEngine:
             )
 
             tokens, avg_logprob, no_speech_prob, ratio, temperature = (
-                self._decode_with_fallback(enc_out, prompt_ids, opts))
+                yield window, prompt_ids)
 
             if (opts.no_speech_threshold is not None
                     and no_speech_prob > opts.no_speech_threshold):

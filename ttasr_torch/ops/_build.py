@@ -13,6 +13,12 @@ module is imported: the first kernel launch calls :func:`load_library`.
 ``c_void_p``, ints ``c_int``, floats ``c_float``.  Each entry point launches on the stream it
 is given and returns ``cudaGetLastError()``; :func:`launch` raises when
 that is not 0.
+
+Threads may launch at once (the serving layer decodes two groups from two
+executor threads): :func:`launch` holds a lock around the C call, whose
+host side keeps per-process state (the shared-memory limit each kernel was
+last granted), and every wrapper counts its launches with
+:func:`count_launch`, a read-modify-write under a lock of its own.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -182,8 +189,19 @@ def launch(name: str, device, *args) -> None:
     lib = load_library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _LAUNCH_LOCK:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(*c_args, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+
+
+_LAUNCH_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, n: int = 1) -> None:
+    """Add ``n`` to ``fn.launches`` under a lock: two threads' ``+= 1``
+    on the same attribute can otherwise lose one."""
+    with _COUNT_LOCK:
+        fn.launches += n

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.decoder_blocks import _check_cuda, _dispatch
 
 
@@ -64,7 +65,7 @@ def gather_cache_rows(k, v, ks, vs, idx, out=None):
 
     launch("ttasr_gather_cache_rows", dev, k, v, ks, vs, idx, *out,
            n_layers, bk, kv_row, sc_row)
-    gather_cache_rows.launches += 1
+    count_launch(gather_cache_rows)
     return tuple(out)
 
 

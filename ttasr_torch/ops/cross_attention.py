@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.decoder_blocks import (
     DH,
     MAX_BEAMS,
@@ -71,7 +72,7 @@ def cross_attention_int8(q, ck, cks, cv, cvs, s_real: int):
 
     launch("ttasr_cross_attention_int8", dev, qs, ck, cks, cv, cvs, out,
            b, k, d, s, int(s_real), int(packed))
-    cross_attention_int8.launches += 1
+    count_launch(cross_attention_int8)
     return out
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.int4 import unpack_int4
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -161,7 +162,7 @@ def qkv_int8_fused(x, ln_s, ln_b, wq, ws, b):
     from ttasr_torch.ops._build import launch
 
     launch("ttasr_qkv_int8", dev, x, ln_s, ln_b, wq, ws, b, out, r, d, m)
-    qkv_int8_fused.launches += 1
+    count_launch(qkv_int8_fused)
     return out
 
 
@@ -211,7 +212,7 @@ def attnout_ln_q_fused(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
 
     launch("ttasr_attnout_ln_q", dev, x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
            wqc_q, wqc_s, bqc, xo, qc, r, d, dc)
-    attnout_ln_q_fused.launches += 1
+    count_launch(attnout_ln_q_fused)
     return xo, qc
 
 
@@ -330,7 +331,7 @@ def attnout_ln_q_cross_int8(x, attn, wo_q, wo_s, bo, lnc_s, lnc_b,
     launch("ttasr_attnout_cross_int8", dev, x, attn, wo_q, wo_s, bo, lnc_s,
            lnc_b, wqc_q, wqc_s, bqc, ck, cks, cv, cvs, xo, qc, cross,
            b, k, d, dc, s, int(s_real), int(packed))
-    attnout_ln_q_cross_int8.launches += 1
+    count_launch(attnout_ln_q_cross_int8)
     return xo, cross
 
 
@@ -367,7 +368,7 @@ def matmul_int8_partial(x, wq, ws):
     from ttasr_torch.ops._build import launch
 
     launch("ttasr_matmul_int8_partial", dev, x, wq, ws, out, r, dl, m)
-    matmul_int8_partial.launches += 1
+    count_launch(matmul_int8_partial)
     return out
 
 
@@ -421,7 +422,7 @@ def ln_q_cross_int8(xo, lnc_s, lnc_b, wqc_q, wqc_s, bqc, ck, cks, cv, cvs,
     launch("ttasr_ln_q_cross_int8", dev, xo, lnc_s, lnc_b, wqc_q, wqc_s, bqc,
            ck, cks, cv, cvs, qc, cross, b, k, d, dc, s, int(s_real),
            int(packed))
-    ln_q_cross_int8.launches += 1
+    count_launch(ln_q_cross_int8)
     return cross
 
 

@@ -45,6 +45,7 @@ import heapq
 import numpy as np
 import torch
 
+from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.decoder_blocks import (
     MAX_SMEM,
     RED_FLOATS,
@@ -265,7 +266,7 @@ def mlp_with_crossout_int8(x, cross, woc_q, woc_s, boc, ln_s, ln_b,
     launch("ttasr_mlp_crossout_int8", dev, x, cross, woc_q, woc_s, boc, ln_s,
            ln_b, w1q, w1s, b1, w2q, w2s, b2, x_mid, hid, out, part, sync, sched,
            r, d, f, *ints)
-    mlp_with_crossout_int8.launches += 1
+    count_launch(mlp_with_crossout_int8)
     return out
 
 
@@ -307,7 +308,7 @@ def mlp_int8_fused(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
     part, sync, sched, *ints = _persistent_args(dev, d, f, r, cross=False)
     launch("ttasr_mlp_int8", dev, x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2,
            hid, out, part, sync, sched, r, d, f, int(partial), *ints)
-    mlp_int8_fused.launches += 1
+    count_launch(mlp_int8_fused)
     return out
 
 

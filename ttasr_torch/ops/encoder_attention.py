@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from ttasr_torch.ops._build import count_launch
+
 DH = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,7 +84,7 @@ def encoder_attention_merged(q, k, v, t_real: int):
     out = torch.empty_like(q)
     launch("ttasr_encoder_attention", q.device, q, k, v, out,
            b, t, d, t_real, _DTYPE_CODE[q.dtype])
-    encoder_attention_merged.launches += 1
+    count_launch(encoder_attention_merged)
     return out
 
 
@@ -128,7 +130,7 @@ def encoder_attention_merged_qkv(qkv, t_real: int):
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     launch("ttasr_encoder_attention_qkv", qkv.device, qkv, out, b, t, d, t_real,
            _DTYPE_CODE[qkv.dtype])
-    encoder_attention_merged_qkv.launches += 1
+    count_launch(encoder_attention_merged_qkv)
     return out
 
 
@@ -191,7 +193,7 @@ def encoder_self_attention(q, k, v):
                if q.dtype == torch.float32 else None)
     launch("ttasr_encoder_self_attention", q.device, q, k, v, scratch, out, b, t,
            h * dh, _DTYPE_CODE[q.dtype])
-    encoder_self_attention.launches += 1
+    count_launch(encoder_self_attention)
     return out
 
 

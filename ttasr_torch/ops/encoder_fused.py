@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.decoder_blocks import _dispatch
 from ttasr_torch.ops.decoder_mlp import gelu_as
 from ttasr_torch.ops.quant import act8_epilogue, quantize_rows
@@ -172,7 +173,7 @@ def ln_quant(x, scale, bias):
 
     s, b, mask = _vecs(d, scale=scale, bias=bias)
     launch("ttasr_ln_quant", x.device, x, s, b, codes, scales, rows, d, mask)
-    ln_quant.launches += 1
+    count_launch(ln_quant)
     return codes, scales
 
 
@@ -192,7 +193,7 @@ def add_ln_quant(x, y, scale, bias):
     s, b, mask = _vecs(d, scale=scale, bias=bias)
     launch("ttasr_add_ln_quant", x.device, x, y, s, b, resid, codes, scales, rows,
            d, mask)
-    add_ln_quant.launches += 1
+    count_launch(add_ln_quant)
     return resid, codes, scales
 
 
@@ -205,7 +206,7 @@ def gelu_quant(h):
     from ttasr_torch.ops._build import launch
 
     launch("ttasr_gelu_quant", h.device, h, codes, scales, rows, f)
-    gelu_quant.launches += 1
+    count_launch(gelu_quant)
     return codes, scales
 
 
@@ -218,7 +219,7 @@ def quant_only(x):
     from ttasr_torch.ops._build import launch
 
     launch("ttasr_quant_only", x.device, x, codes, scales, rows, d)
-    quant_only.launches += 1
+    count_launch(quant_only)
     return codes, scales
 
 
@@ -235,7 +236,7 @@ def gelu_quant_acc(acc, xs, w_scale, b):
 
     launch("ttasr_gelu_quant_acc", acc.device, acc, xs, ws, b, codes, scales,
            rows, f, mask)
-    gelu_quant_acc.launches += 1
+    count_launch(gelu_quant_acc)
     return codes, scales
 
 
@@ -264,7 +265,7 @@ def ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
     if not _dispatch(x):
         return ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
     out = _acc_add_ln("ttasr_ln_quant_acc", x, acc, xs, w_scale, b, scale, bias)
-    ln_quant_acc.launches += 1
+    count_launch(ln_quant_acc)
     return out
 
 
@@ -276,7 +277,7 @@ def add_ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
     if not _dispatch(x):
         return add_ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
     out = _acc_add_ln("ttasr_add_ln_quant_acc", x, acc, xs, w_scale, b, scale, bias)
-    add_ln_quant_acc.launches += 1
+    count_launch(add_ln_quant_acc)
     return out
 
 
@@ -301,7 +302,7 @@ def qkv_epilogue_acc(acc, xs, w_scale, b, q_scale, out_dtype=torch.bfloat16):
 
     launch("ttasr_qkv_epilogue_acc", acc.device, acc, xs, ws, b, out, rows, w,
            w // 3, float(q_scale), mask)
-    qkv_epilogue_acc.launches += 1
+    count_launch(qkv_epilogue_acc)
     return out
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ttasr_torch import resolve_device
+from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.mel import (
     N_FFT,
     N_FRAMES,
@@ -130,9 +131,9 @@ def log_mel_spectrogram_fused(audio, n_mels: int = 80):
     tile_max = torch.empty((b, TILES), dtype=torch.float32, device=x.device)
     launch("ttasr_log_mel", x.device, x, twiddles, window, indptr, first, weights,
            out, tile_max, b, n, n_mels, weights.numel())
-    log_mel_spectrogram_fused.launches += 1
+    count_launch(log_mel_spectrogram_fused)
     launch("ttasr_log_mel_tail", x.device, out, tile_max, b, n_mels)
-    log_mel_spectrogram_fused.launches += 1
+    count_launch(log_mel_spectrogram_fused)
     return out[0] if squeeze else out
 
 

@@ -28,6 +28,8 @@ from typing import Any, Dict
 
 import torch
 
+from ttasr_torch.ops._build import count_launch
+
 # matmul weight leaves eligible for quantization
 QUANT_KEYS = frozenset({
     "wq", "wk", "wv", "wo", "w1", "w2",
@@ -186,7 +188,7 @@ def _int8_product(a, q):
     if m <= 16:  # _int_mm takes more than 16 rows
         a = torch.cat([a, a.new_zeros((17 - m, k))])
     acc = torch._int_mm(a.contiguous(), q)
-    quant_matmul_act8.launches += 1
+    count_launch(quant_matmul_act8)
     return acc[:m]
 
 

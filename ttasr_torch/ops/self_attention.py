@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.decoder_blocks import (
     DH,
     NEG_INF,
@@ -160,7 +161,7 @@ def self_attn_step_int8(qkv, k8, ks, v8, vs, pad_len, slot, *,
         return self_attn_step_int8_ref(qkv, k8, ks, v8, vs, pad_len, slot,
                                        n_heads=n_heads, int4=int4)
     out = _launch(qkv, k8, ks, v8, vs, None, pad_len, int(slot), n_heads, int4)
-    self_attn_step_int8.launches += 1
+    count_launch(self_attn_step_int8)
     return out
 
 
@@ -173,7 +174,7 @@ def self_attn_step_indirect_int8(qkv, k8, ks, v8, vs, anc, pad_len, slot, *,
             qkv, k8, ks, v8, vs, anc, pad_len, slot, n_heads=n_heads,
             int4=int4)
     out = _launch(qkv, k8, ks, v8, vs, anc, pad_len, int(slot), n_heads, int4)
-    self_attn_step_indirect_int8.launches += 1
+    count_launch(self_attn_step_indirect_int8)
     return out
 
 
