@@ -172,7 +172,26 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    and 768; B6 and B3 at T = S = 256 and 768 within the bounds of phases 4
    and 5; B1, B3 and B4 at 20 rows of 4 audios, B2 at 4 audios x 5 beams
    and B10 at 4 rows within ``DECODE_REL``, timed beside their plain
-   versions and bounds; and its own seconds.
+   versions and bounds; and its own seconds;
+15. serves the HTTP service on the main path's engine (after 14; the
+   engine of phases 10-15 is built by ``registry.get_engine("large-v3",
+   compute_type="int8", device="cuda")``, so the app's own ``load_model``
+   and the stream's init find it): ``ttasr_torch.api.app.create_app()`` on
+   a localhost socket, its data and auth DB in a temporary directory; it
+   logs in as the bootstrap admin, opens ``/stream/ws/stt`` with the
+   ``simple`` VAD, uploads one synthesized 8 s WAV (``SERVICE_UPLOAD``) as
+   a subtitle task and at the same time sends ``STREAM_SPEECH`` and
+   ``STREAM_SILENCE_S`` of PCM16 over the socket in 0.25 s frames at about
+   real time; it requires status 22, the TXT and a parsable SRT through the
+   routes (a start after the file's end only where the end is clipped to
+   it, ROADMAP C6), transcripts with text on the socket, the task API and
+   the stream on the main engine and one ``BatchServer``, at least one
+   priority sweep and one beam group of the upload (counted by wrapping
+   ``_decode_batch``), exact launch counts, both health routes' JSON and no
+   ERROR record from a ``ttasr_torch`` logger (the service logs and
+   swallows its failures); prints the upload's wall per audio second, each
+   transcript's latency from its last frame, sweeps, rows and priority
+   rows, peak memory and its own seconds.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
@@ -195,7 +214,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import logging
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1957,12 +1978,16 @@ def run_int8_path(card: str, act8: bool) -> dict:
     per window and, for the main path, the branch paths' results."""
     import torch
 
+    from ttasr_torch.engine import registry
     from ttasr_torch.engine.transcriber import WhisperEngine
 
     label = "int8 main path" if act8 else "int8 path, encoder_act_int8=False"
     t0 = time.perf_counter()
     kw = {} if act8 else dict(encoder_act_int8=False)
-    engine = WhisperEngine("large-v3", compute_type="int8", device="cuda", **kw)
+    if act8:  # through the registry, where the HTTP service (phase 15) finds it
+        engine = registry.get_engine(SERVICE_MODEL, compute_type="int8", device="cuda")
+    else:
+        engine = WhisperEngine("large-v3", compute_type="int8", device="cuda", **kw)
     torch.cuda.synchronize()
     print(f"engine: large-v3 int8 (quantized on the card) {kw or 'defaults'}, "
           f"random init in {time.perf_counter() - t0:.1f} s")
@@ -1972,16 +1997,18 @@ def run_int8_path(card: str, act8: bool) -> dict:
     if act8:
         _encoder_agrees(engine, run["first"], label, plain=plain_encoder_kernels)
     ms = encoder_ms(engine, run["first"], label, card)
-    branches = tp = routes = server = None
+    branches = tp = routes = server = service = None
     if act8:
         routes = compare_encoder_routes(engine, run["first"], card)
         branches, main_leg = run_branch_paths(engine, run["first"], card)
         tp = run_tp_paths(engine, run["first"], main_leg, card)
         server = run_server_path(engine, card)
+        service = run_http_service(engine, card)
+        registry.reset_engines()
     del engine
     torch.cuda.empty_cache()
     return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp, routes=routes,
-                server=server)
+                server=server, service=service)
 
 
 # ---------------------------------------------------------------------------
@@ -2658,7 +2685,8 @@ class ServedGroups:
     """Wraps a server's ``_decode_batch`` and, for the calls made inside it,
     the engine's ``encode_windows`` / ``run_beam_decode`` /
     ``run_greedy_decode``: counts sweeps, rows and the dispatches that
-    started while another group was in flight, and keeps each group's
+    started while another group was in flight, logs each sweep's rows,
+    priority rows, beam or not and window (``log``), and keeps each group's
     inputs (packed PCM, prompts, temperatures, seed, options) and outputs
     when ``keep(record, kept)`` says so.  ``close()`` takes the wrappers off
     the engine."""
@@ -2669,11 +2697,14 @@ class ServedGroups:
         self.engine, self.keep = engine, keep
         self.lock, self.local = threading.Lock(), threading.local()
         self.sweeps = self.rows = self.max_rows = self.overlapped = self.inflight = 0
-        self.kept = []
+        self.kept, self.log = [], []
         real = server._decode_batch
 
         def decode_batch(batch):
+            _, is_beam, _, window = batch[0].group_key
             with self.lock:
+                self.log.append(dict(rows=len(batch), beam=is_beam, window=window,
+                                     priority=sum(r.priority > 0 for r in batch)))
                 self.sweeps += 1
                 self.rows += len(batch)
                 self.max_rows = max(self.max_rows, len(batch))
@@ -3042,6 +3073,299 @@ def run_server_path(engine, card: str) -> dict:
                 overlapped=groups.overlapped, wall_per_audio_s=wall / audio_seconds,
                 sequential_wall_per_audio_s=seq_wall / audio_seconds, cli_modes=modes,
                 kernels=kernels, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the HTTP service (the task API, auth and the streaming WebSocket)
+# ---------------------------------------------------------------------------
+
+SERVICE_MODEL = "large-v3"  # TTASR_MODEL_PATH and FASTAPI_ASR_MODEL_SIZE
+SERVICE_UPLOAD = ("service_upload", 8.0, 30)  # one window: name, seconds, seed
+STREAM_SPEECH = (8.0, 31)  # seconds, seed of the streamed speech
+STREAM_SILENCE_S = 2.0  # silence sent after it
+STREAM_FRAME_S = 0.25  # one binary PCM16 frame, sent at about real time
+SERVICE_TIMEOUT_S = 300.0  # a hang guard on the task and the stream, not a bound
+
+
+@contextlib.contextmanager
+def _service_env(tmp: str, model: str, device: str):
+    """The service's environment for one run: its data and auth DB in
+    ``tmp``, the task API's model and the stream's on ``model`` (one
+    ``get_engine`` key), a test JWT secret and the bootstrap admin."""
+    env = dict(TTASR_API_DATA_DIR=tmp, ASR_API_AUTH_DB=os.path.join(tmp, "auth.db"),
+               ASR_API_JWT_SECRET="chip-smoke-secret", ASR_API_JWT_ALGORITHM="HS256",
+               ASR_API_BOOTSTRAP_ADMIN_USERNAME="admin",
+               ASR_API_BOOTSTRAP_ADMIN_PASSWORD="admin@0935",
+               ASR_API_RESET_ADMIN_ON_STARTUP="1", TTASR_MODEL_PATH=model,
+               FASTAPI_ASR_MODEL_SIZE=model, TTASR_MODEL_COMPUTE_TYPE="int8",
+               TTASR_MODEL_DEVICE=device, TTASR_VAD_TYPE="simple", FASTAPI_SKIP_INIT="0",
+               FASTAPI_WARMUP="0", TTASR_TASK_BATCH_SLOTS=str(TASK_SLOTS),
+               TTASR_BATCH_SLOTS=str(TASK_SLOTS))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _ErrorRecords(logging.Handler):
+    """Keeps every ERROR record of the ``ttasr_torch`` loggers: the service
+    logs and swallows its failures (the task worker, the stream's chunk
+    processing, the ASR plugin), as the JAX package does."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(f"{record.name}: {record.getMessage()}"
+                            + (f" ({record.exc_info[1]!r})" if record.exc_info else ""))
+
+
+def _parse_srt(text: str):
+    """(start, end, text) of each block of ``segments_to_srt``'s output."""
+    def seconds(stamp):
+        h, m, rest = stamp.split(":")
+        s, ms = rest.split(",")
+        return int(h) * 3600 + int(m) * 60 + int(s) + int(ms) / 1000
+
+    blocks = []
+    text = text.replace("\r\n", "\n").strip()
+    for block in text.split("\n\n") if text else []:
+        lines = block.split("\n")
+        check(len(lines) >= 2 and lines[0].isdigit() and " --> " in lines[1],
+              f"malformed SRT block {block!r}")
+        start, end = (seconds(x) for x in lines[1].split(" --> "))
+        blocks.append((start, end, "\n".join(lines[2:])))
+    return blocks
+
+
+async def _serve_once(ft, service_app, audio_path: str, stream_pcm: bytes, on_ready):
+    """One event loop: ``create_app()`` on a localhost socket; log in as the
+    bootstrap admin; open ``/stream/ws/stt?token=...`` and wait for the
+    service to be ready (``on_ready(app)`` is called then); upload
+    ``audio_path`` as a subtitle task while ``stream_pcm`` goes over the
+    socket in ``STREAM_FRAME_S`` frames at about real time; wait until the
+    stream's strategy is idle and the task is done; download the TXT and SRT
+    and read both health routes.  Returns what it saw."""
+    import asyncio
+
+    import aiohttp
+    from aiohttp import web
+
+    app = service_app.create_app()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    port = runner.addresses[0][1]
+    base = f"http://127.0.0.1:{port}"
+    out = {}
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + SERVICE_TIMEOUT_S
+    try:
+        async with aiohttp.ClientSession() as http:
+            r = await http.post(f"{base}/api/v1/login", json={
+                "username": "admin", "password": "admin@0935", "rememberMe": 0})
+            check(r.status == 200, f"login: HTTP {r.status} {await r.text()}")
+            token = (await r.json())["token"]
+            headers = {"Authorization": f"Bearer {token}"}
+            ws = await http.ws_connect(f"{base}/stream/ws/stt?token={token}")
+            hello = await ws.receive_json(timeout=SERVICE_TIMEOUT_S)
+            check(hello.get("code") == 100, f"stream handshake: {hello}")
+            ready = await ws.receive_json(timeout=SERVICE_TIMEOUT_S)
+            check(ready.get("code") == 180, f"stream not ready: {ready}")
+            service = app["streaming_service"]
+            on_ready(app)
+
+            messages, sent_at = [], {}
+
+            async def receive():
+                async for msg in ws:
+                    if msg.type == aiohttp.WSMsgType.TEXT:
+                        messages.append((loop.time(), json.loads(msg.data)))
+
+            async def stream():
+                frame = int(2 * SR * STREAM_FRAME_S)
+                t0 = loop.time()
+                for i in range(0, len(stream_pcm), frame):
+                    await ws.send_bytes(stream_pcm[i:i + frame])
+                    end_s = min(i + frame, len(stream_pcm)) / (2 * SR)
+                    sent_at[round(end_s, 3)] = loop.time()
+                    await asyncio.sleep(max(0.0, t0 + end_s - loop.time()))
+
+            receiver = loop.create_task(receive())
+            form = aiohttp.FormData()
+            with open(audio_path, "rb") as fh:
+                form.add_field("audio", fh.read(), filename=os.path.basename(audio_path),
+                               content_type="audio/wav")
+            t_upload = loop.time()
+            r = await http.post(f"{base}/api/v1/subtitle/tasks", data=form, headers=headers)
+            check(r.status == 200, f"upload: HTTP {r.status} {await r.text()}")
+            task_id = (await r.json())["id"]
+            await stream()
+
+            # the stream is done once its strategy is idle with under a
+            # chunk pending; the task once its status is final
+            client = service.connected_clients[0]
+            strategy = client.buffering_strategy
+            chunk = strategy.chunk_length_seconds * SR * 2
+            task_s = None
+            while True:
+                if task_s is None:
+                    r = await http.post(f"{base}/api/v1/subtitle/tasks/{task_id}",
+                                        headers=headers)
+                    status = (await r.json())["data"][0]["status"]
+                    if status in (ft.STATUS_AUDIO_DONE, ft.STATUS_FAILED):
+                        task_s, out["status"] = loop.time() - t_upload, status
+                idle = not strategy.processing_flag and len(client.buffer) <= chunk
+                if task_s is not None and idle:
+                    break
+                check(loop.time() < deadline, f"the service did not finish in "
+                      f"{SERVICE_TIMEOUT_S:.0f} s (task status {status}, stream idle {idle})")
+                await asyncio.sleep(0.1)
+            await ws.close()
+            await receiver
+            out.update(task_s=task_s, messages=messages, sent_at=sent_at)
+            if out["status"] != ft.STATUS_AUDIO_DONE:
+                with ft._tasks_conn() as conn:
+                    out["error"] = conn.execute("SELECT error FROM subtitle_tasks WHERE id=?",
+                                                (task_id,)).fetchone()
+                return out
+            for kind in ("TXT", "SRT"):
+                r = await http.get(f"{base}/api/v1/subtitle/tasks/{task_id}/subtitle"
+                                   f"?type={kind}", headers=headers)
+                check(r.status == 200, f"download {kind}: HTTP {r.status}")
+                out[kind] = await r.text()
+            for route in ("/api/health", "/stream/health"):
+                r = await http.get(base + route)
+                check(r.status == 200, f"{route}: HTTP {r.status}")
+                out[route] = await r.json()
+            out["same_engine"] = ft.whisper_engine is service.asr_pipeline.engine
+            out["engine"] = ft.whisper_engine
+            out["server"] = service.batch_server
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def run_http_service(engine, card: str, model: str = SERVICE_MODEL,
+                     device: str = "cuda") -> dict:
+    """Phase 15 on the main path's engine (built by ``registry.get_engine``,
+    so the app's own ``load_model`` and the stream's init resolve to it):
+    the task API, auth and the streaming WebSocket of ``create_app()`` on a
+    localhost socket, one upload beside one stream, sharing one engine and
+    one ``BatchServer``.  Launches are exact against the decode stats."""
+    import asyncio
+
+    import torch
+
+    from ttasr_torch.audio.io import write_wav
+    from ttasr_torch.engine import serving
+
+    t_phase = time.perf_counter()
+    label = "HTTP service"
+    counters = _int8_counters()
+    speech = synth_speech(np.random.default_rng(STREAM_SPEECH[1]), STREAM_SPEECH[0])[0]
+    stream_audio = np.concatenate([speech, np.zeros(int(SR * STREAM_SILENCE_S), np.float32)])
+    stream_pcm = (np.clip(stream_audio, -1, 1) * 32767).astype("<i2").tobytes()
+    errors = _ErrorRecords()
+    logging.getLogger("ttasr_torch").addHandler(errors)
+    with tempfile.TemporaryDirectory() as tmp, _service_env(tmp, model, device):
+        from ttasr_torch.api import app as service_app
+        from ttasr_torch.api import file_tasks as ft
+
+        check(str(ft.BASE_DIR) == tmp, f"{label}: the task data went to {ft.BASE_DIR}")
+        ft.whisper_engine = None
+        audio_seconds, _ = _write_wavs(tmp, [SERVICE_UPLOAD])
+        audio_path = os.path.join(tmp, f"{SERVICE_UPLOAD[0]}.wav")
+        state = {}
+
+        def on_ready(app):  # the stream's server exists: count from here
+            server = app["streaming_service"].batch_server
+            state["groups"] = ServedGroups(server, engine, keep=lambda rec, kept: False)
+            state["before"] = dict(engine.decode_stats)
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+
+        try:
+            out = asyncio.run(_serve_once(ft, service_app, audio_path, stream_pcm, on_ready))
+        finally:
+            logging.getLogger("ttasr_torch").removeHandler(errors)
+            if "groups" in state:
+                state["groups"].close()
+        counts = {fn.__name__: fn.launches for fn in counters}
+        st = {k: engine.decode_stats[k] - state["before"][k] for k in state["before"]}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    check(not errors.records, f"{label}: ERROR records: {errors.records}")
+    check(out["status"] == ft.STATUS_AUDIO_DONE,
+          f"{label}: task status {out['status']}, error {out.get('error')}")
+    check(out["engine"] is engine and out["same_engine"],
+          f"{label}: the task API and the stream did not share the main engine")
+    check(serving._SHARED_SERVERS.get(id(engine)) is out["server"],
+          f"{label}: the task API and the stream did not share one BatchServer")
+    blocks = _parse_srt(out["SRT"])
+    duration = SERVICE_UPLOAD[1]
+    late = 0
+    for start, end, _ in blocks:
+        # the batched path clips a segment's end, not its start (ROADMAP C6)
+        if start > duration:
+            late += 1
+            check(end == duration, f"{label}: SRT block {start} --> {end} past {duration}")
+        else:
+            check(start <= end <= duration, f"{label}: SRT block {start} --> {end}")
+    print(f"{label}: task status {out['status']}, TXT {len(out['TXT'])} chars, SRT "
+          f"{len(blocks)} blocks ({late} starting after the file's end, their end "
+          f"clipped to it)")
+    for route in ("/api/health", "/stream/health"):
+        print(f"{label}: GET {route} -> {json.dumps(out[route], ensure_ascii=False)}")
+    check(out["/api/health"]["model_loaded"] is True, f"{label}: /api/health")
+    check(out["/stream/health"]["asr_pipeline"] == "ready", f"{label}: /stream/health")
+
+    partials = [(t, m) for t, m in out["messages"] if m.get("code") == 200 and "result" in m]
+    check(partials and all(m["result"][0]["transcript"] for _, m in partials),
+          f"{label}: no transcript with text on the socket: {out['messages']}")
+    latencies = []
+    for t, m in partials:
+        start, end = m["result"][0]["startTime"], round(m["result"][0]["endTime"], 3)
+        sent = min(out["sent_at"], key=lambda s: abs(s - end))
+        check(abs(sent - end) < 1e-3, f"{label}: no frame ends at {end}")
+        latencies.append(t - out["sent_at"][sent])
+        print(f"  transcript of {start:.2f}-{end:.2f} s of the stream, "
+              f"{len(m['result'][0]['transcript'])} chars, {latencies[-1]:.3f} s after "
+              f"its last frame")
+    sweeps = state["groups"].log
+    priority = [s for s in sweeps if s["priority"]]
+    bulk_beam = [s for s in sweeps if s["beam"] and not s["priority"]]
+    check(priority, f"{label}: no priority request was served")
+    check(bulk_beam, f"{label}: no beam group of the upload was served")
+    print(f"{label} decode stats: {json.dumps(st)}")
+    check(st["nonfinite_logits"] == 0, f"{label}: a decode produced non-finite logits")
+    _expect_int8_launches(label, counts, st)
+    rows = [s["rows"] for s in sweeps]
+    print(f"{label}: {len(sweeps)} sweeps, rows per sweep {rows}, {len(priority)} priority "
+          f"sweeps with {sum(s['priority'] for s in priority)} priority rows (windows "
+          f"{sorted({s['window'] for s in priority})}), {len(bulk_beam)} beam groups of "
+          f"the upload")
+    print(f"{label}: upload {audio_seconds:.1f} s of audio done in {out['task_s']:.2f} s = "
+          f"{out['task_s'] / audio_seconds:.4f} s per audio second (status polled every "
+          f"0.1 s); {len(partials)} transcripts on the socket, latency from the last "
+          f"frame to the message median {statistics.median(latencies):.3f} s, worst "
+          f"{max(latencies):.3f} s; peak memory {peak:.2f} GiB ({card})")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 15 (the HTTP service): {seconds:.1f} s ({card})")
+    return dict(status=out["status"], sweeps=len(sweeps), rows=rows,
+                priority_rows=sum(s["priority"] for s in priority),
+                upload_s_per_audio_s=out["task_s"] / audio_seconds,
+                partial_latency_s=dict(median=statistics.median(latencies), worst=max(latencies)),
+                peak_gib=peak, seconds=seconds)
 
 
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces
