@@ -94,8 +94,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    (TFLOP/s and the share of the bound printed);
 9. drives the bf16 batch CLI path: ``WhisperEngine("large-v3",
    compute_type="bfloat16")`` with random weights from a seeded generator,
-   on two synthesized speech-like WAVs (20 s and 45 s, so the seek loop
-   crosses a window with prompt carry), through
+   its decoder cut to ``BF16_DECODER_LAYERS`` layers to keep the script
+   within its time (the encoder whole), on two synthesized speech-like
+   WAVs (20 s and 45 s, so the seek loop crosses a window with prompt
+   carry), through
    ``ttasr_torch.cli.asr.process_audio_folder``; checks the results, that
    B11 ran 32 times per encoder pass, that beam decodes ran with finite
    logits, and that the encoder output agrees with the plain-attention
@@ -191,7 +193,33 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    ERROR record from a ``ttasr_torch`` logger (the service logs and
    swallows its failures); prints the upload's wall per audio second, each
    transcript's latency from its last frame, sweeps, rows and priority
-   rows, peak memory and its own seconds.
+   rows, peak memory and its own seconds;
+16. word timestamps, the warm-up and the doctor on the main path's engine
+   (after 15): one synthesized 12 s WAV (``WORDS_CLIP``) with
+   ``vad_filter=False`` and ``temperature=(0.0,)`` through
+   ``engine.transcribe``, ``transcribe_with_server`` (the task API's
+   ``shared_server``) and ``BatchedInferencePipeline(engine,
+   batch_size=4)`` with ``word_timestamps=True``, and ``engine.transcribe``
+   without: the tokens equal with and without words, a ``words`` list on
+   every segment with text, every word within ``0 <= start <= end`` and
+   its window ``[offset, offset + 30]``, starts sorted in a segment, and no
+   ERROR record of a ``ttasr_torch`` logger (a failing alignment is logged
+   and swallowed, as in the reference); one window's cross-attention from
+   the pass in the engine's dtype held to the pass on a float64 copy of
+   the dequantized decoder leaves (``ALIGN_PROB_BOUND``, max p printed
+   beside it), and each layer's score step on its own q and k held to
+   float64 (``SCORE_STEP_BOUND``) beside a control with bf16 scores that
+   must break that bound, on a forced
+   transcript of ``ALIGN_TOKENS`` tokens (random weights decode a few text
+   tokens), with the share of tokens whose DTW start moves; each
+   alignment's seconds and the peak memory above what it started with;
+   then ``python -m
+   ttasr_torch.cli.warmup --model large-v3 --slots 1 --file-api off`` (its
+   six census entries, each a JSON line, the kernels' build stage and the
+   total), its ``--dry-run`` at the defaults equal to ``census(8)``, and
+   ``python -m ttasr_torch.cli.doctor`` (the card named, the kernel library
+   loaded, the native host library built by g++ or absent with its
+   reason); and its own seconds.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
@@ -212,6 +240,7 @@ printing no result, when CUDA is unavailable or the checkout is missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import logging
@@ -562,9 +591,10 @@ def check_decode_kernels(card: str) -> dict:
         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
         **bound(_tensors(b1, blk.qkv_int8_fused(*b1)), 2.0 * 5 * D * 3 * D, "bf16"))
     _same_bits("qkv_int8_fused R=5", lambda: blk.qkv_int8_fused(*b1))
+    n_kernels = _kernels_per_call("qkv_int8_fused R=5", lambda: blk.qkv_int8_fused(*b1),
+                                  blk.qkv_int8_fused)
     print(f"qkv_int8_fused R=5: in a graph of 20 {per_call_ms(lambda: blk.qkv_int8_fused(*b1)):.4f} "
-          f"ms per call, {_kernels_per_call(lambda: blk.qkv_int8_fused(*b1)):.0f} CUDA kernel(s) "
-          f"per call ({card})")
+          f"ms per call, {n_kernels:.0f} CUDA kernel(s) per call ({card})")
 
     # B3: (B, K) = (1, 5) and (5, 1), int4-packed and int8 cross-KV
     worst = 0.0
@@ -626,7 +656,9 @@ def check_decode_kernels(card: str) -> dict:
         if r == 5:
             b4 = args
     _same_bits("mlp_with_crossout_int8 R=5", lambda: mlp.mlp_with_crossout_int8(*b4))
-    n_kernels = _kernels_per_call(lambda: mlp.mlp_with_crossout_int8(*b4))
+    n_kernels = _kernels_per_call("mlp_with_crossout_int8 R=5",
+                                  lambda: mlp.mlp_with_crossout_int8(*b4),
+                                  mlp.mlp_with_crossout_int8)
     print(f"mlp_with_crossout_int8 R=5: {n_kernels:.0f} CUDA kernel(s) per call")
     check(n_kernels == 1, f"mlp_with_crossout_int8 ran {n_kernels} CUDA kernels per call, not 1")
     ms, plain_ms = in_turns(lambda: mlp.mlp_with_crossout_int8(*b4),
@@ -659,19 +691,36 @@ def check_decode_kernels(card: str) -> dict:
     return res
 
 
-def _kernels_per_call(fn, calls: int = 10) -> float:
-    """CUDA kernels per call of ``fn``, from torch.profiler."""
+def _kernels_per_call(label, fn, wrapper, calls: int = 10, tries: int = 3) -> float:
+    """CUDA kernels per call of ``fn``, from torch.profiler: the most over
+    ``tries`` profiled runs of ``calls`` calls.  Each try's profiler count
+    is printed beside a second witness, the launches that ``wrapper``
+    counted over the same calls, and a try that reads fewer kernels than
+    the most gets a line of its own: once on the card the profiler saw 3
+    kernels in 10 calls of one-kernel B4, and whether it dropped device
+    records there is not known."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+    counts, launched = [], []
+    for _ in range(tries):
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched.append(wrapper.launches - before)
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    print(f"{label}: profiled {calls} calls {tries} times: CUDA kernels {counts}, "
+          f"{wrapper.__name__} launches {launched}")
+    for i, (n, k) in enumerate(zip(counts, launched)):
+        if n != max(counts):
+            print(f"{label}: try {i} DISAGREES: the profiler saw {n} CUDA kernels where "
+                  f"another try saw {max(counts)}; the wrapper counted {k} launches")
+    return max(counts) / calls
 
 
 def _kernel_names(fn) -> dict:
@@ -1330,7 +1379,9 @@ def check_tp_kernels(card: str) -> dict:
                 if (n, r, partial) == (1, 5, True):
                     main = b14
     _same_bits("mlp_int8_fused n=1 R=5 partial", lambda: mlp.mlp_int8_fused(*main, partial=True))
-    n_kernels = _kernels_per_call(lambda: mlp.mlp_int8_fused(*main, partial=True))
+    n_kernels = _kernels_per_call("mlp_int8_fused n=1 R=5 partial",
+                                  lambda: mlp.mlp_int8_fused(*main, partial=True),
+                                  mlp.mlp_int8_fused)
     print(f"mlp_int8_fused n=1 R=5 partial: {n_kernels:.0f} CUDA kernel(s) per call, in a "
           f"graph of 20 {per_call_ms(lambda: mlp.mlp_int8_fused(*main, partial=True)):.4f} ms "
           f"({card})")
@@ -1898,6 +1949,11 @@ def _encoder_agrees(engine, audio, label: str, plain=None) -> None:
     check(err <= ENCODER_REL * scale, f"{label}: encoder disagrees with its plain versions")
 
 
+# the bf16 path's decoder depth (of 32): the script keeps within its time;
+# every layer is the same arithmetic, and the encoder stays whole (B11)
+BF16_DECODER_LAYERS = 8
+
+
 def run_bf16_path(card: str) -> dict:
     """The batch CLI at large-v3, bf16, beam 5; returns B11's launches and
     the encoder's ms per window."""
@@ -1908,9 +1964,11 @@ def run_bf16_path(card: str) -> dict:
 
     t0 = time.perf_counter()
     engine = build_engine("large-v3", device="cuda")
+    engine.params["decoder"]["blocks"] = engine.params["decoder"]["blocks"][:BF16_DECODER_LAYERS]
+    engine.cfg = dataclasses.replace(engine.cfg, decoder_layers=BF16_DECODER_LAYERS)
     torch.cuda.synchronize()
     print(f"engine: large-v3 bf16 random init on {engine.device} in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s, decoder cut to {BF16_DECODER_LAYERS} layers")
     run = _drive_cli(engine, "bf16 path", card, [encoder_attention_merged])
     launches = run["counts"]["encoder_attention_merged"]
     check(launches > 0 and launches == N_LAYERS * run["stats"]["encoder_passes"],
@@ -1997,18 +2055,19 @@ def run_int8_path(card: str, act8: bool) -> dict:
     if act8:
         _encoder_agrees(engine, run["first"], label, plain=plain_encoder_kernels)
     ms = encoder_ms(engine, run["first"], label, card)
-    branches = tp = routes = server = service = None
+    branches = tp = routes = server = service = words = None
     if act8:
         routes = compare_encoder_routes(engine, run["first"], card)
         branches, main_leg = run_branch_paths(engine, run["first"], card)
         tp = run_tp_paths(engine, run["first"], main_leg, card)
         server = run_server_path(engine, card)
         service = run_http_service(engine, card)
+        words = run_words_and_tools(engine, card)
         registry.reset_engines()
     del engine
     torch.cuda.empty_cache()
     return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp, routes=routes,
-                server=server, service=service)
+                server=server, service=service, words=words)
 
 
 # ---------------------------------------------------------------------------
@@ -3367,6 +3426,341 @@ def run_http_service(engine, card: str, model: str = SERVICE_MODEL,
                 partial_latency_s=dict(median=statistics.median(latencies), worst=max(latencies)),
                 peak_gib=peak, seconds=seconds)
 
+
+# ---------------------------------------------------------------------------
+# Phase 16: word timestamps on three routes, the warm-up and the doctor
+# ---------------------------------------------------------------------------
+
+WORDS_CLIP = ("words", 12.0, 40)  # name, seconds, seed: one window
+WORDS_KWARGS = dict(vad_filter=False, temperature=(0.0,))
+# on random weights the window decodes to timestamps and a few text tokens,
+# so one more alignment forces a transcript of ALIGN_TOKENS byte tokens on
+# the window's encoder row: the pass and the host DTW at a real length
+ALIGN_TOKENS = 128
+FORCED_TEXT = ("今天天氣很好，我們晚上去士林夜市吃東西。 The night market opens at six, "
+               "and the trains run late. 台灣的夜市很熱鬧，大家都很開心。")
+# the alignment pass in the engine's dtype (bf16 activations on int8
+# weights) against the same pass in float64 on the dequantized decoder
+# leaves: attention probabilities over 1500 frames, absolute; the pass
+# read 2.3e-5 with max p 2.6e-3 (PERF.md).  The bf16 activations set that
+# error: scores rounded to bf16 read only 3.5e-5, so the rounding the pass
+# keeps in float32 is held at its own step (SCORE_STEP_BOUND)
+ALIGN_PROB_BOUND = 1e-4
+# the score step (align._cross_attn_probs) on each layer's own bf16 q and k
+# against float64 on the same q and k: float32 sums and softmax leave
+# ~1e-9; the control, scores rounded to bf16 (_scores_in_q_dtype), must
+# exceed the bound
+SCORE_STEP_BOUND = 1e-7
+WARMUP_ARGS = ("--model", SERVICE_MODEL, "--slots", "1", "--file-api", "off")
+
+
+class _AlignCalls:
+    """Wraps the engine's ``_align_window_words``: seconds, tokens and the
+    device memory above the call's start for each window; and the
+    transcriber's ``alignment_heads_qk`` / ``token_timings``: the first
+    call's encoder row (``first``) and the last call's text and timings
+    (``last``), which the float64 comparison reuses."""
+
+    def __init__(self, engine):
+        import torch
+
+        from ttasr_torch.engine import transcriber
+
+        self.calls, self.first, self.last = [], {}, {}
+        self._engine, self._tr = engine, transcriber
+        self._saved = (transcriber.alignment_heads_qk, transcriber.token_timings)
+        heads_qk, timings = self._saved
+
+        def heads(params, cfg, tok, text_tokens, enc_out):
+            qk = heads_qk(params, cfg, tok, text_tokens, enc_out)
+            self.first.setdefault("enc", enc_out)
+            self.last.update(text=list(text_tokens), enc=enc_out)
+            return qk
+
+        def host(tok, text_tokens, w, **kw):
+            out = timings(tok, text_tokens, w, **kw)
+            self.last["timings"] = out
+            return out
+
+        def align(text_tokens, enc_out, time_offset):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = type(engine)._align_window_words(engine, text_tokens, enc_out, time_offset)
+            self.calls.append(dict(tokens=len(text_tokens), s=time.perf_counter() - t0,
+                                   peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30))
+            return out
+
+        transcriber.alignment_heads_qk, transcriber.token_timings = heads, host
+        engine._align_window_words = align
+
+    def close(self):
+        self._tr.alignment_heads_qk, self._tr.token_timings = self._saved
+        del self._engine._align_window_words
+
+
+def _words_well_formed(label, segments) -> int:
+    """A words list on every segment with text, each word inside its window
+    and ``0 <= start <= end``, starts sorted; returns the word count."""
+    n = 0
+    for seg in segments:
+        if not seg.text.strip():
+            continue
+        check(seg.words is not None, f"{label}: segment {seg.id} with text has no words")
+        offset = seg.seek * 0.01  # the window's (chunk's) start: seek frames of 10 ms
+        starts = [w.start for w in seg.words]
+        check(starts == sorted(starts), f"{label}: word starts {starts} out of order")
+        for w in seg.words:
+            check(0 <= w.start <= w.end, f"{label}: word {w}")
+            check(offset - 0.01 <= w.start and w.end <= offset + 30.0 + 0.01,
+                  f"{label}: word {w} outside its window at {offset:.2f} s")
+        n += len(seg.words)
+    return n
+
+
+def _float64_decoder(params):
+    """The decoder's leaves in float64, int8 ones dequantized (codes times
+    scales)."""
+    from ttasr_torch.ops.quant import is_quantized
+
+    def f64(v):
+        return v["q"].double() * v["s"].double() if is_quantized(v) else v.double()
+
+    dec = params["decoder"]
+    blocks = [{k: f64(v) for k, v in blk.items()} for blk in dec["blocks"]]
+    return {"decoder": dict({k: f64(v) for k, v in dec.items() if k != "blocks"},
+                            blocks=blocks)}
+
+
+def _scores_in_q_dtype(q, k):
+    """The control of the float64 comparison: ``align._cross_attn_probs``
+    with the scores rounded to q's type (bf16) before the softmax, where
+    the pass keeps them in float32."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul((q * scale).transpose(1, 2), k.transpose(1, 2).transpose(-1, -2))
+    return torch.softmax(scores.float(), dim=-1)
+
+
+def _align_against_float64(engine, last, card) -> dict:
+    """One window's pass in the engine's dtype against float64 on the card;
+    in that pass, the score step on each layer's own q and k against
+    float64, beside the control (scores in bf16); the DTW starts of that
+    alignment's timings against the float64 pass's."""
+    import torch
+
+    from ttasr_torch.models.whisper import align
+
+    text, enc = last["text"], last["enc"]
+    tokens, _ = align._teacher_tokens(engine.tokenizer, text)
+    arr = torch.tensor([tokens], dtype=torch.long, device=enc.device)
+    step = {"pass": 0.0, "control": 0.0}
+    sound = align._cross_attn_probs
+
+    def probed(q, k):
+        p = sound(q, k)
+        want = sound(q.double(), k.double())  # q * 2^-3 is exact in bf16
+        step["pass"] = max(step["pass"], float((p.double() - want).abs().max()))
+        step["control"] = max(step["control"], float(
+            (_scores_in_q_dtype(q, k).double() - want).abs().max()))
+        return p
+
+    with torch.inference_mode():
+        align._cross_attn_probs = probed
+        try:
+            _, qk = align.decode_with_cross_attn(engine.params, engine.cfg, arr, enc)
+        finally:
+            align._cross_attn_probs = sound
+        params64 = _float64_decoder(engine.params)
+        _, qk64 = align.decode_with_cross_attn(params64, engine.cfg, arr, enc.double())
+        err = float((qk.double() - qk64).abs().max())
+        p_max = float(qk64.max())
+        w64 = qk64[qk64.shape[0] // 2:, 0].cpu().numpy()
+    shape, dtype = tuple(qk.shape), qk.dtype
+    del params64, qk64, qk
+    torch.cuda.empty_cache()
+    t64 = align.token_timings(engine.tokenizer, text, w64)
+    moved = sum(a.start != b.start for a, b in zip(last["timings"], t64))
+    print(f"words: one window's cross-attention {shape} ({dtype} from {enc.dtype} "
+          f"activations) against float64: worst |delta p| {err:.3e}, max p {p_max:.3e}, "
+          f"bound {ALIGN_PROB_BOUND:g}; DTW start moved on {moved} of {len(t64)} tokens "
+          f"({moved / max(len(t64), 1):.1%}) ({card})")
+    print(f"words: the score step on each layer's q and k against float64: worst "
+          f"|delta p| {step['pass']:.3e}, bound {SCORE_STEP_BOUND:g}; the control with "
+          f"bf16 scores {step['control']:.3e}")
+    check(err <= ALIGN_PROB_BOUND, f"words: pass vs float64 {err:.3e} > {ALIGN_PROB_BOUND}")
+    check(step["pass"] <= SCORE_STEP_BOUND,
+          f"words: score step vs float64 {step['pass']:.3e} > {SCORE_STEP_BOUND}")
+    check(step["control"] > SCORE_STEP_BOUND,
+          f"words: the bf16-score control {step['control']:.3e} is within the bound "
+          f"{SCORE_STEP_BOUND}: the check cannot see that rounding")
+    return dict(max_abs_err=err, p_max=p_max, step_err=step["pass"],
+                step_control_err=step["control"], tokens=len(t64), dtw_start_moved=moved)
+
+
+def _module_cmd(module, *args):
+    return [sys.executable, "-m", module, *args]
+
+
+def _json_lines(text: str):
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def _word_routes(engine, audio, calls):
+    """The clip through the three routes with words, and ``transcribe``
+    without; returns their segments and walls."""
+    import asyncio
+
+    import torch
+
+    from ttasr_torch.engine.batched import BatchedInferencePipeline
+    from ttasr_torch.engine.serving import shared_server
+
+    routes, walls = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        routes[name] = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+
+    async def served():
+        server = await shared_server(engine, slots=TASK_SLOTS, linger_ms=5)
+        try:
+            return (await engine.transcribe_with_server(
+                audio, server, word_timestamps=True, **WORDS_KWARGS))[0]
+        finally:
+            await server.stop()
+
+    timed("transcribe", lambda: engine.transcribe(
+        audio, word_timestamps=True, **WORDS_KWARGS)[0])
+    check(len(calls.calls) >= 1, "words: transcribe aligned no window")
+    timed("server", lambda: asyncio.run(served()))
+    pipe = BatchedInferencePipeline(engine, batch_size=4)
+    try:
+        timed("batched", lambda: pipe.transcribe(
+            audio, word_timestamps=True, **WORDS_KWARGS)[0])
+    finally:
+        pipe.close()
+    timed("plain", lambda: engine.transcribe(
+        audio, word_timestamps=False, **WORDS_KWARGS)[0])
+    return routes, walls
+
+
+def _check_tools(side, warm, warm_wall, card) -> dict:
+    """The warm-up's, its dry run's and the doctor's output."""
+    import torch
+
+    from ttasr_torch.core.census import census
+
+    check(warm.returncode == 0, f"warmup exited {warm.returncode}: {warm.stderr[-2000:]}")
+    lines = _json_lines(warm.stdout)
+    entries = [x for x in lines if "family" in x]
+    want = census(1, file_api=False)
+    check([(x["family"], tuple(x["key"])) for x in entries] == [(f, k) for f, k, _ in want]
+          and all("s" in x for x in entries), f"warmup: entries {entries}")
+    stages = {x["stage"]: x["s"] for x in lines if "stage" in x}
+    check(set(stages) == {"kernel_build", "engine_init"}, f"warmup: stages {stages}")
+    total = [x for x in lines if "warmup_total_s" in x]
+    check(len(total) == 1 and total[0]["programs"] == len(want), f"warmup: {total}")
+    print(f"warmup ({' '.join(WARMUP_ARGS)}): kernels {stages['kernel_build']:.3f} s, "
+          f"engine {stages['engine_init']:.3f} s, entries " + json.dumps(
+              [[x["family"], x["key"], x["s"]] for x in entries])
+          + f", total {total[0]['warmup_total_s']:.3f} s, process {warm_wall:.1f} s ({card})")
+
+    outs = {}
+    for name, proc in side.items():
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}: {err[-2000:]}")
+        outs[name] = out
+    dry = [(x["family"], tuple(x["key"]), x["why"]) for x in _json_lines(outs["dry_run"])]
+    check(dry == census(8) and len(dry) == 14, f"warmup --dry-run: {dry}")
+    print(f"warmup --dry-run: {len(dry)} entries, equal to census(8)")
+    report = json.loads(outs["doctor"])
+    dev, kern, nat = report["devices"], report["kernels"], report["native"]
+    check(dev.get("cuda_available") is True
+          and dev["devices"][0] == torch.cuda.get_device_name(0), f"doctor: devices {dev}")
+    check(kern.get("loaded") is True, f"doctor: kernels {kern}")
+    check(nat.get("built") is True or bool(nat.get("error")), f"doctor: native {nat}")
+    print("doctor: devices " + json.dumps(dev) + "; kernels " + json.dumps(kern)
+          + "; native " + json.dumps(nat))
+    return dict(stages=stages, entries=entries, total=total[0], doctor=report)
+
+
+def run_words_and_tools(engine, card: str) -> dict:
+    """Phase 16 on the main path's engine: word timestamps through the
+    three routes, one window's pass against float64, then the warm-up and
+    the doctor as a user runs them (``python -m``, their own processes)."""
+    t_phase = time.perf_counter()
+    label = "words"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the doctor and the dry run need no card time: they run beside the routes
+        side = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+                for name, cmd in (
+                    ("doctor", _module_cmd("ttasr_torch.cli.doctor", "--model-dir", tmp)),
+                    ("dry_run", _module_cmd("ttasr_torch.cli.warmup", "--dry-run")))}
+        try:
+            errors = _ErrorRecords()
+            logging.getLogger("ttasr_torch").addHandler(errors)
+            calls = _AlignCalls(engine)
+            try:
+                audio = synth_speech(np.random.default_rng(WORDS_CLIP[2]), WORDS_CLIP[1])[0]
+                routes, walls = _word_routes(engine, audio, calls)
+                forced = engine.tokenizer.encode(FORCED_TEXT)[:ALIGN_TOKENS]
+                check(len(forced) == ALIGN_TOKENS, f"{label}: forced text {len(forced)} tokens")
+                forced_words = engine._align_window_words(forced, calls.first["enc"], 0.0)
+            finally:
+                calls.close()
+                logging.getLogger("ttasr_torch").removeHandler(errors)
+
+            check(not errors.records, f"{label}: ERROR records: {errors.records}")
+            plain = routes.pop("plain")
+            check([s.tokens for s in routes["transcribe"]] == [s.tokens for s in plain],
+                  f"{label}: the alignment changed the decoded tokens")
+            check(all(s.words is None for s in plain),
+                  f"{label}: words without word_timestamps")
+            counts = {name: _words_well_formed(f"{label} ({name})", segs)
+                      for name, segs in routes.items()}
+            check(sum(counts.values()) > 0, f"{label}: no word on any route: {counts}")
+            for name, segs in routes.items():
+                print(f"{label} ({name}): {len(segs)} segments, {counts[name]} words, wall "
+                      f"{walls[name]:.2f} s; first words " + json.dumps(
+                          [(w.word, w.start, w.end) for s in segs
+                           for w in (s.words or [])][:4], ensure_ascii=False))
+            print(f"{label}: transcribe without words {walls['plain']:.2f} s, the same "
+                  f"tokens")
+            for c in calls.calls:
+                print(f"{label}: alignment of {c['tokens']} tokens {c['s']:.2f} s, peak "
+                      f"{c['peak_gib']:.3f} GiB above its start ({card})")
+            check(len(forced_words) > 0 and all(0 <= w.start <= w.end <= 30.0
+                                                for w in forced_words),
+                  f"{label}: forced transcript's words {forced_words}")
+            print(f"{label}: the forced {ALIGN_TOKENS}-token transcript gave "
+                  f"{len(forced_words)} words, the first " + json.dumps(
+                      [(w.word, w.start, w.end) for w in forced_words[:4]],
+                      ensure_ascii=False))
+            against64 = _align_against_float64(engine, calls.last, card)
+
+            # the warm-up on the card, alone
+            t0 = time.perf_counter()
+            warm = subprocess.run(_module_cmd("ttasr_torch.cli.warmup", *WARMUP_ARGS),
+                                  cwd=ROOT, env=env, capture_output=True, text=True,
+                                  timeout=300)
+            tools = _check_tools(side, warm, time.perf_counter() - t0, card)
+        finally:
+            for proc in side.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 16 (word timestamps, warmup, doctor): {seconds:.1f} s ({card})")
+    return dict(words=counts, walls=walls, align=calls.calls, against_float64=against64,
+                tools=tools, seconds=seconds)
 
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces
     ("encoder_attention_merged", "ttasr_torch/csrc/encoder_attention.cu",

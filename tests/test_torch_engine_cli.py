@@ -5,8 +5,8 @@
   and its entry point in the sequential mode and with ``--concurrency 2``
   (the served modes are held against the JAX CLI in
   ``tests/test_torch_batched.py``);
-- the engine and the CLI raise without CUDA, and word timestamps raise on
-  the int8 engine;
+- the engine and the CLI raise without CUDA, and the int8 engine returns
+  words with ``word_timestamps=True``;
 - ``chip_smoke.py`` exits non-zero, printing no result, without a card.
 
 The engine's parity with the JAX engine is in
@@ -99,10 +99,19 @@ def test_cli_main_entry_point(tmp_path, monkeypatch):
 
 
 def test_engine_rejects_unported_and_missing_device(monkeypatch):
-    # the int8 engine builds with its defaults; word timestamps are unported
+    # the int8 engine builds with its defaults and aligns words on its
+    # quantized, fused weights (the alignment's parity is in
+    # tests/test_torch_align.py)
     int8 = TEngine(NAME, compute_type="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        int8.transcribe(np.zeros(16000, np.float32), word_timestamps=True)
+    assert "wqkv" in int8.params["decoder"]["blocks"][0]
+    audio, _ = synth_speech(np.random.default_rng(4), 6.0)
+    segs, _ = int8.transcribe(audio, word_timestamps=True, vad_filter=False,
+                              max_new_tokens=24, temperature=(0.0,),
+                              compression_ratio_threshold=None,
+                              log_prob_threshold=None, no_speech_threshold=None)
+    assert segs and all(s.words is not None for s in segs)
+    words = [w for s in segs for w in s.words]
+    assert words and all(0 <= w.start <= w.end <= 30.0 and w.word for w in words)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TEngine(NAME, device="cuda")

@@ -7,7 +7,8 @@
 - bfloat16: encoder states and decode-step logits held to the bound the
   JAX package recorded for bf16 reassociation (PERF_NOTES "TPU numeric
   parity": step logits within 1.4 % relative, argmax agreement).
-- best-of sampling picks one of its candidates; word timestamps raise.
+- best-of sampling picks one of its candidates; word timestamps equal
+  the JAX engine's.
 
 The CLI and the device checks are in ``tests/test_torch_engine_cli.py``.
 """
@@ -119,10 +120,23 @@ def test_bf16_encoder_and_step_logits_within_bound(speech40):
 
 
 
-def test_word_timestamps_raise(engines_f32):
-    _, te = engines_f32
-    with pytest.raises(NotImplementedError, match="align"):
-        te.transcribe(np.zeros(16000, np.float32), word_timestamps=True)
+def test_word_timestamps_raise(engines_f32, speech40):
+    """Word timestamps run and match the JAX engine's: the same segments
+    and word texts, times within one DTW frame (0.02 s; the alignment's
+    own tests are in ``tests/test_torch_align.py``)."""
+    je, te = engines_f32
+    kw = dict(language="zh", beam_size=5, vad_filter=False, word_timestamps=True,
+              temperature=(0.0,), max_new_tokens=24, compression_ratio_threshold=None,
+              log_prob_threshold=None, no_speech_threshold=None)
+    want, _ = je.transcribe(speech40[:16000 * 10], **kw)
+    got, _ = te.transcribe(speech40[:16000 * 10], **kw)
+    assert len(got) == len(want) and any(w.words for w in want)
+    for g, w in zip(got, want):
+        assert (g.seek, g.tokens, g.start, g.end) == (w.seek, w.tokens, w.start, w.end)
+        assert [x.word for x in g.words] == [x.word for x in w.words]
+        for gx, wx in zip(g.words, w.words):
+            assert abs(gx.start - wx.start) <= 0.02 + 1e-9
+            assert abs(gx.end - wx.end) <= 0.02 + 1e-9
 
 
 

@@ -19,8 +19,16 @@ copies of the JAX package's host modules behave as the originals.
 - The plain copies of the HTTP service are the originals' text: ``api/jwt.py``,
   ``api/passwords.py``, ``text/filters.py`` and ``streaming/utils.py`` with
   ``ttasr.`` read as ``ttasr_torch.``, and the two test pages byte for byte.
+- The operations copies: ``core/logging.py`` is the original's text;
+  ``core/census.py`` and ``core/config.py`` its code (docstrings and
+  comments aside; config's device default ``cuda`` for ``tpu``);
+  ``models/whisper/align.py``'s host half (``_median_filter``,
+  ``dtw_path``, ``TokenTiming``, ``merge_tokens_to_words`` and the
+  statements of ``align_tokens`` after the pass); ``ttasr_native.cpp``
+  after its header comment.
 """
 
+import ast
 import csv
 import glob
 import importlib.util
@@ -85,7 +93,11 @@ _ISOLATED = textwrap.dedent("""
              "ttasr_torch.streaming.buffering_strategy.buffering_strategies",
              "ttasr_torch.streaming.vad.energy_vad",
              "ttasr_torch.streaming.vad.pyannote_vad",
-             "ttasr_torch.streaming.vad.vad_factory"}} <= set(names), names
+             "ttasr_torch.streaming.vad.vad_factory",
+             "ttasr_torch.models.whisper.align", "ttasr_torch.core.census",
+             "ttasr_torch.core.config", "ttasr_torch.core.logging",
+             "ttasr_torch.core.profiling", "ttasr_torch.cli.warmup",
+             "ttasr_torch.cli.doctor", "ttasr_torch.native"}} <= set(names), names
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
@@ -325,3 +337,65 @@ def test_service_plain_copies_match(rel):
     if rel.endswith(".py"):
         want = want.replace("ttasr.", "ttasr_torch.")
     assert got == want
+
+
+class _StripDocstrings(ast.NodeTransformer):
+    def _strip(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    visit_Module = visit_FunctionDef = visit_ClassDef = _strip
+
+
+def _code(src: str) -> str:
+    """The module's code without docstrings (comments never reach the AST)."""
+    return ast.dump(_StripDocstrings().visit(ast.parse(src)))
+
+
+def _read(*parts):
+    with open(os.path.join(REPO_ROOT, *parts), encoding="utf-8") as fh:
+        return fh.read()
+
+
+def test_operations_copies_match():
+    assert _read("ttasr_torch", "core", "logging.py") == _read("ttasr", "core", "logging.py")
+    assert (_code(_read("ttasr_torch", "core", "census.py"))
+            == _code(_read("ttasr", "core", "census.py")))
+    config = _read("ttasr", "core", "config.py")
+    assert config.count('"TTASR_MODEL_DEVICE", "tpu"') == 1
+    assert (_code(_read("ttasr_torch", "core", "config.py"))
+            == _code(config.replace('"TTASR_MODEL_DEVICE", "tpu"',
+                                    '"TTASR_MODEL_DEVICE", "cuda"')))
+    want_cpp = _read("ttasr", "native", "ttasr_native.cpp")
+    got_cpp = _read("ttasr_torch", "native", "ttasr_native.cpp")
+    body = want_cpp[want_cpp.index("#include"):]
+    assert got_cpp.endswith(body) and got_cpp[: -len(body)].startswith("// ")
+    assert all(line.startswith("//") or not line
+               for line in got_cpp[: -len(body)].splitlines())
+
+
+def _defs(src: str) -> dict:
+    return {node.name: node for node in ast.parse(src).body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+
+
+def test_align_host_half_matches():
+    want = _defs(_read("ttasr", "models", "whisper", "align.py"))
+    got = _defs(_read("ttasr_torch", "models", "whisper", "align.py"))
+    for name in ("_median_filter", "dtw_path", "TokenTiming", "merge_tokens_to_words"):
+        assert ast.dump(got[name]) == ast.dump(want[name]), name
+    # the host statements of align_tokens, from the head reshape to the end
+    def tail(fn, start):
+        stmts = [ast.dump(s) for s in fn.body]
+        return stmts[next(i for i, s in enumerate(fn.body)
+                          if ast.unparse(s).startswith(start)):]
+
+    ref = want["align_tokens"]
+    ref_src = ast.unparse(ref).replace("start_row = len(sot_seq)", "start_row = n_sot")
+    ref = ast.parse(ref_src).body[0]
+    assert tail(got["token_timings"], "w = w.reshape") == tail(ref, "w = w.reshape")

@@ -19,7 +19,8 @@ Semantics against the sequential path:
   temperature fallback ladder with its quality gates, the no-speech skip
   and timestamp-token parsing
   (``WhisperEngine._decode_with_fallback_server`` /
-  ``_parse_window_tokens``).
+  ``_parse_window_tokens``), and with ``word_timestamps=True`` the word
+  alignment on the chunk's encoder row at its absolute offset.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ttasr_torch.engine.transcriber import (
     _as_master,
     _host_f32,
     _parse_transcribe_kwargs,
+    _words_in,
     run_vad_async,
 )
 from ttasr_torch.models.whisper.decode import build_prompt
@@ -130,7 +132,7 @@ async def transcribe_batched_with_server(
         initial_prompt_tokens=initial_prompt_tokens,
     )
 
-    def parse_chunk(chunk, result, ratio, temperature) -> List[Segment]:
+    async def parse_chunk(chunk, result, ratio, temperature) -> List[Segment]:
         time_offset = chunk["start"] / SAMPLE_RATE
         chunk_frames = min(N_FRAMES,
                            max((chunk["end"] - chunk["start"])
@@ -148,6 +150,13 @@ async def transcribe_batched_with_server(
 
         new_segments, _ = engine._parse_window_tokens(
             result.tokens, time_offset, chunk_duration, chunk_frames)
+        window_words = None
+        if opts.word_timestamps and any(s[0] for s in new_segments):
+            # off the loop: the pass waits for the engine's device lock
+            window_words = await asyncio.get_running_loop().run_in_executor(
+                None, engine._align_window_words,
+                [t for s in new_segments for t in s[0]], result.enc,
+                time_offset)
         out: List[Segment] = []
         for s_tokens, s_start, s_end in new_segments:
             text = tok.decode(s_tokens)
@@ -158,7 +167,8 @@ async def transcribe_batched_with_server(
                 start=s_start, end=min(s_end, duration), text=text,
                 tokens=s_tokens, avg_logprob=avg_logprob,
                 compression_ratio=ratio, no_speech_prob=no_speech_prob,
-                temperature=temperature, words=None,
+                temperature=temperature,
+                words=_words_in(window_words, s_start, s_end),
             ))
         return out
 
@@ -169,7 +179,7 @@ async def transcribe_batched_with_server(
         )
         # parse as each chunk's decode resolves: the host's token ->
         # segment work of sweep N overlaps sweep N+1's decode
-        return parse_chunk(chunk, result, ratio, temperature)
+        return await parse_chunk(chunk, result, ratio, temperature)
 
     per_chunk = await asyncio.gather(*[one(c) for c in chunks])
     segments: List[Segment] = [s for segs in per_chunk for s in segs]
@@ -250,6 +260,8 @@ class BatchedInferencePipeline:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        if not loop.is_running():
+            loop.close()  # and its default executor (word alignments)
 
     def __del__(self):
         try:

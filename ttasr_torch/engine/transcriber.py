@@ -43,15 +43,23 @@ serial executor whose pending count the server's coalescing wait reads
 (:func:`run_vad_async`, :func:`vad_pending`).  Decodes may run from
 several threads (a server's decode threads, other servers, direct calls),
 so ``decode_stats`` is updated under a lock.
+
+``word_timestamps=True`` aligns each window's text on all three routes
+(``transcribe``, ``transcribe_with_server`` and the batched pipeline) with
+:mod:`ttasr_torch.models.whisper.align`, on the window's encoder row and
+the full ``self.params`` (unsharded under a mesh too).  As in the
+reference, word times stay on the VAD-collected timeline when
+``vad_filter`` maps the segments' times back (ROADMAP C7).
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import logging
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,7 +72,12 @@ from ttasr_torch.audio.vad import (
     collect_chunks,
     get_speech_timestamps,
 )
-from ttasr_torch.engine.results import Segment, TranscriptionInfo
+from ttasr_torch.engine.results import Segment, TranscriptionInfo, Word
+from ttasr_torch.models.whisper.align import (
+    alignment_heads_qk,
+    merge_tokens_to_words,
+    token_timings,
+)
 from ttasr_torch.models.whisper.config import WhisperConfig
 from ttasr_torch.models.whisper.decode import (
     SAMPLE_LEN,
@@ -90,6 +103,8 @@ from ttasr_torch.ops.mel import (
 from ttasr_torch.ops.quant import fuse_qkv, kmajor_encoder_codes, quantize_params
 from ttasr_torch.parallel.tp import TPDecoder, tp_eligible
 from ttasr_torch.text.tokenizer import WhisperTokenizer, load_tokenizer
+
+logger = logging.getLogger("ttasr_torch.engine")
 
 TIME_PRECISION = 0.02
 
@@ -192,6 +207,27 @@ def _restore_times(segments: List[Segment], speech_chunks) -> List[Segment]:
     return segments
 
 
+class _AlignRequest(NamedTuple):
+    """What the seek loop yields when a window's words are due: the
+    arguments of :meth:`WhisperEngine._align_window_words`.  Its driver
+    sends the words back, so an async driver runs the alignment off its
+    event loop."""
+
+    text_tokens: List[int]
+    enc_out: Any
+    time_offset: float
+
+
+def _words_in(window_words: Optional[List[Word]], s_start: float,
+              s_end: float) -> Optional[List[Word]]:
+    """The window's words whose midpoint falls in the segment (the
+    reference's rule); None without word timestamps."""
+    if window_words is None:
+        return None
+    return [w for w in window_words
+            if s_start - 0.01 <= (w.start + w.end) / 2 <= s_end + 0.5]
+
+
 def _parse_transcribe_kwargs(kwargs: dict) -> TranscribeOptions:
     """faster-whisper-style kwargs -> TranscribeOptions (alias mapping,
     unknown-field tolerance, scalar-temperature normalization)."""
@@ -206,10 +242,6 @@ def _parse_transcribe_kwargs(kwargs: dict) -> TranscribeOptions:
     if isinstance(opts.temperatures, (int, float)):
         opts = dataclasses.replace(
             opts, temperatures=(float(opts.temperatures),))
-    if opts.word_timestamps:
-        raise NotImplementedError(
-            "word_timestamps=True needs models/whisper/align.py, which is not "
-            "ported to ttasr_torch yet (see ROADMAP.md)")
     return opts
 
 
@@ -495,10 +527,15 @@ class WhisperEngine:
 
         windows = self._seek_loop(audio, opts)
         try:
-            window, prompt_ids = next(windows)
+            step = next(windows)
             while True:
-                window, prompt_ids = windows.send(self._decode_with_fallback(
-                    self.encode_windows(window[None]), prompt_ids, opts))
+                if isinstance(step, _AlignRequest):
+                    step = windows.send(self._align_window_words(*step))
+                    continue
+                window, prompt_ids = step
+                enc_out = self.encode_windows(window[None])
+                step = windows.send(self._decode_with_fallback(
+                    enc_out, prompt_ids, opts) + (enc_out,))
         except StopIteration as done:
             segments = done.value
         return _restore_times(segments, speech_chunks), info
@@ -577,16 +614,24 @@ class WhisperEngine:
         # session scope: lets the server wave-coalesce partial bulk sweeps
         # across concurrent prompt-carry files
         windows = self._seek_loop(audio, opts)
+        loop = asyncio.get_running_loop()
         with server.session():
             try:
-                window, prompt_ids = next(windows)
+                step = next(windows)
                 while True:
+                    if isinstance(step, _AlignRequest):
+                        # off the loop: the pass waits for the device lock,
+                        # which a served group holds for its whole decode
+                        step = windows.send(await loop.run_in_executor(
+                            None, self._align_window_words, *step))
+                        continue
+                    window, prompt_ids = step
                     result, ratio, temperature = await self._decode_with_fallback_server(
                         server, window, prompt_ids, opts,
                         return_enc=opts.word_timestamps)
-                    window, prompt_ids = windows.send(
+                    step = windows.send(
                         (result.tokens, result.avg_logprob, result.no_speech_prob,
-                         ratio, temperature))
+                         ratio, temperature, result.enc))
             except StopIteration as done:
                 segments = done.value
         return _restore_times(segments, speech_chunks), info
@@ -597,8 +642,12 @@ class WhisperEngine:
         """The 30 s seek loop over ``audio``, as a generator: it yields each
         window and its prompt, is sent the window's (tokens, avg_logprob,
         no_speech_prob, compression ratio, temperature) from the fallback
-        ladder, and returns the segments.  :meth:`transcribe` drives it with
-        direct decodes, :meth:`transcribe_with_server` through a server."""
+        ladder and its encoder states (the word alignment's input; None
+        from the server unless ``opts.word_timestamps``), and returns the
+        segments.  With ``opts.word_timestamps`` it also yields an
+        :class:`_AlignRequest` for each window with text and is sent that
+        window's words.  :meth:`transcribe` drives it with direct decodes,
+        :meth:`transcribe_with_server` through a server."""
         tok = self.tokenizer
         content_frames = max(len(audio) // HOP_LENGTH, 1)
         seek = 0
@@ -630,7 +679,7 @@ class WhisperEngine:
                 initial_prompt_tokens=() if previous else initial_prompt_tokens,
             )
 
-            tokens, avg_logprob, no_speech_prob, ratio, temperature = (
+            tokens, avg_logprob, no_speech_prob, ratio, temperature, enc_out = (
                 yield window, prompt_ids)
 
             if (opts.no_speech_threshold is not None
@@ -645,6 +694,10 @@ class WhisperEngine:
 
             new_segments, seek_advance = self._parse_window_tokens(
                 tokens, time_offset, segment_duration, segment_frames)
+            window_words = None
+            if opts.word_timestamps and any(s[0] for s in new_segments):
+                window_words = yield _AlignRequest(
+                    [t for s in new_segments for t in s[0]], enc_out, time_offset)
             for s_tokens, s_start, s_end in new_segments:
                 text = tok.decode(s_tokens)
                 if not text.strip():
@@ -653,7 +706,8 @@ class WhisperEngine:
                     id=seg_id, seek=seek, start=s_start, end=s_end, text=text,
                     tokens=s_tokens, avg_logprob=avg_logprob,
                     compression_ratio=ratio, no_speech_prob=no_speech_prob,
-                    temperature=temperature, words=None,
+                    temperature=temperature,
+                    words=_words_in(window_words, s_start, s_end),
                 ))
                 seg_id += 1
                 all_tokens.extend(s_tokens)
@@ -664,6 +718,26 @@ class WhisperEngine:
             seek += seek_advance
 
         return segments
+
+    def _align_window_words(self, text_tokens: List[int], enc_out,
+                            time_offset: float) -> List[Word]:
+        """Cross-attention DTW word timestamps for one window.  A failure is
+        logged and gives no words, as in the reference.  The teacher-forced
+        pass holds the engine's device lock; the host DTW does not."""
+        try:
+            with self._device_lock:
+                qk = alignment_heads_qk(self.params, self.cfg, self.tokenizer,
+                                        text_tokens, enc_out)
+            words = merge_tokens_to_words(
+                self.tokenizer, token_timings(self.tokenizer, text_tokens, qk))
+        except Exception:
+            logger.exception("word alignment failed; words omitted")
+            return []
+        return [
+            Word(start=w["start"] + time_offset, end=w["end"] + time_offset,
+                 word=w["word"])
+            for w in words
+        ]
 
     def _parse_window_tokens(self, tokens: List[int], time_offset: float,
                              segment_duration: float, segment_frames: int):

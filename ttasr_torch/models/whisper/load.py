@@ -124,6 +124,19 @@ def params_from_state_dict(sd: Dict[str, np.ndarray], cfg: WhisperConfig,
     return _convert_tree(tree, dtype, device)
 
 
+def _numpy_state_dict_from_torch(module) -> Dict[str, np.ndarray]:
+    return {k: v.detach().to("cpu").float().numpy() for k, v in module.state_dict().items()}
+
+
+def params_from_hf_model(hf_model, dtype=torch.float32, device="cpu"
+                         ) -> Tuple[Dict[str, Any], WhisperConfig]:
+    """Convert a live transformers WhisperForConditionalGeneration /
+    WhisperModel -> (port params on ``device``, config)."""
+    cfg = WhisperConfig.from_hf_config(hf_model.config)
+    return params_from_state_dict(_numpy_state_dict_from_torch(hf_model), cfg,
+                                  dtype, device), cfg
+
+
 def _read_safetensors_dir(path: str) -> Dict[str, np.ndarray]:
     index_path = os.path.join(path, "model.safetensors.index.json")
     single = os.path.join(path, "model.safetensors")

@@ -251,15 +251,23 @@ def cer_metric(references: List[str], hypotheses: List[str], *, clean: bool = Fa
 
     ``clean=True`` applies :func:`clean_text` first.
     """
-    def _lev(a: str, b: str) -> int:
-        prev = list(range(len(b) + 1))
-        for i, ca in enumerate(a, 1):
-            cur = [i]
-            for j, cb in enumerate(b, 1):
-                cur.append(min(prev[j] + 1, cur[-1] + 1,
-                               prev[j - 1] + (ca != cb)))
-            prev = cur
-        return prev[-1]
+    from ttasr_torch import native
+
+    # the native lane (ttasr_torch/native) first, as the reference does
+    _lev = native.levenshtein if native.available() else None
+    if _lev is None:
+        try:
+            from Levenshtein import distance as _lev
+        except ImportError:  # pragma: no cover
+            def _lev(a: str, b: str) -> int:
+                prev = list(range(len(b) + 1))
+                for i, ca in enumerate(a, 1):
+                    cur = [i]
+                    for j, cb in enumerate(b, 1):
+                        cur.append(min(prev[j] + 1, cur[-1] + 1,
+                                       prev[j - 1] + (ca != cb)))
+                    prev = cur
+                return prev[-1]
 
     total_edits = 0
     total_chars = 0
