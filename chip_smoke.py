@@ -161,8 +161,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    exception, well-formed segments, exact launch counts; the sweeps, rows,
    most rows in one sweep (> 1) and dispatches started while another group
    was in flight (>= 1), counted by wrapping the server's
-   ``_decode_batch``; wall per audio second and peak memory beside the
-   sequential ``engine.transcribe`` of the same files); the call's first
+   ``_decode_batch``; wall per audio second and peak memory); the call's first
    beam group of 2+ rows and first sampled greedy group re-run directly
    (``encode_windows``, then the decode with a generator seeded as the
    server seeded it): tokens, lengths, ``sum_logprob`` and
@@ -220,6 +219,33 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    ``python -m ttasr_torch.cli.doctor`` (the card named, the kernel library
    loaded, the native host library built by g++ or absent with its
    reason); and its own seconds.
+17. fine-tuning (after 13): the byte-fallback tokenizer and a corpus of
+   two synthesized clips (``TRAIN_CLIPS``, 20 s and 28 s, labelled
+   ``TRAIN_TEXT``, labels padded to 128); (a) large-v3 at full width and
+   depth, f32 master params, ``make_train_step(remat=True,
+   compute_dtype=bfloat16)`` with SpecAugment, AdamW lr 1e-4, no warm-up:
+   ``TRAIN_STEPS`` steps on one batch, every loss finite, the last under
+   ``LOSS_FALL`` of the first, every master leaf f32, no kernel launched;
+   seconds per step (median of steps 3-8, synchronised), label tokens per
+   second, peak memory beside the reckoned params, grads, moments and bf16
+   copy; (b) ``Trainer.evaluate`` on those params (greedy, two clips in one
+   chunk, ``generation_max_length`` 48): B11 launched 32 times per chunk
+   and nothing else; B11 in float32 at one window timed beside its plain
+   version and ``scaled_dot_product_attention``, with its bound; (c) at
+   large-v3's width with 2 + 2 layers, f32, batch 1: loss within 1e-5 and
+   each grad leaf within 1e-4 of its largest |g| of the port on the CPU,
+   and the card's grads with remat against without, bit for bit but in
+   the leaves whose gradient plain twice (the control) does not repeat,
+   and there within twice the control's gap (each stem conv's weight
+   gradient then run alone twice, to name the cause); (d) a ``Trainer`` of
+   that size takes 4 steps saving every 2, checkpoint-4 restored into a
+   fresh ``Trainer`` equals the live state bit for bit, and one more step
+   from each on the same batch gives the same bits but in those leaves
+   and their moments, with the bytes on disk per checkpoint; (e) ``python -m
+   ttasr_torch.cli.train`` with the default device (``TRAIN_CLI_ARGS``, tiny
+   on ``sample_corpus/``) in a subprocess beside legs b-d: rc 0, finite
+   losses in ``metrics.jsonl``, an ``eval_cer``, ``checkpoint-2/`` and
+   ``model/``; and its own seconds.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
@@ -3049,10 +3075,9 @@ def _server_shape_kernels(card: str) -> dict:
 
 
 def run_server_path(engine, card: str) -> dict:
-    """Phase 14 on the main path's engine: the task API's call (four
+    """Phase 14 on the main path's engine: the task API's call (two
     uploads at once through the shared server and
-    ``transcribe_batched_with_server``) beside the sequential
-    ``engine.transcribe`` of the same files; one beam group and one sampled
+    ``transcribe_batched_with_server``); one beam group and one sampled
     greedy group of that call re-run directly, bit for bit; the CLI's
     ``concurrency=4`` and ``batched=True`` modes; two short-window requests;
     B6 and B3 at the short buckets, and the decode kernels at the server's
@@ -3094,19 +3119,6 @@ def run_server_path(engine, card: str) -> dict:
               f"{wall / audio_seconds:.4f} s per audio second, peak memory {peak:.2f} GiB "
               f"({card})")
 
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for path in paths:
-            segments, _ = engine.transcribe(path, **TASK_KWARGS)
-            _segments_well_formed(f"sequential {os.path.basename(path)}", segments)
-        torch.cuda.synchronize()
-        seq_wall = time.perf_counter() - t0
-        seq_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"sequential engine.transcribe of the same files: wall {seq_wall:.2f} s = "
-              f"{seq_wall / audio_seconds:.4f} s per audio second, peak memory "
-              f"{seq_peak:.2f} GiB ({card})")
-
     kinds = sorted(r["kind"] for r in groups.kept)
     check(kinds == ["beam", "greedy"], f"{label}: kept groups {kinds}")
     for rec in groups.kept:
@@ -3130,7 +3142,7 @@ def run_server_path(engine, card: str) -> dict:
     print(f"phase 14 (the server path): {seconds:.1f} s")
     return dict(sweeps=groups.sweeps, rows=groups.rows, max_rows=groups.max_rows,
                 overlapped=groups.overlapped, wall_per_audio_s=wall / audio_seconds,
-                sequential_wall_per_audio_s=seq_wall / audio_seconds, cli_modes=modes,
+                cli_modes=modes,
                 kernels=kernels, seconds=seconds)
 
 
@@ -3762,6 +3774,381 @@ def run_words_and_tools(engine, card: str) -> dict:
     return dict(words=counts, walls=walls, align=calls.calls, against_float64=against64,
                 tools=tools, seconds=seconds)
 
+# ---------------------------------------------------------------------------
+# Phase 17: fine-tuning on the card
+# ---------------------------------------------------------------------------
+
+# the training corpus: two synthesized clips with one sentence as their label
+TRAIN_CLIPS = (("train20", 20.0, 40), ("train28", 28.0, 41))  # name, seconds, seed
+TRAIN_TEXT = "今天天氣很好，我們一起去夜市吃東西。the weather is fine today"
+TRAIN_LABEL_PAD = 128
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-4
+# leg a: the last loss of TRAIN_STEPS steps on one batch under this share of
+# the first (a trial on an H100 read 11.2535 -> 6.1698, 0.548; PERF.md,
+# Findings)
+LOSS_FALL = 0.7
+EVAL_MAX_LENGTH = 48
+EVAL_BATCH = 2
+CARD_GRAD_REL = 1e-4  # card against CPU: each leaf within 1e-4 of its largest |g|
+SMALL_LAYERS = 2  # legs c and d: large-v3's width, 2 + 2 layers
+TRAIN_CLI_ARGS = ("--model_name_or_path", "tiny", "--corpus_data_dir", "sample_corpus",
+                  "--dataset_config_name", "train_ds_01", "--max_steps", "2",
+                  "--do_train", "--do_eval", "--max_eval_samples", "2")
+
+
+def _train_corpus(root: str) -> str:
+    """``root/synth/{train,test}.tsv`` and ``clips/`` of ``TRAIN_CLIPS``, each
+    labelled ``TRAIN_TEXT``; returns the corpus directory."""
+    from ttasr_torch.audio.io import write_wav
+
+    clips = os.path.join(root, "synth", "clips")
+    os.makedirs(clips)
+    rows = ["path\tsentence"]
+    for name, seconds, seed in TRAIN_CLIPS:
+        audio, _ = synth_speech(np.random.default_rng(seed), seconds)
+        write_wav(os.path.join(clips, f"{name}.wav"), audio, SR)
+        rows.append(f"{name}.wav\t{TRAIN_TEXT}")
+    for split in ("train", "test"):
+        with open(os.path.join(root, "synth", f"{split}.tsv"), "w", encoding="utf-8") as fh:
+            fh.write("\n".join(rows) + "\n")
+    return root
+
+
+def _every_counter():
+    """Every kernel wrapper's launch counter."""
+    from ttasr_torch.ops import encoder_attention, mel_fused
+
+    return _int8_counters() + [encoder_attention.encoder_self_attention,
+                               mel_fused.log_mel_spectrogram_fused]
+
+
+def _small_config():
+    from ttasr_torch.models.whisper.config import PRESETS
+
+    return dataclasses.replace(PRESETS["large-v3"], name=f"large-v3-{SMALL_LAYERS}+"
+                               f"{SMALL_LAYERS}", encoder_layers=SMALL_LAYERS,
+                               decoder_layers=SMALL_LAYERS)
+
+
+def _leaf_gaps(got: dict, want: dict) -> dict:
+    """{leaf: max|got - want|} (on the CPU)."""
+    return {k: (got[k].float().cpu() - want[k].float().cpu()).abs().max().item()
+            for k in want}
+
+
+def _train_full_width(corpus: str, tok, counters, card: str) -> dict:
+    """Leg a: large-v3 at full width and depth, f32 master params, the bf16
+    step with remat and SpecAugment, TRAIN_STEPS steps on one batch."""
+    import torch
+
+    from ttasr_torch.core.checkpoint import named_leaves
+    from ttasr_torch.models.whisper.load import load_whisper
+    from ttasr_torch.train.data import batch_iterator, load_tsv_corpus
+    from ttasr_torch.train.spec_augment import SpecAugmentConfig
+    from ttasr_torch.train.train_step import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    label = "training large-v3"
+    params, cfg = load_whisper("large-v3", dtype=torch.float32, device="cuda", seed=0)
+    n = sum(t.numel() for t in named_leaves(params).values())
+    batch = next(batch_iterator(load_tsv_corpus(corpus, "synth", "train"), tok,
+                                batch_size=len(TRAIN_CLIPS), n_mels=cfg.num_mel_bins,
+                                shuffle=False, label_pad_to=TRAIN_LABEL_PAD,
+                                device="cuda"))
+    tokens = int((batch["labels"] != -100).sum())
+    opt = make_optimizer(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=1000)
+    state = init_train_state(params, opt)
+    step = make_train_step(cfg, opt, remat=True, compute_dtype=torch.bfloat16,
+                           spec_augment_cfg=SpecAugmentConfig(), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    _expect(label, {fn.__name__: fn.launches for fn in counters}, {})
+    print(f"{label}: losses {json.dumps([round(x, 4) for x in losses])}")
+    check(all(np.isfinite(losses)), f"{label}: a loss is not finite")
+    check(losses[-1] < LOSS_FALL * losses[0],
+          f"{label}: the loss fell {losses[0]:.4f} -> {losses[-1]:.4f}, not under "
+          f"{LOSS_FALL} of the first")
+    leaves = named_leaves(state.params)
+    check(all(v.dtype == torch.float32 for v in leaves.values()),
+          f"{label}: a master leaf left float32")
+    step_s = statistics.median(walls[2:])
+    reckoned = dict(params=4 * n, grads=4 * n, m=4 * n, v=4 * n, bf16_copy=2 * n)
+    print(f"{label}: {n / 1e9:.3f} B params, batch {len(TRAIN_CLIPS)} x 30 s windows, "
+          f"{tokens} label tokens; steps {json.dumps([round(w, 3) for w in walls])} s; "
+          f"median of steps 3-{TRAIN_STEPS} {step_s:.3f} s = {tokens / step_s:.1f} label "
+          f"tokens/s; peak memory {peak / 2 ** 30:.2f} GiB against {sum(reckoned.values()) / 1e9:.1f} "
+          f"GB reckoned ({', '.join(f'{k} {v / 1e9:.2f} GB' for k, v in reckoned.items())}) "
+          f"({card})")
+    return dict(params=state.params, cfg=cfg, batch=batch, losses=losses, walls=walls,
+                step_s=step_s, tokens_per_s=tokens / step_s, peak_gib=peak / 2 ** 30,
+                reckoned_gb=sum(reckoned.values()) / 1e9, n_params=n)
+
+
+def _evaluate_on_card(params, cfg, corpus: str, tok, counters, card: str) -> dict:
+    """Leg b: ``Trainer.evaluate`` on leg a's params (greedy, f32, the
+    encoder through B11), B11's launches exact; then B11 in float32 at one
+    window timed beside its plain version and the library call."""
+    import torch
+
+    from ttasr_torch.ops.encoder_attention import (
+        encoder_attention_merged,
+        encoder_attention_merged_ref,
+    )
+    from ttasr_torch.train.data import load_tsv_corpus
+    from ttasr_torch.train.trainer import Trainer, TrainerConfig
+
+    label = "Trainer.evaluate"
+    examples = load_tsv_corpus(corpus, "synth", "test")
+    chunks = -(-len(examples) // EVAL_BATCH)
+    with tempfile.TemporaryDirectory() as out:
+        trainer = Trainer(params, cfg, tok, TrainerConfig(
+            output_dir=out, per_device_eval_batch_size=EVAL_BATCH,
+            generation_max_length=EVAL_MAX_LENGTH))
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate(examples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del trainer
+    counts = {fn.__name__: fn.launches for fn in counters}
+    _expect(label, counts, {"encoder_attention_merged": N_LAYERS * chunks})
+    check(metrics["eval_samples"] == len(examples) and np.isfinite(metrics["eval_cer"]),
+          f"{label}: {metrics}")
+    print(f"{label}: {json.dumps(metrics)} in {wall:.2f} s ({len(examples)} clips, "
+          f"{chunks} chunk(s), generation_max_length {EVAL_MAX_LENGTH}); B11 launches "
+          f"{counts['encoder_attention_merged']} = {N_LAYERS} x {chunks} ({card})")
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def rand():
+        return torch.randn((1, 1500, D), generator=gen, device="cuda")
+
+    q, k, v = rand() * 64 ** -0.5, rand(), rand()
+    got = encoder_attention_merged(q, k, v, 1500)
+    torch.cuda.synchronize()
+    want = encoder_attention_merged_ref(q, k, v, 1500)
+    err = _max_err(got, want)
+    limit = F32_REL * want.abs().max().item()
+    check(err <= limit, f"B11 float32: {err} > {limit}")
+    kernel_ms, plain_ms = in_turns(lambda: encoder_attention_merged(q, k, v, 1500),
+                                   lambda: encoder_attention_merged_ref(q, k, v, 1500))
+    f32 = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=_sdpa_ms(q, k, v, 1500),
+               **bound([q, k, v, got], 4.0 * 1500 * 1500 * D, "f32"))
+    print(f"B11 float32 B=1 T=1500 (evaluate's dtype): kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {f32['library_ms']:.4f} ms, "
+          f"bound {f32['bound_ms']:.4f} ms ({f32['bound_by']}, float32 peak), "
+          f"max_abs_err {err:.3e} (bound {limit:.3e}) ({card})")
+    return dict(metrics=metrics, wall=wall, b11_launches=counts["encoder_attention_merged"],
+                b11_f32=f32)
+
+
+def _card_against_cpu(batch, card: str) -> dict:
+    """Leg c: large-v3's width, SMALL_LAYERS + SMALL_LAYERS layers, f32,
+    batch 1: loss and grads on the card against the port on the CPU; then
+    the card's grads with remat against without, and without twice (the
+    control of the card's own repeatability)."""
+    import torch
+
+    from ttasr_torch.core.checkpoint import map_leaves
+    from ttasr_torch.models.whisper.model import init_params
+    from ttasr_torch.train.train_step import batch_to, value_and_grad
+
+    cfg = _small_config()
+    params_cpu = init_params(cfg, seed=1, device="cpu")
+    params = map_leaves(lambda _, t: t.to("cuda"), params_cpu)
+    one = batch_to({key: val[:1] for key, val in batch.items()}, "cuda")
+    one_cpu = batch_to(one, "cpu")
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(params, cfg, one)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = value_and_grad(params_cpu, cfg, one_cpu)
+    cpu_s = time.perf_counter() - t0
+    gaps = _leaf_gaps(grads, grads_cpu)
+    rel = {k: gaps[k] / max(grads_cpu[k].abs().max().item(), 1e-30) for k in gaps}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    print(f"card against CPU ({cfg.name}, f32, batch 1): loss {float(loss):.6f} / "
+          f"{float(loss_cpu):.6f} (rel {loss_rel:.2e}); worst grad leaf {worst} "
+          f"{rel[worst]:.2e} of its largest |g| (bound {CARD_GRAD_REL}); value_and_grad "
+          f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU ({card})")
+    check(loss_rel <= 1e-5, f"card against CPU: loss {loss_rel}")
+    check(rel[worst] <= CARD_GRAD_REL, f"card against CPU: {worst} {rel[worst]}")
+
+    remat_loss, remat = value_and_grad(params, cfg, one, remat=True)
+    again_loss, again = value_and_grad(params, cfg, one)
+    remat_gaps, control_gaps = _leaf_gaps(remat, grads), _leaf_gaps(again, grads)
+    remat_diff = {k: g for k, g in remat_gaps.items() if g > 0}
+    control_diff = {k: g for k, g in control_gaps.items() if g > 0}
+    print(f"remat against plain on the card: loss {'equal' if torch.equal(remat_loss, loss) else 'differs'}, "
+          f"{len(remat_diff)} of {len(grads)} grad leaves differ, largest "
+          f"{max(remat_diff.values(), default=0.0):.3e} "
+          f"{sorted(remat_diff, key=remat_diff.get)[-3:]}; plain twice (the control): "
+          f"loss {'equal' if torch.equal(again_loss, loss) else 'differs'}, "
+          f"{len(control_diff)} leaves differ, largest "
+          f"{max(control_diff.values(), default=0.0):.3e} "
+          f"{sorted(control_diff, key=control_diff.get)[-3:]}")
+    check(torch.equal(again_loss, loss) and torch.equal(remat_loss, loss),
+          "the card's loss did not repeat")
+    if control_diff:  # the card's own repeatability bounds what remat may move
+        check(set(remat_diff) <= set(control_diff)
+              and max(remat_diff.values(), default=0.0) <= 2 * max(control_diff.values()),
+              "remat moved grads beyond what plain twice moved")
+        _stem_conv_repeats(params, one)
+    else:
+        check(not remat_diff, "remat changed the card's grads, and plain twice did not")
+    return dict(loss_rel=loss_rel, worst_grad_rel=rel[worst], worst_leaf=worst,
+                remat_diff=len(remat_diff), control_diff=sorted(control_diff))
+
+
+def _stem_conv_repeats(params, batch) -> None:
+    """Names the cause when plain twice differs: each stem conv's weight
+    gradient, alone, twice on the same input and output gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    enc = params["encoder"]
+    x = batch["mel"].float()
+    for name, stride in (("conv1_w", 1), ("conv2_w", 2)):
+        w = enc[name].detach().permute(2, 1, 0).contiguous().requires_grad_()
+        if name == "conv2_w":
+            x = F.gelu(F.conv1d(x, enc["conv1_w"].permute(2, 1, 0), enc["conv1_b"],
+                                padding=1)).detach()
+        y = F.conv1d(x, w, stride=stride, padding=1)
+        g = torch.randn(y.shape, generator=torch.Generator(device=y.device).manual_seed(5),
+                        device=y.device)
+        a, b = (torch.autograd.grad(y, w, g, retain_graph=True)[0] for _ in range(2))
+        print(f"stem {name}'s weight gradient alone, twice: "
+              f"{'the same bits' if torch.equal(a, b) else f'differs by {(a - b).abs().max().item():.3e}'}")
+
+
+def _checkpoint_and_resume(corpus: str, tok, batch, unrepeatable, card: str) -> dict:
+    """Leg d: a ``Trainer`` of large-v3's width, SMALL_LAYERS + SMALL_LAYERS
+    layers, takes 4 steps saving every 2; checkpoint-4 restored into a
+    fresh ``Trainer`` equals the live state bit for bit, and one more step
+    from each on the same batch gives the same bits, but in the leaves whose
+    gradient leg c found the card not to repeat (``unrepeatable``) and in
+    their moments."""
+    import torch
+
+    from ttasr_torch.core.checkpoint import STATE_FILE, restore_checkpoint
+    from ttasr_torch.models.whisper.model import init_params
+    from ttasr_torch.train.data import load_tsv_corpus
+    from ttasr_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = _small_config()
+    label = "checkpoint and resume"
+    with tempfile.TemporaryDirectory() as root:
+        tc = TrainerConfig(output_dir=os.path.join(root, "live"), max_steps=4, save_steps=2,
+                           per_device_train_batch_size=len(TRAIN_CLIPS), learning_rate=TRAIN_LR,
+                           warmup_steps=0, logging_steps=1, compute_dtype="bfloat16",
+                           apply_spec_augment=True, label_pad_to=TRAIN_LABEL_PAD, seed=0)
+        live = Trainer(init_params(cfg, seed=2, device="cuda"), cfg, tok, tc)
+        t0 = time.perf_counter()
+        live.train(load_tsv_corpus(corpus, "synth", "train"))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        ckpt = os.path.join(tc.output_dir, "checkpoint-4")
+        nbytes = os.path.getsize(os.path.join(ckpt, STATE_FILE))
+        fresh = Trainer(init_params(cfg, seed=3, device="cuda"), cfg, tok,
+                        dataclasses.replace(tc, output_dir=os.path.join(root, "fresh")))
+        t0 = time.perf_counter()
+        restore_checkpoint(ckpt, fresh.state)
+        restore_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(tc.output_dir))
+    a, b = live.state.state_dict(), fresh.state.state_dict()
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    check(same and fresh.state.step == 4 and fresh.state.opt_state.count == 4,
+          f"{label}: the restored state differs from the live one")
+    live.state, _ = live.train_step(live.state, batch)
+    fresh.state, _ = fresh.train_step(fresh.state, batch)
+    a, b = live.state.state_dict(), fresh.state.state_dict()
+    gaps = {k: g for k, g in _leaf_gaps(b, a).items() if g > 0}
+    print(f"{label} ({cfg.name}): {saved}; {nbytes / 1e9:.3f} GB on disk per checkpoint "
+          f"({len(a)} tensors); 4 steps with 3 saves and the export {train_s:.1f} s, restore "
+          f"{restore_s:.1f} s; restored state equal bit for bit; the next step from each: "
+          f"{len(gaps)} tensors differ, largest {max(gaps.values(), default=0.0):.3e} ({card})")
+    free = {k for k in gaps if k.split("/", 1)[-1] in set(unrepeatable)}
+    check(set(gaps) <= free, f"{label}: the next step differs in {sorted(set(gaps) - free)[:4]}")
+    return dict(bytes_per_checkpoint=nbytes, train_s=train_s, restore_s=restore_s,
+                next_step_tensors_differ=len(gaps))
+
+
+def _check_train_cli(proc, out: str, wall: float, card: str) -> dict:
+    """Leg e: the CLI subprocess's result."""
+    stdout, stderr = proc.communicate(timeout=600)
+    label = "python -m ttasr_torch.cli.train"
+    check(proc.returncode == 0, f"{label}: rc {proc.returncode}: {stderr[-3000:]}")
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"),
+                                                 encoding="utf-8")]
+    losses = [r["loss"] for r in records if "loss" in r]
+    check(losses and all(np.isfinite(losses)), f"{label}: losses {records}")
+    final = [line for line in stderr.splitlines() if "final metrics" in line]
+    check(final and "eval_cer" in final[-1], f"{label}: no eval_cer: {stderr[-2000:]}")
+    for name in ("checkpoint-2", "model"):
+        check(os.path.isdir(os.path.join(out, name)), f"{label}: no {name}/")
+    print(f"{label} {' '.join(TRAIN_CLI_ARGS)}: rc 0 in {wall:.1f} s; metrics.jsonl "
+          f"{json.dumps(records)}; {final[-1].split('final metrics: ')[-1]}; "
+          f"{sorted(os.listdir(out))} ({card})")
+    return dict(wall=wall, records=records)
+
+
+def run_training(card: str) -> dict:
+    """Phase 17: fine-tuning on the card, legs a-e."""
+    import torch
+
+    from ttasr_torch.text.tokenizer import build_byte_fallback_tokenizer
+
+    t_phase = time.perf_counter()
+    tok = build_byte_fallback_tokenizer()
+    counters = _every_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = _train_corpus(os.path.join(tmp, "corpus"))
+        full = _train_full_width(corpus, tok, counters, card)
+        # leg e needs little of the card: it runs beside legs b-d
+        cli_out = os.path.join(tmp, "cli")
+        cli = subprocess.Popen(_module_cmd("ttasr_torch.cli.train", *TRAIN_CLI_ARGS,
+                                           "--output_dir", cli_out),
+                               cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_cli = time.perf_counter()
+        try:
+            evaluation = _evaluate_on_card(full["params"], full["cfg"], corpus, tok,
+                                           counters, card)
+            batch = full.pop("batch")
+            del full["params"]
+            torch.cuda.empty_cache()
+            against_cpu = _card_against_cpu(batch, card)
+            resume = _checkpoint_and_resume(corpus, tok, batch, against_cpu["control_diff"],
+                                            card)
+            cli_run = _check_train_cli(cli, cli_out, time.perf_counter() - t_cli, card)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 17 (fine-tuning): {seconds:.1f} s ({card})")
+    return dict(full={k: v for k, v in full.items() if k != "cfg"}, evaluate=evaluation,
+                against_cpu=against_cpu, resume=resume, cli=cli_run, seconds=seconds)
+
+
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces
     ("encoder_attention_merged", "ttasr_torch/csrc/encoder_attention.cu",
      "ttasr/ops/encoder_attention_pallas.py:156"),
@@ -3860,6 +4247,7 @@ def main() -> int:
     bf16 = run_bf16_path(card)
     main_path = run_int8_path(card, act8=True)
     int8_bf16_encoder = run_int8_path(card, act8=False)
+    run_training(card)
     launches = dict(main_path["counts"], encoder_attention_merged=bf16["launches"])
     for name, leg in BRANCH_LAUNCHES.items():
         launches[name] = main_path["branches"][leg]["counts"][name]

@@ -19,6 +19,12 @@ copies of the JAX package's host modules behave as the originals.
 - The plain copies of the HTTP service are the originals' text: ``api/jwt.py``,
   ``api/passwords.py``, ``text/filters.py`` and ``streaming/utils.py`` with
   ``ttasr.`` read as ``ttasr_torch.``, and the two test pages byte for byte.
+- The training modules (``ttasr_torch/train/``, ``cli/train.py``,
+  ``core/checkpoint.py``) import nothing of ``jax``, ``optax``, ``orbax``
+  or ``ttasr``; ``train/data.py`` is the original's code with its
+  ``device`` argument, ``get_last_checkpoint``/``_cleanup_old`` and
+  ``audio/io.py``'s ``probe_num_samples`` the originals', and
+  ``cli/train.py`` takes every flag of the original, plus ``--device``.
 - The operations copies: ``core/logging.py`` is the original's text;
   ``core/census.py`` and ``core/config.py`` its code (docstrings and
   comments aside; config's device default ``cuda`` for ``tpu``);
@@ -61,7 +67,7 @@ from ttasr_torch.text import normalize as t_norm
 from ttasr_torch.text import tokenizer as t_tok
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("ttasr", "tools", "jax", "jaxlib")
+BLOCKED = ("ttasr", "tools", "jax", "jaxlib", "optax", "orbax")
 
 _ISOLATED = textwrap.dedent("""
     import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -97,7 +103,11 @@ _ISOLATED = textwrap.dedent("""
              "ttasr_torch.models.whisper.align", "ttasr_torch.core.census",
              "ttasr_torch.core.config", "ttasr_torch.core.logging",
              "ttasr_torch.core.profiling", "ttasr_torch.cli.warmup",
-             "ttasr_torch.cli.doctor", "ttasr_torch.native"}} <= set(names), names
+             "ttasr_torch.cli.doctor", "ttasr_torch.native",
+             "ttasr_torch.train", "ttasr_torch.train.data",
+             "ttasr_torch.train.spec_augment", "ttasr_torch.train.train_step",
+             "ttasr_torch.train.trainer", "ttasr_torch.cli.train",
+             "ttasr_torch.core.checkpoint"}} <= set(names), names
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
@@ -399,3 +409,55 @@ def test_align_host_half_matches():
     ref_src = ast.unparse(ref).replace("start_row = len(sot_seq)", "start_row = n_sot")
     ref = ast.parse(ref_src).body[0]
     assert tail(got["token_timings"], "w = w.reshape") == tail(ref, "w = w.reshape")
+
+
+_IMPORT_JAX_FAMILY = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|optax|orbax|ttasr)(\.|\s|$)")
+TRAINING_MODULES = ("train/__init__.py", "train/data.py", "train/spec_augment.py",
+                    "train/train_step.py", "train/trainer.py", "cli/train.py",
+                    "core/checkpoint.py")
+
+
+def test_training_modules_import_no_jax_optax_orbax():
+    for rel in TRAINING_MODULES:
+        for i, line in enumerate(_read("ttasr_torch", rel).splitlines(), 1):
+            assert not _IMPORT_JAX_FAMILY.match(line), f"{rel}:{i}: {line}"
+
+
+# the port's data.py: the original's code with a ``device`` for the mel
+DATA_EDITS = (
+    ("from ttasr.audio.io", "from ttasr_torch.audio.io"),
+    ("from ttasr.ops.mel", "from ttasr_torch.ops.mel"),
+    ("max_label_len: int = 448) -> dict:", 'max_label_len: int = 448, device="cpu") -> dict:'),
+    ("mel = np.asarray(log_mel_spectrogram(audio, n_mels=n_mels))",
+     "mel = log_mel_spectrogram(audio, n_mels=n_mels, device=device)"),
+    ("group_by_length: bool = False,\n", 'group_by_length: bool = False, device="cpu",\n'),
+    ("max_label_len=label_pad_to + 1)", "max_label_len=label_pad_to + 1, device=device)"),
+)
+
+
+def test_training_host_copies_match():
+    data = _read("ttasr", "train", "data.py")
+    for old, new in DATA_EDITS:
+        assert old in data, old
+        data = data.replace(old, new)
+    assert _code(_read("ttasr_torch", "train", "data.py")) == _code(data)
+    for (orig, port), names in (
+            (("core/checkpoint.py", "core/checkpoint.py"),
+             ("get_last_checkpoint", "_cleanup_old")),
+            (("audio/io.py", "audio/io.py"), ("probe_num_samples",))):
+        want = _defs(_read("ttasr", *orig.split("/")))
+        got = _defs(_read("ttasr_torch", *port.split("/")))
+        for name in names:
+            assert ast.dump(got[name]) == ast.dump(want[name]), name
+    from ttasr.cli import train as j_train
+    from ttasr_torch.cli import train as t_train
+
+    def flags(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.type, a.required,
+                         a.choices, type(a).__name__) for a in parser._actions
+                if a.dest != "help"}
+
+    got, want = flags(t_train.build_parser()), flags(j_train.build_parser())
+    assert got.pop("device") == (("--device",), "cuda", None, False, ("cuda", "cpu"),
+                                 "_StoreAction")
+    assert got == want

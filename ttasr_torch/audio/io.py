@@ -4,9 +4,9 @@
 (reference asr_core.py:156, api/file_asr.py:271,455): returns a contiguous
 float32 mono array at the requested rate.  WAV files decode in-process
 (numpy); mp3/flac/m4a/aac decode through an ``ffmpeg`` subprocess when the
-binary exists, since those codecs have no sane pure-Python path.  The
-streaming writer and the length probe of the original stay with their
-slices.
+binary exists, since those codecs have no sane pure-Python path.
+``probe_num_samples`` (training's length-grouped batching) is the
+original's too; the streaming writer of the original stays with its slice.
 """
 
 from __future__ import annotations
@@ -152,6 +152,39 @@ def load_audio(
     if audio.dtype == np.int16:
         return np.ascontiguousarray(audio), sr
     return np.ascontiguousarray(audio, dtype=np.float32), sr
+
+
+def probe_num_samples(path: str, sr: int = 16000) -> int:
+    """Sample count at ``sr`` Hz without decoding when possible.
+
+    WAV: header-only (``wave`` stdlib).  Other containers: ffprobe
+    duration, falling back to a full decode.  Used for length-grouped
+    batching (reference run.sh:33 ``group_by_length`` — HF sorts by the
+    decoded ``input_length``; a header probe gives the same ordering
+    without decoding the whole corpus up front).
+    """
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".wav":
+        try:
+            import wave
+
+            with wave.open(path, "rb") as wf:
+                return int(wf.getnframes() * sr / wf.getframerate())
+        except Exception:
+            pass
+    ffprobe = shutil.which("ffprobe")
+    if ffprobe:
+        proc = subprocess.run(
+            [ffprobe, "-v", "quiet", "-show_entries", "format=duration",
+             "-of", "csv=p=0", path],
+            capture_output=True, text=True, check=False,
+        )
+        try:
+            return int(float(proc.stdout.strip()) * sr)
+        except ValueError:
+            pass
+    audio, _ = load_audio(path, sr=sr)
+    return len(audio)
 
 
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:

@@ -12,13 +12,14 @@ from ttasr_torch.models.whisper.model import (
     decode_step,
     decode_train,
     encode,
+    forward,
     init_cache,
     init_params,
 )
 
 __all__ = [
     "WhisperConfig", "PRESETS", "get_config",
-    "DecodeCache", "decode_step", "decode_train", "encode",
+    "DecodeCache", "decode_step", "decode_train", "encode", "forward",
     "init_cache", "init_params",
     "load_whisper", "params_from_hf_model", "params_from_jax",
     "params_from_state_dict",

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ttasr_torch.models.whisper.config import WhisperConfig
 from ttasr_torch.ops import encoder_fused
@@ -152,7 +153,15 @@ def init_params(cfg: WhisperConfig, seed: int = 0, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def _ln(x, scale, bias, eps=1e-5):
-    """LayerNorm with f32 statistics, output in x's type."""
+    """LayerNorm with f32 statistics, output in x's type.  Where a gradient
+    flows (training) a low-precision x is normalized in f32, as the
+    reference computes it, so that the scale's and bias's gradients sum
+    over rows in f32 (the CPU's bf16 ``layer_norm`` backward loses most of
+    them over 1500 encoder rows)."""
+    if (x.dtype != torch.float32 and torch.is_grad_enabled()
+            and (x.requires_grad or scale.requires_grad)):
+        return F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(),
+                            eps).to(x.dtype)
     return F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype), bias.to(x.dtype), eps)
 
 
@@ -325,11 +334,26 @@ def _mlp_act8_acc(blk, x_quant):
     return int8_accumulators(hq, w2), hs, w2["s"], blk["b2"]
 
 
+def _run_block(block, remat: bool, x, *args):
+    """``block(x, *args)``; with ``remat`` its activations are recomputed
+    in the backward pass instead of kept (``jax.checkpoint(block)`` in the
+    reference)."""
+    if remat:
+        return checkpoint(block, x, *args, use_reentrant=False)
+    return block(x, *args)
+
+
+def _encoder_block(x, blk, n_heads, fused, t_real):
+    h = _ln(x, blk["ln1_s"], blk["ln1_b"])
+    x = x + _self_attn(h, blk, n_heads, fused=fused, t_real=t_real)
+    return x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+
+
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
 
-def encode(params: Params, cfg: WhisperConfig, mel, *,
+def encode(params: Params, cfg: WhisperConfig, mel, *, remat: bool = False,
            fused_attention: Optional[bool] = None,
            act_int8: Optional[bool] = None,
            fused_quant: Optional[bool] = None,
@@ -352,6 +376,11 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
     chains.  ``qkv_direct`` (the JAX package's ``TTASR_ENC_QKV_DIRECT``)
     feeds the fused qkv GEMM's bf16 output, made from its accumulators by
     ``qkv_epilogue_acc``, straight to B6 on the fused-quant path.
+
+    ``remat`` recomputes each float block's activations in the backward
+    pass (training's gradient checkpointing); the quantized blocks train
+    nothing, so it leaves them alone.  Training passes
+    ``fused_attention=False``: the kernel has no backward.
     """
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
@@ -395,9 +424,7 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
             x = x + _self_attn_act8(h, blk, h_n, t_real)
             x = x + _mlp_act8(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
         else:
-            h = _ln(x, blk["ln1_s"], blk["ln1_b"])
-            x = x + _self_attn(h, blk, h_n, fused=fused, t_real=t_real)
-            x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+            x = _run_block(_encoder_block, remat, x, blk, h_n, fused, t_real)
     if w2 is not None:
         x = x + act8_epilogue(*w2, out_dtype=torch.bfloat16)
     return _ln(x, enc["ln_s"], enc["ln_b"])
@@ -407,9 +434,20 @@ def encode(params: Params, cfg: WhisperConfig, mel, *,
 # Decoder — teacher-forced (training / prompt prefill)
 # ---------------------------------------------------------------------------
 
+def _decoder_block(x, blk, enc_out, n_heads, causal):
+    x = x + _self_attn(_ln(x, blk["ln1_s"], blk["ln1_b"]), blk, n_heads, causal)
+    h = _ln(x, blk["lnc_s"], blk["lnc_b"])
+    q = _split_heads(_proj(h, blk["wq_c"], blk["bq_c"]), n_heads)
+    k = _split_heads(_proj(enc_out, blk["wk_c"]), n_heads)
+    v = _split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), n_heads)
+    x = x + _proj(_merge_heads(_attention(q, k, v)), blk["wo_c"], blk["bo_c"])
+    return x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+
+
 def decode_train(params: Params, cfg: WhisperConfig, tokens, enc_out, *,
-                 positions_offset: int = 0):
-    """Full-sequence decoder pass. tokens: (B, T) int -> logits (B, T, V)."""
+                 remat: bool = False, positions_offset: int = 0):
+    """Full-sequence decoder pass. tokens: (B, T) int -> logits (B, T, V).
+    ``remat`` recomputes each block's activations in the backward pass."""
     dec = params["decoder"]
     b, t = tokens.shape
     x = (_embed_lookup(dec, tokens)
@@ -418,14 +456,8 @@ def decode_train(params: Params, cfg: WhisperConfig, tokens, enc_out, *,
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                    device=x.device))[None, None]
     for blk in dec["blocks"]:
-        x = x + _self_attn(_ln(x, blk["ln1_s"], blk["ln1_b"]), blk,
-                           cfg.decoder_heads, causal)
-        h = _ln(x, blk["lnc_s"], blk["lnc_b"])
-        q = _split_heads(_proj(h, blk["wq_c"], blk["bq_c"]), cfg.decoder_heads)
-        k = _split_heads(_proj(enc_out, blk["wk_c"]), cfg.decoder_heads)
-        v = _split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), cfg.decoder_heads)
-        x = x + _proj(_merge_heads(_attention(q, k, v)), blk["wo_c"], blk["bo_c"])
-        x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+        x = _run_block(_decoder_block, remat, x, blk, enc_out, cfg.decoder_heads,
+                       causal)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
     return _unembed(x, dec)
 
@@ -652,3 +684,8 @@ def decode_step(params: Params, cfg: WhisperConfig, tokens, pos: int,
     x = _ln(x, dec["ln_s"], dec["ln_b"])
     return _unembed(x, dec), cache
 
+
+def forward(params: Params, cfg: WhisperConfig, mel, tokens, *, remat: bool = False):
+    """Convenience: full encoder + teacher-forced decoder -> logits."""
+    enc_out = encode(params, cfg, mel, remat=remat)
+    return decode_train(params, cfg, tokens, enc_out, remat=remat)
