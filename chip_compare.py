@@ -2,7 +2,7 @@
 """Times the decode step's int8 kernels of this checkout against those of
 another copy of ``ttasr_torch/csrc`` on one NVIDIA GPU.
 
-    python3 chip_compare.py --other DIR [--phases | --encoder | --mel]
+    python3 chip_compare.py --other DIR [--phases | --encoder | --mel | --attention]
     python3 chip_compare.py --server
 
 DIR holds the other sources, for instance the parent commit's
@@ -57,6 +57,20 @@ from an instrumented copy, the FFT kernel's clock64 cycles per tile in
 each phase (thread 0 of every block, after the phase's barrier) at both
 sizes.
 
+``--attention`` compares the encoder attention (``encoder_attention.cu``)
+instead: B11 (bf16 at (1, 1500, 1280) and (4, 1536, 1280) with t_real
+1500, float32 at one window), B6 (bf16 and float32 at one window) and B19
+((1, 1500, 20, 64) bf16 and float32) of both builds in turns as above;
+every bf16-kernel output (B19's float32 inputs too) must equal the other
+build's bit for bit, and each build's float32 B11 and B6 are held to the
+plain version within ``chip_smoke.F32_REL`` x max, with both errors
+printed and each build's kernels' device ms per call (the 3xTF32 pre-pass
+beside the kernel); first ptxas's register and spill report of this
+checkout's ``encoder_attention.cu``.  A DIR whose ``encoder_attention.cu`` has no
+``split_tf32_kernel`` (its float32 path the SIMT kernel) is called with
+B11's and B6's argument lists from before it (no scratch); only a
+comparison with a build from before the 3xTF32 kernel needs them.
+
 The parent of the persistent MLP kernel took B4 and B14 without their
 scratch, counters and schedule: a DIR whose ``decoder_mlp.cu`` has no
 ``mlp_persistent_kernel`` is called with that argument list.  The instrumentation is text inserted at
@@ -94,6 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "ttasr_torch", "csrc")
 SOURCES = ("decoder_blocks.cu", "decoder_mlp.cu", "cross_attention.cu", "self_attention.cu")
 ENCODER_SOURCES = ("encoder_fused.cu",)
+ATTENTION_SOURCES = ("encoder_attention.cu",)
 MEL_SOURCES = ("mel.cu",)
 
 
@@ -104,6 +119,23 @@ LEGACY_MLP_ARGTYPES = {
     "ttasr_mlp_int8": [_P] * 11 + [_I] * 4 + [_P],
     "ttasr_mlp_crossout_int8": [_P] * 16 + [_I] * 3 + [_P],
 }
+
+
+# B11's and B6's entry points before the 3xTF32 kernel (no scratch), for
+# comparisons with such builds only
+LEGACY_ATTENTION_ARGTYPES = {
+    "ttasr_encoder_attention": [_P] * 4 + [_I] * 5 + [_P],
+    "ttasr_encoder_attention_qkv": [_P] * 2 + [_I] * 5 + [_P],
+}
+
+
+def legacy_attention(src_dir: str) -> bool:
+    """``src_dir``'s B11 and B6 take no scratch (float32 on the SIMT kernel)."""
+    path = os.path.join(src_dir, "encoder_attention.cu")
+    if not os.path.exists(path):
+        return False
+    with open(path) as f:
+        return "split_tf32_kernel" not in f.read()
 
 
 def legacy_mlp(src_dir: str) -> bool:
@@ -129,6 +161,9 @@ def build(src_dir: str, out_dir: str, tag: str, sources=SOURCES) -> ctypes.CDLL:
     dll.legacy_mlp = legacy_mlp(src_dir)
     if dll.legacy_mlp:
         argtypes.update(LEGACY_MLP_ARGTYPES)
+    dll.legacy_attention = legacy_attention(src_dir)
+    if dll.legacy_attention:
+        argtypes.update(LEGACY_ATTENTION_ARGTYPES)
     for name, types in argtypes.items():
         if hasattr(dll, name):
             getattr(dll, name).argtypes = types
@@ -333,7 +368,7 @@ def new_encoder_entries(cs, card: str) -> None:
             times = {"parent": [], "this": []}
             for tag in ("parent", "this", "this", "parent"):
                 f = (lambda: fn(*args)) if tag == "this" else (lambda: parent(*args))
-                times[tag].append((cs.time_ms(f), cs.per_call_ms(f), device_ms(f)))
+                times[tag].append((cs.time_ms(f), cs.per_call_ms(f), sum(device_ms(f).values())))
             m = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
             print(f"{name} B={b}: " + "; ".join(
                 f"{k} time_ms {v[0]:.4f}, in a graph of 20 {v[1]:.4f}, device {v[2]:.4f}"
@@ -397,18 +432,7 @@ def mel_phases(cs, inputs: dict, out_dir: str, card: str) -> None:
 
     from ttasr_torch.ops import mel_fused
 
-    from ttasr_torch.ops import _build
-
-    ptxas = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                            os.path.join(out_dir, "mel_v.o"), os.path.join(CSRC, "mel.cu")],
-                           capture_output=True, text=True, check=True)
-    report, kernel = [], "?"
-    for line in (ptxas.stdout + ptxas.stderr).splitlines():
-        if "Compiling entry function" in line:
-            kernel = re.search(r"(log_mel\w*_kernel)", line).group(1)
-        elif "registers" in line or "spill" in line:
-            report.append(f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
-    print("mel.cu, ptxas: " + "; ".join(report), flush=True)
+    print("mel.cu, ptxas: " + ptxas_report("mel.cu", out_dir), flush=True)
     src = edited(out_dir, "csrc_mel_phases", MEL_MARKS)
     with open(os.path.join(src, "mel.cu"), "a") as f:
         f.write(MEL_READ)
@@ -477,7 +501,7 @@ def mel_routes(cs, other, out_dir: str, card: str) -> None:
         times = {tag: [] for tag in fns}
         for tag in ("other", "this", "this", "other"):
             f = (lambda fn=fns[tag]: fn(x))
-            times[tag].append((cs.time_ms(f), device_ms(f)))
+            times[tag].append((cs.time_ms(f), sum(device_ms(f).values())))
         mean = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
         print(f"log-mel {name}: " + "; ".join(
             f"{k} time_ms {m[0]:.4f}, device {m[1]:.4f}" for k, m in mean.items())
@@ -489,8 +513,125 @@ def mel_routes(cs, other, out_dir: str, card: str) -> None:
     mel_phases(cs, inputs, out_dir, card)
 
 
-def device_ms(fn, n: int = 30) -> float:
-    """The kernels' device milliseconds per call, from torch.profiler."""
+def attention_cases(cs, dll, plain=None):
+    """B11, B6 and B19 on seeded inputs (the same for every build), in
+    ``dll``'s argument lists; ``plain``, when given, gets each float32 B11
+    and B6 case's plain version under its label."""
+    import torch
+
+    from ttasr_torch.ops import encoder_attention as ea
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    D, T = cs.D, cs.ENC_T
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+
+    def rand(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def scratch(b, t, dtype):
+        if dll.legacy_attention:
+            return []
+        return [ea.f32_scratch(b, t, D, "cuda") if dtype == torch.float32 else None]
+
+    out = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        shapes = ((1, T, T), (4, 1536, T)) if dtype == torch.bfloat16 else ((1, T, T),)
+        for b, t, t_real in shapes:
+            q, k, v = rand(b, t, D, dtype=dtype, scale=64 ** -0.5), rand(
+                b, t, D, dtype=dtype), rand(b, t, D, dtype=dtype)
+            o = torch.empty_like(q)
+            label = f"B11 {tag} B={b} T={t} t_real={t_real}"
+            out[label] = ("ttasr_encoder_attention", o, q, k, v, *scratch(b, t, dtype), o, b, t,
+                          D, t_real, codes[dtype])
+            if plain is not None and dtype == torch.float32:
+                plain[label] = lambda q=q, k=k, v=v, t_real=t_real: ea.encoder_attention_merged_ref(
+                    q, k, v, t_real)
+        colscale = torch.ones(3 * D, device="cuda")
+        colscale[:D] = 64 ** -0.5
+        qkv = (torch.randn((1, T, 3 * D), generator=gen, device="cuda") * colscale).to(dtype)
+        o = torch.empty((1, T, D), dtype=dtype, device="cuda")
+        label = f"B6 {tag} B=1 T={T}"
+        out[label] = ("ttasr_encoder_attention_qkv", o, qkv, *scratch(1, T, dtype), o, 1, T, D, T,
+                      codes[dtype])
+        if plain is not None and dtype == torch.float32:
+            plain[label] = lambda qkv=qkv: ea.encoder_attention_merged_qkv_ref(qkv, T)
+        q, k, v = (rand(1, T, cs.H, 64, dtype=dtype) for _ in range(3))
+        o = torch.empty_like(q)
+        bf = (torch.empty(3 * q.numel(), dtype=torch.bfloat16, device="cuda")
+              if dtype == torch.float32 else None)
+        out[f"B19 {tag} B=1 T={T}"] = ("ttasr_encoder_self_attention", o, q, k, v, bf, o, 1, T, D,
+                                       codes[dtype])
+    return out
+
+
+def ptxas_report(source: str, out_dir: str) -> str:
+    """ptxas's registers and spills for each kernel of this checkout's
+    ``csrc/<source>``."""
+    from ttasr_torch.ops import _build
+
+    ptxas = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                            os.path.join(out_dir, source + ".v.o"), os.path.join(CSRC, source)],
+                           capture_output=True, text=True, check=True)
+    text = subprocess.run(["c++filt"], input=ptxas.stdout + ptxas.stderr, capture_output=True,
+                          text=True, check=True).stdout
+    report, kernel = [], "?"
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            kernel = re.search(r"function '([^']+)'", line).group(1)
+        elif "registers" in line or "spill" in line:
+            report.append(f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
+    return "; ".join(report)
+
+
+def attention(cs, builds: dict, out_dir: str, card: str) -> None:
+    """ptxas's register and spill report of this checkout's
+    ``encoder_attention.cu``; the encoder attention of both builds in turns
+    (:func:`in_turns`), then each case's outputs: the bf16 kernel's equal
+    bit for bit across the builds, float32 B11 and B6 each held to the
+    plain version, with each build's kernels' device ms per call."""
+    import torch
+
+    print("encoder_attention.cu, ptxas: " + ptxas_report("encoder_attention.cu", out_dir),
+          flush=True)
+    in_turns(cs, builds, card, make_cases=lambda dll: attention_cases(cs, dll))
+    plain = {}
+    by_tag = {tag: attention_cases(cs, dll, plain if tag == "this" else None)
+              for tag, dll in builds.items()}
+    for label, case in by_tag["this"].items():
+        outs = {}
+        for tag, dll in builds.items():
+            entry, out, *args = by_tag[tag][label]
+            call(dll, entry, *args)
+            torch.cuda.synchronize()
+            outs[tag] = out.clone()
+        if label in plain:
+            want = plain[label]()
+            limit = cs.F32_REL * want.abs().max().item()
+            errs = {tag: cs._max_err(o, want) for tag, o in outs.items()}
+            print(f"{label}: max_abs_err against the plain version " + ", ".join(
+                f"{tag} {e:.3e}" for tag, e in errs.items()) + f" (bound {limit:.3e}) ({card})",
+                flush=True)
+            cs.check(errs["this"] <= limit, f"{label}: {errs['this']} > {limit}")
+            for tag, dll in builds.items():
+                entry, out, *args = by_tag[tag][label]
+                ms = device_ms(lambda d=dll, e=entry, a=args: call(d, e, *a))
+                total = sum(ms.values())
+                print(f"{label}, {tag}: device ms per call by kernel " + "; ".join(
+                    f"{name}: {t:.4f} ({t / total:.1%})" for name, t in ms.items())
+                    + f" ({card})", flush=True)
+        else:
+            same = all(torch.equal(o.view(torch.int16 if o.dtype == torch.bfloat16
+                                          else torch.int32),
+                                   outs["this"].view(torch.int16 if o.dtype == torch.bfloat16
+                                                     else torch.int32))
+                       for o in outs.values())
+            print(f"{label}: bit for bit across the builds: {same}", flush=True)
+            cs.check(same, f"{label}: the builds' outputs differ")
+
+
+def device_ms(fn, n: int = 30) -> dict:
+    """{CUDA kernel name as the profiler gives it: device milliseconds per
+    call of ``fn``}, from torch.profiler over ``n`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -500,8 +641,8 @@ def device_ms(fn, n: int = 30) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def in_turns(cs, builds: dict, card: str, make_cases=None) -> None:
@@ -527,7 +668,7 @@ def in_turns(cs, builds: dict, card: str, make_cases=None) -> None:
         times = {tag: [] for tag in builds}
         for tag in list(builds) + list(reversed(builds)):
             fn = fns[tag]
-            times[tag].append((cs.time_ms(fn), cs.per_call_ms(fn), device_ms(fn)))
+            times[tag].append((cs.time_ms(fn), cs.per_call_ms(fn), sum(device_ms(fn).values())))
         mean = {k: np.mean(np.array(v), axis=0) for k, v in times.items()}
         gaps = "; ".join(
             f"max|this - {tag}| {(res[tag] - res['this']).abs().max().item():.3e}, bit for bit "
@@ -602,7 +743,7 @@ def sdpa_yardstick(cs, card: str) -> None:
         print(f"yardstick, not the same function: scaled_dot_product_attention on 5 rows x "
               f"{cs.H} heads, bf16 K/V of len {length} (slot {slot}): time_ms "
               f"{cs.time_ms(fn):.4f}, in a graph of 20 {cs.per_call_ms(fn):.4f}, device "
-              f"{device_ms(fn):.4f} ms ({card})", flush=True)
+              f"{sum(device_ms(fn).values()):.4f} ms ({card})", flush=True)
 
 
 def compare(cs, this, other, card: str) -> None:
@@ -855,6 +996,8 @@ def main() -> int:
     parser.add_argument("--encoder", action="store_true",
                         help="compare the encoder's row kernels instead")
     parser.add_argument("--mel", action="store_true", help="compare B18 (mel.cu) instead")
+    parser.add_argument("--attention", action="store_true",
+                        help="compare the encoder attention (B11, B6, B19) instead")
     opts = parser.parse_args()
     if not opts.server and not opts.other:
         parser.error("--other is required unless --server is given")
@@ -877,6 +1020,10 @@ def main() -> int:
         if opts.mel:
             mel_routes(cs, build(os.path.abspath(opts.other), tmp, "other", MEL_SOURCES), tmp,
                        card)
+            return 0
+        if opts.attention:
+            attention(cs, {tag: build(src, tmp, tag, ATTENTION_SOURCES) for tag, src in (
+                ("other", os.path.abspath(opts.other)), ("this", CSRC))}, tmp, card)
             return 0
         if opts.encoder:
             builds = {tag: build(src, tmp, tag, ENCODER_SOURCES) for tag, src in (

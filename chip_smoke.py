@@ -14,7 +14,14 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 3. holds the encoder-attention kernel (B11) against its plain PyTorch
    version at large-v3 shapes (bf16 and float32, full and ragged
    ``t_real``); prints its TFLOP/s and share of the bound beside
-   ``scaled_dot_product_attention``'s;
+   ``scaled_dot_product_attention``'s; float32 B11 (also at B = 2 and a
+   ragged (4, 1536)) and B6 (the fused (B, 1500, 3840) buffer through
+   ``encoder_attention_merged_qkv``, B = 1 and 2), the 3xTF32 kernel,
+   within ``F32_REL`` of their plain versions; at one window timed beside
+   them and the library call in f32, with the bound of the function's
+   FLOP at the rate of f32-accurate tensor-core products
+   (``PEAK_OPS_PER_S["f32_tc"]``) and, in brackets, at the TF32 and the f32
+   peaks;
 4. holds the int8 decode kernels against their plain versions at large-v3
    shapes: B1 and B4 at 5 rows; B3 at (B, K) = (1, 5) and (5, 1) over int4
    and int8 cross-KV; B2 (beam 5, a non-identity ancestry map) and B10
@@ -230,8 +237,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    second, peak memory beside the reckoned params, grads, moments and bf16
    copy; (b) ``Trainer.evaluate`` on those params (greedy, two clips in one
    chunk, ``generation_max_length`` 48): B11 launched 32 times per chunk
-   and nothing else; B11 in float32 at one window timed beside its plain
-   version and ``scaled_dot_product_attention``, with its bound; (c) at
+   and nothing else, its wall beside the one measured with the SIMT f32
+   kernel (``EVAL_WALL_SIMT_S``); B11 in float32 at evaluate's chunk of
+   ``EVAL_BATCH`` windows held to its plain version and timed beside it
+   and ``scaled_dot_product_attention``, with its bounds as in phase 3; (c) at
    large-v3's width with 2 + 2 layers, f32, batch 1: loss within 1e-5 and
    each grad leaf within 1e-4 of its largest |g| of the port on the CPU,
    and the card's grads with remat against without, bit for bit but in
@@ -303,7 +312,14 @@ N_LAYERS = 32  # large-v3 decoder and encoder depth
 # a kernel could take is the larger of its bytes over the memory rate and
 # its operations over the peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 494.7e12}
+# float32-accurate products on the tensor cores, the rate that bounds an f32
+# attention on this card whatever its design: the tensor cores have no f32
+# type, and the cheapest known products of f32 accuracy cost three TF32
+# products (hi.hi + hi.lo + lo.hi of 11-bit halves: 494.7 / 3) or six bf16
+# ones (three 8-bit thirds, the terms of order <= 2: 989 / 6); both ~165
+# TFLOP/s, above the 67 of the f32 units outside them
+PEAK_OPS_PER_S["f32_tc"] = PEAK_OPS_PER_S["tf32"] / 3
 
 
 class SmokeFailure(RuntimeError):
@@ -447,8 +463,70 @@ def _attention_rate(name: str, m: dict, flop: float, card: str) -> None:
           f"{flop / m['library_ms'] / 1e9:.1f} TFLOP/s ({card})")
 
 
+def _f32_bound(tensors, flop: float) -> dict:
+    """The float32 attention's bound: the function's ``flop`` at the rate of
+    f32-accurate tensor-core products (``PEAK_OPS_PER_S["f32_tc"]``), and
+    the same ``flop`` at the TF32 peak (``tf32_peak_ms``: one TF32 product
+    per multiply-add, below f32 accuracy) and at the f32 peak outside the
+    tensor cores (``f32_peak_ms``: the bound of a SIMT kernel)."""
+    return dict(**bound(tensors, flop, "f32_tc"),
+                tf32_peak_ms=bound(tensors, flop, "tf32")["bound_ms"],
+                f32_peak_ms=bound(tensors, flop, "f32")["bound_ms"])
+
+
+def _f32_attention_line(name: str, m: dict, flop: float, card: str) -> None:
+    print(f"{name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention (f32) {m['library_ms']:.4f} ms, bound "
+          f"{m['bound_ms']:.4f} ms ({m['bound_by']}: {flop / 1e9:.2f} GFLOP at "
+          f"{PEAK_OPS_PER_S['f32_tc'] / 1e12:.1f} TFLOP/s, f32-accurate tensor-core products), "
+          f"{m['bound_ms'] / m['ms']:.1%} of the bound [{m['tf32_peak_ms']:.4f} ms at the TF32 "
+          f"peak, {m['tf32_peak_ms'] / m['ms']:.1%} of it; {m['f32_peak_ms']:.4f} ms at the f32 "
+          f"peak], {m['library_ms'] / m['ms']:.2f}x SDPA's speed, max_abs_err "
+          f"{m['max_abs_err']:.3e} (bound {m['limit']:.3e}) ({card})")
+
+
+def _check_b6_f32(card: str) -> dict:
+    """B6 in float32: the fused (B, 1500, 3 x 1280) buffer, q's third
+    pre-scaled, through ``encoder_attention_merged_qkv`` (the 3xTF32
+    kernel) at B = 1 and 2 (the batch rows' lo planes lie B rows past their
+    hi planes), each held to its plain version within ``F32_REL``; at one
+    window timed beside it and the library call."""
+    import torch
+
+    from ttasr_torch.ops.encoder_attention import (
+        encoder_attention_merged_qkv,
+        encoder_attention_merged_qkv_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    colscale = torch.ones(3 * D, device="cuda")
+    colscale[:D] = 64 ** -0.5
+    for b in (2, 1):
+        qkv = torch.randn((b, ENC_T, 3 * D), generator=gen, device="cuda") * colscale
+        got = encoder_attention_merged_qkv(qkv, ENC_T)
+        torch.cuda.synchronize()
+        want = encoder_attention_merged_qkv_ref(qkv, ENC_T)
+        err = _max_err(got, want)
+        limit = F32_REL * want.abs().max().item()
+        print(f"encoder_attention_merged_qkv float32 B={b} T={ENC_T}: max_abs_err {err:.3e} "
+              f"(bound {limit:.3e})")
+        check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+              f"B6 float32 B={b}: a non-finite or non-f32 output")
+        check(err <= limit, f"B6 float32 B={b} disagrees with its plain version: "
+                            f"{err} > {limit}")
+    ms, plain_ms = in_turns(lambda: encoder_attention_merged_qkv(qkv, ENC_T),
+                            lambda: encoder_attention_merged_qkv_ref(qkv, ENC_T))
+    flop = 4.0 * ENC_T * ENC_T * D
+    m = dict(max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms,
+             library_ms=_sdpa_ms(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], ENC_T),
+             **_f32_bound([qkv, got], flop))
+    _f32_attention_line(f"encoder_attention_merged_qkv float32 B=1 T={ENC_T}", m, flop, card)
+    return m
+
+
 def check_encoder_attention(card: str) -> dict:
-    """B11 against its plain version at the main path's shapes."""
+    """B11 against its plain version at the main path's shapes; B11's and
+    B6's float32 path (3xTF32) at one window beside the library call."""
     import torch
 
     from ttasr_torch.ops.encoder_attention import (
@@ -461,7 +539,8 @@ def check_encoder_attention(card: str) -> dict:
     worst = 0.0
     cases = [(torch.bfloat16, 1, 1500, 1500), (torch.bfloat16, 4, 1500, 1500),
              (torch.bfloat16, 1, 1536, 1500), (torch.bfloat16, 4, 1536, 1500),
-             (torch.float32, 1, 1500, 1500), (torch.float32, 1, 1536, 1500)]
+             (torch.float32, 1, 1500, 1500), (torch.float32, 2, 1500, 1500),
+             (torch.float32, 1, 1536, 1500), (torch.float32, 4, 1536, 1500)]
     for dtype, b, t, t_real in cases:
         def rand():
             return torch.randn((b, t, d), generator=gen, device="cuda")
@@ -489,10 +568,17 @@ def check_encoder_attention(card: str) -> dict:
                 main = dict(ms=kernel_ms, plain_ms=plain_ms,
                             library_ms=_sdpa_ms(q, k, v, t_real),
                             **bound([q, k, v, got], 4.0 * b * t * t_real * d, "bf16"))
+            elif b == 1:
+                f32 = dict(max_abs_err=err, limit=limit, ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=_sdpa_ms(q, k, v, t_real),
+                           **_f32_bound([q, k, v, got], 4.0 * b * t * t_real * d))
     print(f"encoder_attention bf16 B=1 T=1500: scaled_dot_product_attention "
           f"{main['library_ms']:.4f} ms, bound {main['bound_ms']:.4f} ms ({card})")
     _attention_rate("encoder_attention bf16 B=1 T=1500", main, 4.0 * 1500 * 1500 * d, card)
-    return dict(max_abs_err=worst, **main)
+    _f32_attention_line("encoder_attention float32 B=1 T=1500", f32, 4.0 * 1500 * 1500 * d,
+                        card)
+    b6_f32 = _check_b6_f32(card)
+    return dict(max_abs_err=worst, b11_f32=f32, b6_f32=b6_f32, **main)
 
 
 # ---------------------------------------------------------------------------
@@ -3789,6 +3875,10 @@ TRAIN_LR = 1e-4
 # Findings)
 LOSS_FALL = 0.7
 EVAL_MAX_LENGTH = 48
+# leg b's evaluate wall when B11's float32 inputs took the SIMT kernel
+# (H100 80GB HBM3, 700 W: the proof run of this script before the 3xTF32
+# kernel), printed beside this run's
+EVAL_WALL_SIMT_S = 1.67
 EVAL_BATCH = 2
 CARD_GRAD_REL = 1e-4  # card against CPU: each leaf within 1e-4 of its largest |g|
 SMALL_LAYERS = 2  # legs c and d: large-v3's width, 2 + 2 layers
@@ -3900,8 +3990,9 @@ def _train_full_width(corpus: str, tok, counters, card: str) -> dict:
 
 def _evaluate_on_card(params, cfg, corpus: str, tok, counters, card: str) -> dict:
     """Leg b: ``Trainer.evaluate`` on leg a's params (greedy, f32, the
-    encoder through B11), B11's launches exact; then B11 in float32 at one
-    window timed beside its plain version and the library call."""
+    encoder through B11), B11's launches exact; then B11 in float32 at the
+    shape evaluate gives it, (EVAL_BATCH, 1500, D), held to its plain
+    version and timed beside it and the library call."""
     import torch
 
     from ttasr_torch.ops.encoder_attention import (
@@ -3930,13 +4021,14 @@ def _evaluate_on_card(params, cfg, corpus: str, tok, counters, card: str) -> dic
     check(metrics["eval_samples"] == len(examples) and np.isfinite(metrics["eval_cer"]),
           f"{label}: {metrics}")
     print(f"{label}: {json.dumps(metrics)} in {wall:.2f} s ({len(examples)} clips, "
-          f"{chunks} chunk(s), generation_max_length {EVAL_MAX_LENGTH}); B11 launches "
-          f"{counts['encoder_attention_merged']} = {N_LAYERS} x {chunks} ({card})")
+          f"{chunks} chunk(s), generation_max_length {EVAL_MAX_LENGTH}; "
+          f"{EVAL_WALL_SIMT_S} s with the SIMT f32 kernel in an earlier proof run); B11 "
+          f"launches {counts['encoder_attention_merged']} = {N_LAYERS} x {chunks} ({card})")
 
     gen = torch.Generator(device="cuda").manual_seed(17)
 
     def rand():
-        return torch.randn((1, 1500, D), generator=gen, device="cuda")
+        return torch.randn((EVAL_BATCH, 1500, D), generator=gen, device="cuda")
 
     q, k, v = rand() * 64 ** -0.5, rand(), rand()
     got = encoder_attention_merged(q, k, v, 1500)
@@ -3944,16 +4036,14 @@ def _evaluate_on_card(params, cfg, corpus: str, tok, counters, card: str) -> dic
     want = encoder_attention_merged_ref(q, k, v, 1500)
     err = _max_err(got, want)
     limit = F32_REL * want.abs().max().item()
-    check(err <= limit, f"B11 float32: {err} > {limit}")
+    check(err <= limit, f"B11 float32 B={EVAL_BATCH}: {err} > {limit}")
     kernel_ms, plain_ms = in_turns(lambda: encoder_attention_merged(q, k, v, 1500),
                                    lambda: encoder_attention_merged_ref(q, k, v, 1500))
-    f32 = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=_sdpa_ms(q, k, v, 1500),
-               **bound([q, k, v, got], 4.0 * 1500 * 1500 * D, "f32"))
-    print(f"B11 float32 B=1 T=1500 (evaluate's dtype): kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, scaled_dot_product_attention {f32['library_ms']:.4f} ms, "
-          f"bound {f32['bound_ms']:.4f} ms ({f32['bound_by']}, float32 peak), "
-          f"max_abs_err {err:.3e} (bound {limit:.3e}) ({card})")
+    flop = 4.0 * EVAL_BATCH * 1500 * 1500 * D
+    f32 = dict(max_abs_err=err, limit=limit, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=_sdpa_ms(q, k, v, 1500), **_f32_bound([q, k, v, got], flop))
+    _f32_attention_line(f"B11 float32 B={EVAL_BATCH} T=1500 (evaluate's chunk, 3xTF32)", f32,
+                        flop, card)
     return dict(metrics=metrics, wall=wall, b11_launches=counts["encoder_attention_merged"],
                 b11_f32=f32)
 
@@ -4247,7 +4337,7 @@ def main() -> int:
     bf16 = run_bf16_path(card)
     main_path = run_int8_path(card, act8=True)
     int8_bf16_encoder = run_int8_path(card, act8=False)
-    run_training(card)
+    training = run_training(card)
     launches = dict(main_path["counts"], encoder_attention_merged=bf16["launches"])
     for name, leg in BRANCH_LAUNCHES.items():
         launches[name] = main_path["branches"][leg]["counts"][name]
@@ -4270,6 +4360,13 @@ def main() -> int:
         "int8_bf16_encoder": int8_bf16_encoder["encoder_ms"]}) + f" ({card})")
     print("int8 GEMM: " + json.dumps(gemm))
     print(f"B6 at {MEL_WINDOWS} windows: " + json.dumps(b6_windows))
+    b11 = measured["encoder_attention_merged"]
+    print("float32 attention (3xTF32; bound_ms at the f32-accurate tensor-core rate, "
+          "tf32_peak_ms and f32_peak_ms at those peaks; leg b at B = EVAL_BATCH): " + json.dumps({
+              "B11 phase 3": b11.pop("b11_f32"), "B6 phase 3": b11.pop("b6_f32"),
+              "B11 leg b": training["evaluate"]["b11_f32"],
+              "evaluate wall s": training["evaluate"]["wall"],
+              "evaluate wall s, SIMT kernel": EVAL_WALL_SIMT_S}) + f" ({card})")
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -48,6 +48,16 @@ KERNELS = ("qkv_int8_fused", "self_attn_step_indirect_int8",
            "cross_attention_int8", "gather_cache_rows")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The micro model's eager ops run faster on one thread, and the suite
+    runs several workers to a machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(name):
     jcfg = J_PRESETS[name]
     jq = quantize_params(jm.init_params(jcfg, seed=0))

@@ -34,6 +34,16 @@ TOK = build_byte_fallback_tokenizer()
 NAME = "micro64-test"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The micro model's eager ops run faster on one thread, and the suite
+    runs several workers to a machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _engines(dtype_name):
     jdtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype_name]
     tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]

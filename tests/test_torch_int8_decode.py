@@ -36,6 +36,16 @@ NAME = "micro64-test"
 INT8 = dict(kv_int8=True, cross_kv_int8=True, cross_kv_int4=True, kv_int4=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The micro model's eager ops run faster on one thread, and the suite
+    runs several workers to a machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = J_PRESETS[NAME]

@@ -237,14 +237,32 @@ def test_vad_copy_matches(heuristic, monkeypatch):
                                   j_vad.collect_chunks(audio, want))
 
 
-def test_audio_io_copy_round_trip(tmp_path, monkeypatch):
-    # the port copies the scipy host path of resample_poly_host; the JAX
-    # package tries its C++ resampler first, so switch that off here
-    from ttasr import native
+@pytest.mark.parametrize("lane", ["native", "scipy"])
+def test_audio_io_copy_round_trip(lane, tmp_path, monkeypatch):
+    # both packages' resample_poly_host try their C++ resampler first, then
+    # scipy: "native" compares the default paths, "scipy" the next lane with
+    # both C++ resamplers switched off
+    from ttasr import native as j_native
+    from ttasr.audio import resample as j_resample
+    from ttasr_torch import native as t_native
+    from ttasr_torch.audio import resample as t_resample
 
-    monkeypatch.setattr(native, "resample", lambda *a, **k: None)
+    want_fn = _defs(_read("ttasr", "audio", "resample.py"))["resample_poly_host"]
+    want_fn = ast.parse(ast.unparse(want_fn).replace(
+        "from ttasr import native", "from ttasr_torch import native")).body[0]
+    got_fn = _defs(_read("ttasr_torch", "audio", "resample.py"))["resample_poly_host"]
+    assert (ast.dump(_StripDocstrings().visit(got_fn))
+            == ast.dump(_StripDocstrings().visit(want_fn)))
     audio = j_train_vad.synth_speech(np.random.default_rng(2), 2.0)[0]
-    for sr in (16000, 22050, 8000):
+    if lane == "scipy":
+        monkeypatch.setattr(j_native, "resample", lambda *a, **k: None)
+        monkeypatch.setattr(t_native, "resample", lambda *a, **k: None)
+    else:
+        assert t_native.resample(audio, 22050, 16000) is not None
+        assert j_native.resample(audio, 22050, 16000) is not None
+    for sr in (16000, 22050, 8000, 44100, 48000):
+        np.testing.assert_array_equal(t_resample.resample_poly_host(audio, 16000, sr),
+                                      j_resample.resample_poly_host(audio, 16000, sr))
         path = str(tmp_path / f"a{sr}.wav")
         t_io.write_wav(path, audio, sr)
         with open(path, "rb") as fh:

@@ -1,6 +1,7 @@
 """Sample-rate conversion on the host (the port's copy of the host path of
-``ttasr/audio/resample.py``): polyphase filtering with scipy, or a
-windowed-sinc numpy filter where scipy is missing.
+``ttasr/audio/resample.py``): the port's C++ resampler
+(``ttasr_torch/native``), else polyphase filtering with scipy, else a
+windowed-sinc numpy filter.
 """
 
 from __future__ import annotations
@@ -16,10 +17,21 @@ def _gcd_ratio(sr_from: int, sr_to: int):
 
 
 def resample_poly_host(audio: np.ndarray, sr_from: int, sr_to: int) -> np.ndarray:
-    """Polyphase resampling on host, float32 in/out: scipy, else the
-    pure-numpy windowed sinc."""
+    """Polyphase resampling on host, float32 in/out.
+
+    Order of preference: the port's C++ library (ttasr_torch/native), scipy,
+    pure-numpy windowed sinc.
+    """
     if sr_from == sr_to:
         return np.asarray(audio, dtype=np.float32)
+    try:
+        from ttasr_torch import native
+
+        out = native.resample(np.asarray(audio, np.float32), sr_from, sr_to)
+        if out is not None:
+            return out
+    except Exception:  # pragma: no cover - fall through to scipy
+        pass
     up, down = _gcd_ratio(sr_from, sr_to)
     try:
         from scipy.signal import resample_poly

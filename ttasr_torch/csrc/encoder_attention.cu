@@ -22,9 +22,11 @@
 // (two heads block-diagonal in one 128-lane tile) exists only for the
 // TPU's lane width and is not carried over.
 //
-// float32 inputs of B11 (and B6) take a SIMT kernel templated on the
-// element type (exact f32 products; the tensor cores would round to
-// TF32).  It is the reference-precision path, not the main path.
+// float32 inputs of B11 and B6 (the fine-tuning evaluation's encoder, and
+// any f32 caller) keep f32 accuracy on the tensor cores: a pre-pass splits
+// q, K and V into tf32 hi and lo planes (V transposed, its keys permuted
+// within groups of 8) in scratch the wrapper allocates, and the wgmma
+// kernel runs on them with 3xTF32 tiles (Tf32Tiles).
 //
 // Tensor maps are encoded on the host for every call (cuTensorMapEncodeTiled,
 // fetched once through cudaGetDriverEntryPoint, so nothing links libcuda)
@@ -40,88 +42,6 @@
 namespace {
 
 using ttasr_enc::kDh;
-
-// ---------------------------------------------------------------------------
-// SIMT path (float32): one thread per query row, K/V tiles of 32 keys in
-// shared memory read as broadcasts.
-// ---------------------------------------------------------------------------
-
-constexpr int kSimtRows = 64;  // query rows (= threads) per block
-constexpr int kSimtKeys = 32;  // keys per tile
-
-template <typename T>
-__global__ void __launch_bounds__(kSimtRows)
-encoder_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, T* __restrict__ out,
-                              int T_len, int ld, int D, int t_real) {
-  __shared__ __align__(16) float k_s[kSimtKeys][kDh];
-  __shared__ __align__(16) float v_s[kSimtKeys][kDh];
-
-  const int row = blockIdx.x * kSimtRows + threadIdx.x;
-  const size_t base = (size_t)blockIdx.z * T_len * ld + (size_t)blockIdx.y * kDh;
-  const size_t obase = (size_t)blockIdx.z * T_len * D + (size_t)blockIdx.y * kDh;
-  const bool live = row < T_len;
-
-  float qr[kDh], acc[kDh];
-#pragma unroll
-  for (int d = 0; d < kDh; ++d) {
-    qr[d] = live ? static_cast<float>(q[base + (size_t)row * ld + d]) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < t_real; k0 += kSimtKeys) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kSimtKeys * kDh; i += kSimtRows) {
-      const int r = i / kDh, d = i % kDh;
-      const bool ok = k0 + r < t_real;
-      k_s[r][d] = ok ? static_cast<float>(k[base + (size_t)(k0 + r) * ld + d]) : 0.f;
-      v_s[r][d] = ok ? static_cast<float>(v[base + (size_t)(k0 + r) * ld + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kSimtKeys];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kSimtKeys; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < kDh; d += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(&k_s[j][d]);
-        dot = fmaf(qr[d], kv.x, dot);
-        dot = fmaf(qr[d + 1], kv.y, dot);
-        dot = fmaf(qr[d + 2], kv.z, dot);
-        dot = fmaf(qr[d + 3], kv.w, dot);
-      }
-      s[j] = (k0 + j < t_real) ? dot : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float mn = fmaxf(m, tmax);
-    const float corr = expf(m - mn);
-    m = mn;
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < kDh; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kSimtKeys; ++j) {
-      const float p = expf(s[j] - mn);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < kDh; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j][d]);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
-      }
-    }
-  }
-  if (live) {
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int d = 0; d < kDh; ++d) out[obase + (size_t)row * D + d] = static_cast<T>(acc[d] * inv);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The wgmma kernel's launches
@@ -145,20 +65,64 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// One head's 64 columns of bf16 rows `ld` elements apart, as a (D, T, B)
-// tensor with 64 x 128 x 1 boxes and the 128-B swizzle; rows past T read
-// as zeros.
-bool make_map(CUtensorMap* map, const void* base, int B, int T, int ld, int D) {
+// A 3-D tensor map (dims[0] contiguous, strides of dims 1 and 2 in bytes)
+// with the 128-B swizzle; boxes past the dims read as zeros.
+bool make_map_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                 const cuuint64_t (&dims)[3], const cuuint64_t (&strides)[2],
+                 const cuuint32_t (&box)[3]) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)T * ld * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kDh, (cuuint32_t)ttasr_enc::kBlockK, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One head's 64 columns of bf16 rows `ld` elements apart, as a (D, T, B)
+// tensor with 64 x 128 x 1 boxes; rows past T read as zeros.
+bool make_map(CUtensorMap* map, const void* base, int B, int T, int ld, int D) {
+  return make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base,
+                     {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)B},
+                     {(cuuint64_t)ld * 2, (cuuint64_t)T * ld * 2},
+                     {(cuuint32_t)kDh, (cuuint32_t)ttasr_enc::kBlockK, 1});
+}
+
+// The SM count of the current device, after raising `kernel`'s dynamic
+// shared memory limit to `smem` on first use on the device (the attribute
+// is per context; `cache` is the caller's, one per kernel); 0 on failure,
+// with the error in *err.
+int sm_count(const void* kernel, int smem, int (&cache)[64], cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  int sms = dev < 64 ? cache[dev] : 0;
+  if (sms == 0) {
+    *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (*err == cudaSuccess)
+      *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err != cudaSuccess) return 0;
+    if (dev < 64) cache[dev] = sms;
+  }
+  return sms;
+}
+
+// attention_wgmma_kernel<Tiles> over `maps`, one block per SM (384 threads
+// at 168 registers fill its register file); scores times `scale`.
+template <typename Tiles>
+int launch_persistent(const CUtensorMap (&maps)[3], typename Tiles::Out* out, int B, int T, int D,
+                      int t_real, float scale, cudaStream_t st) {
+  constexpr int smem = ttasr_enc::smem_bytes<Tiles>();
+  static int n_sms[64] = {};  // per instantiation
+  cudaError_t err;
+  const int sms = sm_count(reinterpret_cast<const void*>(ttasr_enc::attention_wgmma_kernel<Tiles>),
+                           smem, n_sms, &err);
+  if (sms == 0) return (int)err;
+  const long items = (long)((T + ttasr_enc::kBlockQ - 1) / ttasr_enc::kBlockQ) * (D / kDh) * B;
+  const int grid = (int)(items < sms ? items : sms);
+  ttasr_enc::attention_wgmma_kernel<Tiles><<<grid, ttasr_enc::kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], out, B, T, D, t_real, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 // bf16 q/k/v rows `ld` elements apart; out (B, T, D) contiguous; scores
@@ -170,25 +134,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, Out* out, int B, i
   if (!make_map(&maps[0], q, B, T, ld, D) || !make_map(&maps[1], k, B, T, ld, D) ||
       !make_map(&maps[2], v, B, T, ld, D))
     return (int)cudaErrorInvalidValue;
-  static int n_sms[64] = {};  // per device: the attribute is per context
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int sms = dev < 64 ? n_sms[dev] : 0;
-  if (sms == 0) {
-    err = cudaFuncSetAttribute(ttasr_enc::attention_wgmma_kernel<Out>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               ttasr_enc::kSmemBytes);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) n_sms[dev] = sms;
-  }
-  // one block per SM (384 threads at 168 registers fill its register file)
-  const long items = (long)((T + ttasr_enc::kBlockQ - 1) / ttasr_enc::kBlockQ) * (D / kDh) * B;
-  const int grid = (int)(items < sms ? items : sms);
-  ttasr_enc::attention_wgmma_kernel<Out><<<grid, ttasr_enc::kThreads, ttasr_enc::kSmemBytes, st>>>(
-      maps[0], maps[1], maps[2], out, B, T, D, t_real, scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  return launch_persistent<ttasr_enc::Bf16Tiles<Out>>(maps, out, B, T, D, t_real, scale, st);
 }
 
 // B19's float32 inputs rounded to bf16: blockIdx.y picks q, k or v; n
@@ -205,45 +151,126 @@ __global__ void round_to_bf16_kernel(const float* __restrict__ q, const float* _
   }
 }
 
-// q/k/v rows `ld` elements apart (D for three tensors, 3D for the fused
-// buffer); out (B, T, D) contiguous.
-int launch_attention(const void* q, const void* k, const void* v, void* out, int B, int T,
-                     int ld, int D, int t_real, int dtype, cudaStream_t st) {
-  const int heads = D / kDh;
-  if (dtype == 1) {
-    return launch_wgmma(q, k, v, static_cast<__nv_bfloat16*>(out), B, T, ld, D, t_real, 1.f, st);
-  } else if (dtype == 0) {
-    const dim3 grid((T + kSimtRows - 1) / kSimtRows, heads, B);
-    encoder_attention_simt_kernel<float><<<grid, kSimtRows, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), T, ld, D, t_real);
-  } else {
-    return (int)cudaErrorInvalidValue;
+// The 3xTF32 pre-pass: block (x, h, b) takes keys/rows 64 x .. 64 x + 63 of
+// head h of batch row b.  q and K (rows `ld` elements apart) go to their
+// (B, T, D) hi and lo planes element for element; V goes through shared
+// memory to its (B H, 64, t_pad) planes, transposed, each group of 8 keys
+// in the order 0 2 4 6 1 3 5 7 (encoder_attention.cuh), zeros past T.
+// planes: q hi, q lo, K hi, K lo (B T D each), V^T hi, V^T lo (B D t_pad
+// each).
+__global__ void __launch_bounds__(256)
+split_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ planes, int T, int ld, int D,
+                  int t_pad) {
+  __shared__ float vs[ttasr_enc::kKeysF32][kDh + 1];
+  const int t0 = blockIdx.x * ttasr_enc::kKeysF32, head = blockIdx.y, batch = blockIdx.z;
+  const int heads = gridDim.y;
+  const size_t n = (size_t)gridDim.z * T * D;
+  for (int i = threadIdx.x; i < ttasr_enc::kKeysF32 * kDh / 4; i += blockDim.x) {
+    const int r = i / (kDh / 4), c = head * kDh + 4 * (i % (kDh / 4)), row = t0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < T) {
+      const size_t src = ((size_t)batch * T + row) * ld + c;
+      const size_t dst = ((size_t)batch * T + row) * D + c;
+      const float4* pair[2] = {reinterpret_cast<const float4*>(q + src),
+                               reinterpret_cast<const float4*>(k + src)};
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float4 y = *pair[m];
+        uint4 hi, lo;
+        ttasr_enc::split_tf32(y.x, hi.x, lo.x);
+        ttasr_enc::split_tf32(y.y, hi.y, lo.y);
+        ttasr_enc::split_tf32(y.z, hi.z, lo.z);
+        ttasr_enc::split_tf32(y.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(planes + 2 * m * n + dst) = hi;
+        *reinterpret_cast<uint4*>(planes + (2 * m + 1) * n + dst) = lo;
+      }
+      x = *reinterpret_cast<const float4*>(v + src);
+    }
+    const int cc = c - head * kDh;
+    vs[r][cc] = x.x;
+    vs[r][cc + 1] = x.y;
+    vs[r][cc + 2] = x.z;
+    vs[r][cc + 3] = x.w;
   }
-  return (int)cudaGetLastError();
+  __syncthreads();
+  float* vh = planes + 4 * n;
+  float* vl = vh + (size_t)gridDim.z * D * t_pad;
+  const size_t row0 = ((size_t)batch * heads + head) * kDh;
+  for (int i = threadIdx.x; i < kDh * ttasr_enc::kKeysF32; i += blockDim.x) {
+    const int d = i / ttasr_enc::kKeysF32, p = i % ttasr_enc::kKeysF32;
+    const int j = p & 7, key = (p & ~7) | (j < 4 ? 2 * j : 2 * (j - 4) + 1);
+    uint32_t hi, lo;
+    ttasr_enc::split_tf32(vs[key][d], hi, lo);
+    const size_t at = (row0 + d) * t_pad + t0 + p;
+    vh[at] = __uint_as_float(hi);
+    vl[at] = __uint_as_float(lo);
+  }
+}
+
+// float32 q/k/v rows `ld` elements apart; out (B, T, D) contiguous; scratch
+// as split_tf32_kernel's planes.
+int launch_tf32(const float* q, const float* k, const float* v, float* scratch, float* out,
+                int B, int T, int ld, int D, int t_real, cudaStream_t st) {
+  using namespace ttasr_enc;
+  const int heads = D / kDh;
+  const int t_pad = (T + kKeysF32 - 1) / kKeysF32 * kKeysF32;
+  split_tf32_kernel<<<dim3(t_pad / kKeysF32, heads, B), 256, 0, st>>>(q, k, v, scratch, T, ld, D,
+                                                                      t_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)B * T * D;
+  CUtensorMap maps[3];
+  const cuuint64_t qk_dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)(2 * B)};
+  const cuuint64_t qk_strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)T * D * 4};
+  const cuuint64_t v_dims[3] = {(cuuint64_t)t_pad, (cuuint64_t)kDh, (cuuint64_t)(2 * B * heads)};
+  const cuuint64_t v_strides[2] = {(cuuint64_t)t_pad * 4, (cuuint64_t)kDh * t_pad * 4};
+  if (!make_map_3d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scratch, qk_dims, qk_strides,
+                   {(cuuint32_t)kAtomF32, (cuuint32_t)kBlockQ, 1}) ||
+      !make_map_3d(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scratch + 2 * n, qk_dims,
+                   qk_strides, {(cuuint32_t)kAtomF32, (cuuint32_t)kKeysF32, 1}) ||
+      !make_map_3d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scratch + 4 * n, v_dims, v_strides,
+                   {(cuuint32_t)kAtomF32, (cuuint32_t)kDh, 1}))
+    return (int)cudaErrorInvalidValue;
+  return launch_persistent<Tf32Tiles>(maps, out, B, T, D, t_real, 1.f, st);
+}
+
+// q/k/v rows `ld` elements apart (D for three tensors, 3D for the fused
+// buffer); out (B, T, D) contiguous; scratch for float32 only.
+int launch_attention(const void* q, const void* k, const void* v, void* scratch, void* out,
+                     int B, int T, int ld, int D, int t_real, int dtype, cudaStream_t st) {
+  if (dtype == 1)
+    return launch_wgmma(q, k, v, static_cast<__nv_bfloat16*>(out), B, T, ld, D, t_real, 1.f, st);
+  if (dtype == 0)
+    return launch_tf32(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<float*>(scratch),
+                       static_cast<float*>(out), B, T, ld, D, t_real, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Tensors are contiguous with D = 64 *
-// heads; pointers 16-byte aligned (the wrappers check both).  Each launches
-// on `stream` and returns cudaGetLastError() (0 = launched).
+// heads; pointers 16-byte aligned (the wrappers check both).  float32
+// takes `scratch`: 4 B T D + 2 B D t_pad floats, t_pad = T rounded up to
+// 64 (unused for bf16).  Each launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 
 // B11: q/k/v (B, T, D).
 extern "C" int ttasr_encoder_attention(const void* q, const void* k, const void* v,
-                                       void* out, int B, int T, int D, int t_real,
-                                       int dtype, void* stream) {
-  return launch_attention(q, k, v, out, B, T, D, D, t_real, dtype,
+                                       void* scratch, void* out, int B, int T, int D,
+                                       int t_real, int dtype, void* stream) {
+  return launch_attention(q, k, v, scratch, out, B, T, D, D, t_real, dtype,
                           static_cast<cudaStream_t>(stream));
 }
 
 // B6: qkv (B, T, 3D), q/K/V at column offsets 0, D, 2D.
-extern "C" int ttasr_encoder_attention_qkv(const void* qkv, void* out, int B, int T, int D,
-                                           int t_real, int dtype, void* stream) {
+extern "C" int ttasr_encoder_attention_qkv(const void* qkv, void* scratch, void* out, int B,
+                                           int T, int D, int t_real, int dtype, void* stream) {
   const size_t elem = dtype == 1 ? sizeof(__nv_bfloat16) : sizeof(float);
   const char* base = static_cast<const char*>(qkv);
-  return launch_attention(base, base + D * elem, base + 2 * D * elem, out, B, T, 3 * D, D,
-                          t_real, dtype, static_cast<cudaStream_t>(stream));
+  return launch_attention(base, base + D * elem, base + 2 * D * elem, scratch, out, B, T,
+                          3 * D, D, t_real, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // B19: q/k/v (B, T, H, 64) contiguous, D = 64 H; out likewise, in q's type.

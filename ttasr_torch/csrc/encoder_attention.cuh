@@ -3,6 +3,8 @@
 // (three bf16 (B, T, D) tensors), B6 (the s8 x s8 encoder's fused
 // (B, T, 3D) bf16 buffer) and B19 (q/k/v (B, T, H, 64), its scores scaled
 // by 64^-0.5 here; float32 inputs are rounded to bf16 by a pass before).
+// B11's and B6's float32 inputs take the same kernel on 3xTF32 tiles
+// (Tf32Tiles, at the end of this file).
 //
 // Layout: merged heads, head h at columns 64h..64h+63 of rows `ld`
 // elements apart (a contiguous (B, T, H, 64) is the merged (B, T, 64 H)
@@ -24,8 +26,9 @@
 // * warpgroup 0 is the producer: one thread loads each item's Q tile (two
 //   buffers, so the next item's Q arrives during this one) and keeps K and
 //   V tiles of 128 keys x 64 columns (16 KB each) in flight by TMA through
-//   a ring of kStages stages, with full barriers for K and for V and an
-//   empty barrier per stage.  The tensor maps are 3-D (D, T, B) with the
+//   rings of 3 stages, with a full and an empty barrier per stage of each
+//   (a K stage is freed once its scores are in registers, a V stage after
+//   its P V).  The tensor maps are 3-D (D, T, B) with the
 //   128-B swizzle, so a box past T is zero-filled (never the next batch
 //   row) and each 128-B row lands in the layout the wgmma descriptors read.
 // * warpgroups 1 and 2 are consumers of 64 query rows each: S = Q K^T by
@@ -40,6 +43,9 @@
 //   to issue (two named barriers), so one's softmax runs under the other's
 //   products.
 // * setmaxnreg moves registers from the producer to the consumers.
+// The pipeline is one kernel template, attention_wgmma_kernel, over a
+// tile type that gives the tile shapes, the loads and the products:
+// Bf16Tiles (above) or Tf32Tiles.
 // The probabilities rounded to bf16 are the unnormalised exponentials of
 // the online softmax; the TPU kernels round the normalised ones, which
 // differs by up to one bf16 step per probability.
@@ -56,15 +62,10 @@ namespace ttasr_enc {
 
 constexpr int kDh = 64;         // head width (Whisper): one 128-B bf16 row
 constexpr int kBlockQ = 128;    // query rows per work item
-constexpr int kBlockK = 128;    // keys per ring stage
-constexpr int kStages = 3;      // K/V ring depth
+constexpr int kBlockK = 128;    // keys per ring stage (bf16)
 constexpr int kConsumers = 2;   // consumer warpgroups, 64 query rows each
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kTileBytes = kBlockK * kDh * 2;  // 16 KB: a Q, K or V tile
-// two Q tiles, the K ring, the V ring, the barriers, and slack to align to
-// 1024 B (the 128-B swizzle repeats every 8 rows of 128 B)
-constexpr int kBarrierOffset = (2 + 2 * kStages) * kTileBytes;
-constexpr int kSmemBytes = kBarrierOffset + 8 * (4 + 3 * kStages) + 1024;
+constexpr int kTileBytes = kBlockK * kDh * 2;  // 16 KB: a bf16 Q, K or V tile
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -237,39 +238,43 @@ __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32]
   }
 }
 
-// One tile of the online softmax over this thread's rows g (lo) and g + 8
-// (hi): masks keys >= t_real when the tile reaches past it, updates the
-// running maxima (raw scores) and sums, returns each row's correction
-// factor for the earlier sums, and leaves the unnormalised
-// probabilities exp2(scale_log2 (s - m)) in s.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], int k0, int t_real, int t,
+// One tile of N keys of the online softmax over this thread's rows g (lo)
+// and g + 8 (hi), from the scores of a wgmma.m64nN accumulator: masks keys
+// >= t_real when the tile reaches past it, updates the running maxima (raw
+// scores) and sums, returns each row's correction factor for the earlier
+// sums, and leaves the unnormalised probabilities exp2(scale_log2 (s - m))
+// in s.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], int k0, int t_real, int t,
                                              float scale_log2, float& m_lo, float& m_hi,
                                              float& l_lo, float& l_hi, float& corr_lo,
                                              float& corr_hi) {
-  if (k0 + kBlockK > t_real) {
+  constexpr int C = N / 16;  // partial maxima and sums per row
+  if (k0 + N > t_real) {
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (k0 + 8 * j + 2 * t + (e & 1) >= t_real) s[4 * j + e] = -INFINITY;
   }
-  // row maxima and sums as trees over the 16 n-chunks: short dependency
+  // row maxima and sums as trees over the N / 8 n-chunks: short dependency
   // chains
-  float a_lo[8], a_hi[8];
+  float a_lo[C], a_hi[C];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a_lo[j] = fmaxf(fmaxf(s[4 * j], s[4 * j + 1]), fmaxf(s[4 * j + 32], s[4 * j + 33]));
-    a_hi[j] = fmaxf(fmaxf(s[4 * j + 2], s[4 * j + 3]), fmaxf(s[4 * j + 34], s[4 * j + 35]));
+  for (int j = 0; j < C; ++j) {
+    a_lo[j] = fmaxf(fmaxf(s[4 * j], s[4 * j + 1]), fmaxf(s[4 * j + 4 * C], s[4 * j + 4 * C + 1]));
+    a_hi[j] =
+        fmaxf(fmaxf(s[4 * j + 2], s[4 * j + 3]), fmaxf(s[4 * j + 4 * C + 2], s[4 * j + 4 * C + 3]));
   }
 #pragma unroll
-  for (int w = 4; w >= 1; w >>= 1)
+  for (int w = C / 2; w >= 1; w >>= 1)
 #pragma unroll
     for (int j = 0; j < w; ++j) {
       a_lo[j] = fmaxf(a_lo[j], a_lo[j + w]);
       a_hi[j] = fmaxf(a_hi[j], a_hi[j + w]);
     }
   float mx_lo = fmaxf(m_lo, a_lo[0]), mx_hi = fmaxf(m_hi, a_hi[0]);
-  // the 4 lanes of a row group hold the row's 128 columns between them
+  // the 4 lanes of a row group hold the row's N columns between them
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
@@ -283,19 +288,19 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int k0, int t_real,
   m_hi = mx_hi;
   const float off_lo = mx_lo * scale_log2, off_hi = mx_hi * scale_log2;
 #pragma unroll
-  for (int j = 0; j < kBlockK / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     s[4 * j] = fast_exp2(fmaf(s[4 * j], scale_log2, -off_lo));
     s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], scale_log2, -off_lo));
     s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], scale_log2, -off_hi));
     s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], scale_log2, -off_hi));
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a_lo[j] = (s[4 * j] + s[4 * j + 1]) + (s[4 * j + 32] + s[4 * j + 33]);
-    a_hi[j] = (s[4 * j + 2] + s[4 * j + 3]) + (s[4 * j + 34] + s[4 * j + 35]);
+  for (int j = 0; j < C; ++j) {
+    a_lo[j] = (s[4 * j] + s[4 * j + 1]) + (s[4 * j + 4 * C] + s[4 * j + 4 * C + 1]);
+    a_hi[j] = (s[4 * j + 2] + s[4 * j + 3]) + (s[4 * j + 4 * C + 2] + s[4 * j + 4 * C + 3]);
   }
 #pragma unroll
-  for (int w = 4; w >= 1; w >>= 1)
+  for (int w = C / 2; w >= 1; w >>= 1)
 #pragma unroll
     for (int j = 0; j < w; ++j) {
       a_lo[j] += a_lo[j + w];
@@ -323,46 +328,305 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 
 // ---------------------------------------------------------------------------
+// float32: 3xTF32 on the same ring
+// ---------------------------------------------------------------------------
+//
+// B11's and B6's float32 inputs keep exact-f32 accuracy on the tensor
+// cores: each operand a is split into a_hi = rna_tf32(a) and a_lo =
+// rna_tf32(a - a_hi) (a - a_hi is exact in f32), and a b is taken as
+// a_hi b_hi + a_hi b_lo + a_lo b_hi, each term a wgmma .tf32 product (k = 8)
+// added in f32: ~2^-21 relative per product, where one TF32 product keeps
+// ~2^-11.  Three products per FLOP at half the bf16 rate: 6x the bf16
+// kernel's tensor time for the same attention.
+//
+// A .tf32 operand read from shared memory must be K-major (wgmma's
+// transpose bit is for 16-bit types only), so P V needs V with the keys
+// contiguous.  A pre-pass (split_tf32_kernel in the .cu) writes the hi and
+// lo planes of q and K as (B, T, D) and of V transposed as (B H, 64,
+// t_pad), t_pad = T rounded up to kKeysF32, zeros past T.  Within each
+// group of 8 keys V's columns are permuted (position j holds key 2 j for
+// j < 4, key 2 (j - 4) + 1 above): the score accumulator gives a thread
+// keys 2t and 2t + 1 of an n-chunk, and the tf32 A fragment in registers
+// wants k indices t and t + 4, so the permutation puts P straight into the
+// A operand of P V with no shuffle.
+//
+// The bf16 kernel's pipeline on tiles resized for 4-byte planes
+// (Tf32Tiles): 64-key tiles (a 64-column f32 row is two 128-B swizzle
+// atoms, so each plane of a tile is two TMA boxes of 32 columns and a k8
+// step advances 32 B inside an atom); one Q buffer of 128 rows (hi + lo,
+// 64 KB: not double-buffered) and K and V rings of 2 stages of 32 KB (hi +
+// lo); S = Q K^T by 3 x 8 wgmma.m64n64k8 from shared memory, P V by 3 x 8
+// wgmma.m64n64k8 with P's hi and lo in registers.  The probabilities stay
+// f32 (hi + lo), the output is f32.
+
+constexpr int kKeysF32 = 64;       // keys per ring stage
+constexpr int kAtomF32 = 32;       // f32 columns per 128-B swizzle atom
+constexpr int kQPlaneF32 = kBlockQ * kDh * 4;    // 32 KB: one plane of a Q tile
+constexpr int kKvPlaneF32 = kKeysF32 * kDh * 4;  // 16 KB: one plane of a K or V tile
+
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x as hi + lo, both tf32 (f32 bit patterns with the low 13 bits zero)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 8, K-major smem) * B (8 x 64, K-major smem).
+// The accumulator's layout is the bf16 products': d[4 j + e] is row g (+8
+// for e >= 2), column 8 j + 2 t + (e & 1).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t a_desc,
+                                                       uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 8, tf32 in registers: a[0] row g k index t,
+// a[1] row g + 8, a[2] row g k index t + 4, a[3] row g + 8) * B (8 x 64,
+// K-major smem).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+// The descriptor of k8 step kk of a plane stored as two atoms of `rows`
+// rows x 128 B: atom kk / 4, 32 B per step inside it.
+__device__ __forceinline__ uint64_t tf32_desc(uint32_t plane, int rows, int kk) {
+  return smem_desc(plane + (kk / 4) * rows * 128 + 32 * (kk % 4));
+}
+
+// s = Q K^T over one 64-key tile, 3xTF32: for each k8 step of dh = 64,
+// hi.hi, hi.lo, lo.hi.  `q` is this warpgroup's rows in the hi plane (lo at
+// + kQPlaneF32), `k` the stage's hi plane (lo at + kKvPlaneF32).
+__device__ __forceinline__ void issue_scores_tf32(float (&s)[32], uint32_t q, uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < kDh / 8; ++kk) {
+    const uint64_t qh = tf32_desc(q, kBlockQ, kk), ql = tf32_desc(q + kQPlaneF32, kBlockQ, kk);
+    const uint64_t kh = tf32_desc(k, kKeysF32, kk), kl = tf32_desc(k + kKvPlaneF32, kKeysF32, kk);
+    wgmma_m64n64k8_tf32_ss(s, qh, kh, kk > 0);
+    wgmma_m64n64k8_tf32_ss(s, qh, kl, 1);
+    wgmma_m64n64k8_tf32_ss(s, ql, kh, 1);
+  }
+}
+
+// o += P V over one 64-key tile, 3xTF32: k8 step kk takes n-chunk kk of
+// the scores (keys 8 kk + 2 t, + 1 for rows g and g + 8) as k indices t and
+// t + 4, which V's permuted columns hold.  `v` is the stage's hi plane of
+// V^T (lo at + kKvPlaneF32).
+__device__ __forceinline__ void issue_pv_tf32(float (&o)[32], const uint32_t (&ph)[32],
+                                              const uint32_t (&pl)[32], uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < kKeysF32 / 8; ++kk) {
+    const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1], ph[4 * kk + 3]};
+    const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1], pl[4 * kk + 3]};
+    const uint64_t vh = tf32_desc(v, kDh, kk), vl = tf32_desc(v + kKvPlaneF32, kDh, kk);
+    wgmma_m64n64k8_tf32_rs(o, ah, vh);
+    wgmma_m64n64k8_tf32_rs(o, ah, vl);
+    wgmma_m64n64k8_tf32_rs(o, al, vh);
+  }
+}
+
+__device__ __forceinline__ void split_probs(uint32_t (&ph)[32], uint32_t (&pl)[32],
+                                            const float (&s)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) split_tf32(s[i], ph[i], pl[i]);
+}
+
+// ---------------------------------------------------------------------------
+// The two tile types
+// ---------------------------------------------------------------------------
+//
+// What attention_wgmma_kernel asks of its tile type: kKeys keys per ring
+// stage, kStages stages in each of the K and V rings, kQBufs Q buffers of
+// kQBytes, K and V stages of kKvBytes; Probs, the probabilities as the A
+// operand of P V; load_q / load_k / load_v, one tile's TMA loads into
+// `dst` on barrier `bar` (rows from `row0`, this head's columns from `col`;
+// `bh` = batch row x heads + head, `bh_rows` = B heads); scores and pv,
+// the products; pack, the softmax's probabilities into Probs; fence, the
+// register fence over Probs; store2, two adjacent outputs of a row.
+
+// bf16 q/K/V: (D, T, B) maps with 64 x 128 x 1 boxes; one wgmma chain per
+// product; the output bf16, or float32 holding bf16-rounded values.
+template <typename OutT>
+struct Bf16Tiles {
+  using Out = OutT;
+  static constexpr int kKeys = kBlockK;
+  static constexpr int kStages = 3;
+  static constexpr int kQBufs = 2;
+  static constexpr int kQBytes = kTileBytes;
+  static constexpr int kKvBytes = kTileBytes;
+  struct Probs {
+    uint32_t p[32];
+  };
+
+  static __device__ __forceinline__ void load_q(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int col, int row0, int batch, int) {
+    tma_load_3d(dst, map, bar, col, row0, batch);
+  }
+  static __device__ __forceinline__ void load_k(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int col, int row0, int batch, int) {
+    tma_load_3d(dst, map, bar, col, row0, batch);
+  }
+  static __device__ __forceinline__ void load_v(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int col, int row0, int batch, int,
+                                                int) {
+    tma_load_3d(dst, map, bar, col, row0, batch);
+  }
+  static __device__ __forceinline__ void scores(float (&s)[kKeys / 2], uint32_t q, uint32_t k) {
+    issue_scores(s, q, k);
+  }
+  static __device__ __forceinline__ void pv(float (&o)[32], const Probs& p, uint32_t v) {
+    issue_pv(o, p.p, v);
+  }
+  static __device__ __forceinline__ void pack(Probs& p, const float (&s)[kKeys / 2]) {
+    pack_probs(p.p, s);
+  }
+  static __device__ __forceinline__ void fence(Probs& p) { reg_fence(p.p); }
+  static __device__ __forceinline__ void store2(Out* dst, float a, float b) {
+    ttasr_enc::store2(dst, a, b);
+  }
+};
+
+// The split planes of split_tf32_kernel: q_map and k_map are (D, T, 2B)
+// with 32 x 128 x 1 and 32 x 64 x 1 boxes (batch row B + b is b's lo
+// plane), v_map is (t_pad, 64, 2 B H) with 32 x 64 x 1 boxes (B H + bh is
+// bh's lo plane); three wgmma chains per product; the output f32.
+struct Tf32Tiles {
+  using Out = float;
+  static constexpr int kKeys = kKeysF32;
+  static constexpr int kStages = 2;
+  static constexpr int kQBufs = 1;
+  static constexpr int kQBytes = 2 * kQPlaneF32;  // hi + lo
+  static constexpr int kKvBytes = 2 * kKvPlaneF32;
+  struct Probs {
+    uint32_t hi[32], lo[32];
+  };
+
+  static __device__ __forceinline__ void load_q(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int col, int row0, int batch, int B) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      tma_load_3d(dst + a * kBlockQ * 128, map, bar, col + kAtomF32 * a, row0, batch);
+      tma_load_3d(dst + kQPlaneF32 + a * kBlockQ * 128, map, bar, col + kAtomF32 * a, row0,
+                  B + batch);
+    }
+  }
+  static __device__ __forceinline__ void load_k(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int col, int row0, int batch, int B) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      tma_load_3d(dst + a * kKeysF32 * 128, map, bar, col + kAtomF32 * a, row0, batch);
+      tma_load_3d(dst + kKvPlaneF32 + a * kKeysF32 * 128, map, bar, col + kAtomF32 * a, row0,
+                  B + batch);
+    }
+  }
+  static __device__ __forceinline__ void load_v(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int, int row0, int, int bh,
+                                                int bh_rows) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      tma_load_3d(dst + a * kDh * 128, map, bar, row0 + kAtomF32 * a, 0, bh);
+      tma_load_3d(dst + kKvPlaneF32 + a * kDh * 128, map, bar, row0 + kAtomF32 * a, 0,
+                  bh_rows + bh);
+    }
+  }
+  static __device__ __forceinline__ void scores(float (&s)[kKeys / 2], uint32_t q, uint32_t k) {
+    issue_scores_tf32(s, q, k);
+  }
+  static __device__ __forceinline__ void pv(float (&o)[32], const Probs& p, uint32_t v) {
+    issue_pv_tf32(o, p.hi, p.lo, v);
+  }
+  static __device__ __forceinline__ void pack(Probs& p, const float (&s)[kKeys / 2]) {
+    split_probs(p.hi, p.lo, s);
+  }
+  static __device__ __forceinline__ void fence(Probs& p) {
+    reg_fence(p.hi);
+    reg_fence(p.lo);
+  }
+  static __device__ __forceinline__ void store2(float* dst, float a, float b) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  }
+};
+
+// The dynamic shared memory of attention_wgmma_kernel<Tiles>: the Q
+// buffers, the K ring, the V ring, the barriers, and slack to align to
+// 1024 B (the 128-B swizzle repeats every 8 rows of 128 B).
+template <typename Tiles>
+constexpr int smem_bytes() {
+  return Tiles::kQBufs * Tiles::kQBytes + 2 * Tiles::kStages * Tiles::kKvBytes +
+         8 * (2 * Tiles::kQBufs + 4 * Tiles::kStages) + 1024;
+}
+
+// ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
 // Persistent: block b takes work items b, b + gridDim.x, ... of n_qt x H x
 // B (128-query tile fastest, then head, then batch row), so the producer
-// loads the next item's Q and first K/V tiles while the consumers finish
-// the current one.  The maps cover q, K and V as (D, T, B) bf16 with
-// 64 x 128 x 1 boxes; out rows D apart; scores multiplied by
-// scale_log2 / log2(e).
-template <typename Out>
+// loads the next items' tiles while the consumers finish the current one.
+// The maps as the tile type reads them; out rows D apart; scores
+// multiplied by scale_log2 / log2(e).
+template <typename Tiles>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map, Out* __restrict__ out, int B,
-                       int T, int D, int t_real, float scale_log2) {
+                       const __grid_constant__ CUtensorMap v_map,
+                       typename Tiles::Out* __restrict__ out, int B, int T, int D, int t_real,
+                       float scale_log2) {
+  constexpr int kKeys = Tiles::kKeys, kStages = Tiles::kStages, kQBufs = Tiles::kQBufs;
+  constexpr int kQBytes = Tiles::kQBytes, kKvBytes = Tiles::kKvBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
-  const uint32_t q_buf = base;                         // 2 tiles: items alternate
-  const uint32_t k_ring = base + 2 * kTileBytes;
-  const uint32_t v_ring = k_ring + kStages * kTileBytes;
-  const uint32_t q_full = base + kBarrierOffset;       // 2 barriers each
-  const uint32_t q_empty = q_full + 16;
-  const uint32_t k_full = q_empty + 16;                // kStages barriers each
-  const uint32_t v_full = k_full + 8 * kStages;
-  const uint32_t kv_empty = v_full + 8 * kStages;
+  const uint32_t q_buf = base;  // kQBufs buffers: items take them in turn
+  const uint32_t k_ring = q_buf + kQBufs * kQBytes;
+  const uint32_t v_ring = k_ring + kStages * kKvBytes;
+  const uint32_t q_full = v_ring + kStages * kKvBytes;  // kQBufs barriers each
+  const uint32_t q_empty = q_full + 8 * kQBufs;
+  const uint32_t k_full = q_empty + 8 * kQBufs;  // kStages barriers each
+  const uint32_t k_empty = k_full + 8 * kStages;
+  const uint32_t v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
 
   const int n_qt = (T + kBlockQ - 1) / kBlockQ;
   const int heads = D / kDh;
   const int n_items = n_qt * heads * B;
-  const int n_tiles = (t_real + kBlockK - 1) / kBlockK;
+  const int n_tiles = (t_real + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kQBufs; ++i) {
       mbar_init(q_full + 8 * i, 1);
       mbar_init(q_empty + 8 * i, kConsumers * 4);  // every consumer warp
     }
     for (int i = 0; i < kStages; ++i) {
       mbar_init(k_full + 8 * i, 1);
+      mbar_init(k_empty + 8 * i, kConsumers * 4);
       mbar_init(v_full + 8 * i, 1);
-      mbar_init(kv_empty + 8 * i, kConsumers * 4);
+      mbar_init(v_empty + 8 * i, kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -371,21 +635,25 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x < 128) {  // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      int ring = 0;  // K/V tiles through the ring so far
+      int ring = 0;  // tiles through the K and V rings so far
       for (int i = 0, item = blockIdx.x; item < n_items; ++i, item += gridDim.x) {
-        const int col = (item / n_qt) % heads * kDh, batch = item / (n_qt * heads);
-        const uint32_t qb = 8 * (i & 1);
-        mbar_wait(q_empty + qb, ((i >> 1) & 1) ^ 1);
-        mbar_expect_tx(q_full + qb, kTileBytes);
-        tma_load_3d(q_buf + (i & 1) * kTileBytes, &q_map, q_full + qb, col,
-                    item % n_qt * kBlockQ, batch);
+        const int head = (item / n_qt) % heads, batch = item / (n_qt * heads);
+        const int col = head * kDh, bh = batch * heads + head;
+        const int qi = i % kQBufs;
+        mbar_wait(q_empty + 8 * qi, ((i / kQBufs) & 1) ^ 1);
+        mbar_expect_tx(q_full + 8 * qi, kQBytes);
+        Tiles::load_q(q_buf + qi * kQBytes, &q_map, q_full + 8 * qi, col, item % n_qt * kBlockQ,
+                      batch, B);
         for (int kt = 0; kt < n_tiles; ++kt, ++ring) {
-          const int st = ring % kStages;
-          mbar_wait(kv_empty + 8 * st, ((ring / kStages) & 1) ^ 1);
-          mbar_expect_tx(k_full + 8 * st, kTileBytes);
-          tma_load_3d(k_ring + st * kTileBytes, &k_map, k_full + 8 * st, col, kt * kBlockK, batch);
-          mbar_expect_tx(v_full + 8 * st, kTileBytes);
-          tma_load_3d(v_ring + st * kTileBytes, &v_map, v_full + 8 * st, col, kt * kBlockK, batch);
+          const int st = ring % kStages, phase = ((ring / kStages) & 1) ^ 1;
+          mbar_wait(k_empty + 8 * st, phase);
+          mbar_expect_tx(k_full + 8 * st, kKvBytes);
+          Tiles::load_k(k_ring + st * kKvBytes, &k_map, k_full + 8 * st, col, kt * kKeys, batch,
+                        B);
+          mbar_wait(v_empty + 8 * st, phase);
+          mbar_expect_tx(v_full + 8 * st, kKvBytes);
+          Tiles::load_v(v_ring + st * kKvBytes, &v_map, v_full + 8 * st, col, kt * kKeys, batch,
+                        bh, B * heads);
         }
       }
     }
@@ -395,33 +663,37 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int warp = (threadIdx.x / 32) & 3;
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    float o[32], s[64];
-    uint32_t p[32];
+    float o[32], s[kKeys / 2];
+    typename Tiles::Probs p;
 
     int ring = 0;
     if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
     for (int i = 0, item = blockIdx.x; item < n_items; ++i, item += gridDim.x) {
       const int q0 = item % n_qt * kBlockQ;
       const int col = (item / n_qt) % heads * kDh, batch = item / (n_qt * heads);
-      const uint32_t qb = 8 * (i & 1);
-      const uint32_t my_q = q_buf + (i & 1) * kTileBytes + wg * 64 * 128;  // this warpgroup's rows
+      const int qi = i % kQBufs;
+      // this warpgroup's rows (of each 128-B atom of a plane)
+      const uint32_t my_q = q_buf + qi * kQBytes + wg * 64 * 128;
 #pragma unroll
       for (int j = 0; j < 32; ++j) o[j] = 0.f;
       float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, corr_lo, corr_hi;
 
       int st = ring % kStages;
-      mbar_wait(q_full + qb, (i >> 1) & 1);
+      mbar_wait(q_full + 8 * qi, (i / kQBufs) & 1);
       mbar_wait(k_full + 8 * st, (ring / kStages) & 1);
       turn_wait(wg);
       wgmma_fence();
-      issue_scores(s, my_q, k_ring + st * kTileBytes);
+      Tiles::scores(s, my_q, k_ring + st * kKvBytes);
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait<0>();
       reg_fence(s);
-      if (n_tiles == 1 && lane == 0) mbar_arrive(q_empty + qb);  // the item's last use of Q
-      softmax_tile(s, 0, t_real, t, scale_log2, m_lo, m_hi, l_lo, l_hi, corr_lo, corr_hi);
-      pack_probs(p, s);
+      if (lane == 0) {
+        mbar_arrive(k_empty + 8 * st);
+        if (n_tiles == 1) mbar_arrive(q_empty + 8 * qi);  // the item's last use of Q
+      }
+      softmax_tile<kKeys>(s, 0, t_real, t, scale_log2, m_lo, m_hi, l_lo, l_hi, corr_lo, corr_hi);
+      Tiles::pack(p, s);
 
       for (int kt = 1; kt < n_tiles; ++kt) {
         const int prev = st;
@@ -430,20 +702,23 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_wait(v_full + 8 * prev, ((ring + kt - 1) / kStages) & 1);
         turn_wait(wg);
         wgmma_fence();
-        issue_scores(s, my_q, k_ring + st * kTileBytes);
+        Tiles::scores(s, my_q, k_ring + st * kKvBytes);
         wgmma_commit();
-        issue_pv(o, p, v_ring + prev * kTileBytes);
+        Tiles::pv(o, p, v_ring + prev * kKvBytes);
         wgmma_commit();
         turn_pass(wg);
         wgmma_wait<1>();  // the scores; P V of tile kt - 1 runs on
         reg_fence(s);
-        if (kt == n_tiles - 1 && lane == 0) mbar_arrive(q_empty + qb);
-        softmax_tile(s, kt * kBlockK, t_real, t, scale_log2, m_lo, m_hi, l_lo, l_hi, corr_lo,
-                     corr_hi);
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * st);
+          if (kt == n_tiles - 1) mbar_arrive(q_empty + 8 * qi);
+        }
+        softmax_tile<kKeys>(s, kt * kKeys, t_real, t, scale_log2, m_lo, m_hi, l_lo, l_hi,
+                            corr_lo, corr_hi);
         wgmma_wait<0>();
         reg_fence(o);
-        reg_fence(p);
-        if (lane == 0) mbar_arrive(kv_empty + 8 * prev);
+        Tiles::fence(p);
+        if (lane == 0) mbar_arrive(v_empty + 8 * prev);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           o[4 * j] *= corr_lo;
@@ -451,18 +726,18 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           o[4 * j + 2] *= corr_hi;
           o[4 * j + 3] *= corr_hi;
         }
-        pack_probs(p, s);
+        Tiles::pack(p, s);
       }
       mbar_wait(v_full + 8 * st, ((ring + n_tiles - 1) / kStages) & 1);
       turn_wait(wg);
       wgmma_fence();
-      issue_pv(o, p, v_ring + st * kTileBytes);
+      Tiles::pv(o, p, v_ring + st * kKvBytes);
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait<0>();
       reg_fence(o);
-      reg_fence(p);
-      if (lane == 0) mbar_arrive(kv_empty + 8 * st);
+      Tiles::fence(p);
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
       ring += n_tiles;
 
 #pragma unroll
@@ -473,13 +748,14 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
       const int row_lo = q0 + wg * 64 + warp * 16 + g;
       const int row_hi = row_lo + 8;
-      Out* dst = out + (size_t)batch * T * D + col + 2 * t;
+      typename Tiles::Out* dst = out + (size_t)batch * T * D + col + 2 * t;
 #pragma unroll
       for (int j = 0; j < kDh / 8; ++j) {
         if (row_lo < T)
-          store2(dst + (size_t)row_lo * D + 8 * j, o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+          Tiles::store2(dst + (size_t)row_lo * D + 8 * j, o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
         if (row_hi < T)
-          store2(dst + (size_t)row_hi * D + 8 * j, o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+          Tiles::store2(dst + (size_t)row_hi * D + 8 * j, o[4 * j + 2] * inv_hi,
+                        o[4 * j + 3] * inv_hi);
       }
     }
     if (wg == 0) turn_wait(wg);  // warpgroup 1's last pass: none left pending

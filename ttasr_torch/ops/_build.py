@@ -45,10 +45,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # entry point -> argtypes, in the order of the C signature
 ARGTYPES = {
-    # q, k, v, out; B, T, D, t_real, dtype; stream
-    "ttasr_encoder_attention": [_P] * 4 + [_I] * 5 + [_P],
-    # qkv, out; B, T, D, t_real, dtype; stream
-    "ttasr_encoder_attention_qkv": [_P] * 2 + [_I] * 5 + [_P],
+    # q, k, v, scratch (float32 inputs' tf32 planes), out; B, T, D, t_real,
+    # dtype; stream
+    "ttasr_encoder_attention": [_P] * 5 + [_I] * 5 + [_P],
+    # qkv, scratch, out; B, T, D, t_real, dtype; stream
+    "ttasr_encoder_attention_qkv": [_P] * 3 + [_I] * 5 + [_P],
     # q, k, v, scratch (float32 inputs rounded to bf16), out; B, T, D,
     # dtype; stream
     "ttasr_encoder_self_attention": [_P] * 5 + [_I] * 4 + [_P],

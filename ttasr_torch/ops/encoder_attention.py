@@ -17,7 +17,10 @@ the s8 x s8 encoder's fused (B, T, 3D) qkv buffer.
 rounding: q/k/v (B, T, H, 64) in float32 or bf16, everything rounded to
 bf16 on the way in and the output on the way out.  All three run one bf16
 kernel on the card (``csrc/encoder_attention.cuh``: wgmma on a TMA ring);
-B11's and B6's float32 inputs take a SIMT kernel in exact f32.
+B11's and B6's float32 inputs run the same kernel on 3xTF32 tiles,
+after a pre-pass that splits q, K and V into tf32 hi and lo planes in
+scratch (:func:`f32_scratch`), so the f32 path keeps ~2**-21 relative
+error per product on the tensor cores.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from ttasr_torch.ops._build import count_launch
 
 DH = 64
+KEYS_F32 = 64  # the 3xTF32 kernel's key tile (csrc/encoder_attention.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -45,6 +49,14 @@ def encoder_attention_merged_ref(q, k, v, t_real: int):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.matmul(probs.float(), heads(v).float()).to(q.dtype)
     return out.transpose(1, 2).reshape(b, t, d)
+
+
+def f32_scratch(b: int, t: int, d: int, device):
+    """The 3xTF32 pre-pass's planes for float32 (B, T, D) q/k/v: q and K hi
+    and lo as (B, T, D), V transposed hi and lo as (B, D, t_pad) with T
+    rounded up to 64 keys."""
+    t_pad = -(-t // KEYS_F32) * KEYS_F32
+    return torch.empty(4 * b * t * d + 2 * b * d * t_pad, dtype=torch.float32, device=device)
 
 
 def _check(q, k, v, t_real: int):
@@ -82,7 +94,8 @@ def encoder_attention_merged(q, k, v, t_real: int):
     from ttasr_torch.ops._build import launch
 
     out = torch.empty_like(q)
-    launch("ttasr_encoder_attention", q.device, q, k, v, out,
+    scratch = f32_scratch(b, t, d, q.device) if q.dtype == torch.float32 else None
+    launch("ttasr_encoder_attention", q.device, q, k, v, scratch, out,
            b, t, d, t_real, _DTYPE_CODE[q.dtype])
     count_launch(encoder_attention_merged)
     return out
@@ -105,7 +118,8 @@ def encoder_attention_merged_qkv(qkv, t_real: int):
     (B, T, 3D) qkv buffer (columns 0:D, D:2D, 2D:3D; q pre-scaled through
     the weight scales).  Returns (B, T, D) in the buffer's type.  The
     kernel is B11's, its q, K and V tensor maps laid over the one buffer
-    with a row stride of 3D; the plain version runs for CPU tensors.  Counts its launches in
+    with a row stride of 3D (float32: the 3xTF32 pre-pass reads the three
+    blocks in place); the plain version runs for CPU tensors.  Counts its launches in
     ``encoder_attention_merged_qkv.launches``."""
     t_real = int(t_real)
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * DH):
@@ -128,7 +142,8 @@ def encoder_attention_merged_qkv(qkv, t_real: int):
     from ttasr_torch.ops._build import launch
 
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
-    launch("ttasr_encoder_attention_qkv", qkv.device, qkv, out, b, t, d, t_real,
+    scratch = f32_scratch(b, t, d, qkv.device) if qkv.dtype == torch.float32 else None
+    launch("ttasr_encoder_attention_qkv", qkv.device, qkv, scratch, out, b, t, d, t_real,
            _DTYPE_CODE[qkv.dtype])
     count_launch(encoder_attention_merged_qkv)
     return out
