@@ -162,7 +162,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    encoder on int8 weights, B11) on one file, with its launch counts;
 14. drives the server path on the main path's engine (it runs between 12
    and 13): the task API's call, two synthesized WAVs (``UPLOADS``)
-   loaded with ``int16=True`` and submitted at once through
+   loaded with ``int16=True`` (both before either is submitted, so their
+   first windows share a beam group) and submitted at once through
    ``shared_server(engine, slots=4, linger_ms=5)`` and
    ``transcribe_batched_with_server`` with the task worker's kwargs (no
    exception, well-formed segments, exact launch counts; the sweeps, rows,
@@ -175,7 +176,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    ``no_speech_prob`` bit for bit; each window of that beam group decoded
    alone, its step-logit gaps and first differing token printed (a report,
    ROADMAP C3); the CLI's ``concurrency=4`` and ``batched=True`` modes
-   (``CLI_MODE_FILES``) with exact launch counts; a 3 s and a 12 s
+   (``CLI_MODE_FILES``) on a view of the engine whose decoder is cut to
+   ``CLI_MODE_DECODER_LAYERS`` layers, with exact launch counts; a 3 s and a 12 s
    ``short_window`` request, each bit for bit its direct decode at S = 256
    and 768; B6 and B3 at T = S = 256 and 768 within the bounds of phases 4
    and 5; B1, B3 and B4 at 20 rows of 4 audios, B2 at 4 audios x 5 beams
@@ -255,6 +257,26 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    on ``sample_corpus/``) in a subprocess beside legs b-d: rc 0, finite
    losses in ``metrics.jsonl``, an ``eval_cer``, ``checkpoint-2/`` and
    ``model/``; and its own seconds.
+18. a trained model recognised on the card (after 17): (a) B1-B10 and the
+   qkv epilogue at ``micro64-test``'s widths (d 128, 2 heads, F 512; 5
+   rows, beam 5 and 5 x 1 at cache lengths 64 and 480, S = T = 1500)
+   against their plain versions under the bounds of phases 4 and 5, each
+   timed beside its plain version with its bound; (b) ``micro64-test``
+   trained from seed 0 by the port's ``Trainer`` on the card, the
+   recognition check's recipe (``ttasr_torch.tools.check_trained_recognition``:
+   6 synthesized clips, 800 steps, lr 3e-3, timestamp labels), its seconds;
+   (c) the check's transcription of every clip (VAD on, greedy and beam 5,
+   the temperature ladder) through the int8 engine (the main path's
+   kernels, on the weights in bf16) and the float32 engine (B11 on 3xTF32):
+   greedy CER <= ``MAX_CER`` on each, beam 5 recorded, launches exact
+   against the decode stats, and the int8 engine's greedy texts at T = 0
+   equal an int8 engine's on the CPU (the plain versions); (d) the VAD's
+   torch forward on the card against ``vad_probabilities`` on the shipped
+   weights, a batch's log-mel against the CPU's, and on the CPU's log-mels
+   the first step's grads and ``VAD_STEPS`` Adam steps against the CPU's;
+   (e) ``check_beam_divergence --ab kernels --windows 2 --sample-len 32``
+   and ``profile_decode --batch 1`` at large-v3, its stage sum within 10 %
+   of the step's device time; and its own seconds.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
@@ -594,12 +616,15 @@ MASKED_S_REAL = 600
 
 
 class Inputs:
-    """Seeded random large-v3 decode-step operands on the card."""
+    """Seeded random decode-step operands on the card, at large-v3's widths
+    unless ``d``, ``h`` and ``ffn`` say otherwise."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, d: int = D, h: int = H, ffn: int = FFN):
         import torch
 
         self.gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.d, self.h, self.ffn = d, h, ffn
+        self.hp = -(-h // 8) * 8  # scale rows: ceil(H / 8) * 8
 
     def randn(self, *shape, scale=1.0):
         import torch
@@ -623,18 +648,19 @@ class Inputs:
 
     def layer(self):
         """One decoder layer's int8 weights and f32 vectors."""
+        d, ffn = self.d, self.ffn
         p = {}
-        p["wqkv"], p["wqkv_s"] = self.weight(D, 3 * D)
-        p["wo"], p["wo_s"] = self.weight(D, D)
-        p["wqc"], p["wqc_s"] = self.weight(D, D)
-        p["woc"], p["woc_s"] = self.weight(D, D)
-        p["w1"], p["w1_s"] = self.weight(D, FFN)
-        p["w2"], p["w2_s"] = self.weight(FFN, D)
-        for name, n in (("bqkv", 3 * D), ("bo", D), ("bqc", D), ("boc", D),
-                        ("b1", FFN), ("b2", D)):
+        p["wqkv"], p["wqkv_s"] = self.weight(d, 3 * d)
+        p["wo"], p["wo_s"] = self.weight(d, d)
+        p["wqc"], p["wqc_s"] = self.weight(d, d)
+        p["woc"], p["woc_s"] = self.weight(d, d)
+        p["w1"], p["w1_s"] = self.weight(d, ffn)
+        p["w2"], p["w2_s"] = self.weight(ffn, d)
+        for name, n in (("bqkv", 3 * d), ("bo", d), ("bqc", d), ("boc", d),
+                        ("b1", ffn), ("b2", d)):
             p[name] = self.vec(n)
         for ln in ("ln1", "lnc", "ln2"):
-            p[ln + "_s"], p[ln + "_b"] = self.vec(D, 0.1, 1.0), self.vec(D, 0.1)
+            p[ln + "_s"], p[ln + "_b"] = self.vec(d, 0.1, 1.0), self.vec(d, 0.1)
         return p
 
     def cross_kv(self, b, int4: bool):
@@ -645,10 +671,10 @@ class Inputs:
 
         out = []
         for _ in range(2):
-            kv = self.randn(b, S_PAD, H, 64, scale=0.5)
+            kv = self.randn(b, S_PAD, self.h, 64, scale=0.5)
             kv[:, S_REAL:] = 0.0
             codes, scales = quantize_kv_sym(kv, 7 if int4 else 127)
-            codes = codes.reshape(b, S_PAD, D)
+            codes = codes.reshape(b, S_PAD, self.d)
             out += [pack_int4(codes) if int4 else codes,
                     scales.transpose(1, 2).contiguous()]
         return out
@@ -662,9 +688,9 @@ class Inputs:
 
         out = []
         for _ in range(2):
-            codes = self.codes(b, k, length, D, levels=7 if int4 else 127)
-            scales = torch.zeros((b, k, HP, length), device="cuda")
-            scales[:, :, :H] = self.randn(b, k, H, length).abs() * 0.02 + 1e-3
+            codes = self.codes(b, k, length, self.d, levels=7 if int4 else 127)
+            scales = torch.zeros((b, k, self.hp, length), device="cuda")
+            scales[:, :, :self.h] = self.randn(b, k, self.h, length).abs() * 0.02 + 1e-3
             out += [pack_int4_lanes(codes) if int4 else codes, scales]
         return out
 
@@ -703,8 +729,7 @@ def check_decode_kernels(card: str) -> dict:
         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
         **bound(_tensors(b1, blk.qkv_int8_fused(*b1)), 2.0 * 5 * D * 3 * D, "bf16"))
     _same_bits("qkv_int8_fused R=5", lambda: blk.qkv_int8_fused(*b1))
-    n_kernels = _kernels_per_call("qkv_int8_fused R=5", lambda: blk.qkv_int8_fused(*b1),
-                                  blk.qkv_int8_fused)
+    n_kernels = _kernels_per_call("qkv_int8_fused R=5", lambda: blk.qkv_int8_fused(*b1))
     print(f"qkv_int8_fused R=5: in a graph of 20 {per_call_ms(lambda: blk.qkv_int8_fused(*b1)):.4f} "
           f"ms per call, {n_kernels:.0f} CUDA kernel(s) per call ({card})")
 
@@ -769,8 +794,7 @@ def check_decode_kernels(card: str) -> dict:
             b4 = args
     _same_bits("mlp_with_crossout_int8 R=5", lambda: mlp.mlp_with_crossout_int8(*b4))
     n_kernels = _kernels_per_call("mlp_with_crossout_int8 R=5",
-                                  lambda: mlp.mlp_with_crossout_int8(*b4),
-                                  mlp.mlp_with_crossout_int8)
+                                  lambda: mlp.mlp_with_crossout_int8(*b4))
     print(f"mlp_with_crossout_int8 R=5: {n_kernels:.0f} CUDA kernel(s) per call")
     check(n_kernels == 1, f"mlp_with_crossout_int8 ran {n_kernels} CUDA kernels per call, not 1")
     ms, plain_ms = in_turns(lambda: mlp.mlp_with_crossout_int8(*b4),
@@ -803,51 +827,69 @@ def check_decode_kernels(card: str) -> dict:
     return res
 
 
-def _kernels_per_call(label, fn, wrapper, calls: int = 10, tries: int = 3) -> float:
-    """CUDA kernels per call of ``fn``, from torch.profiler: the most over
-    ``tries`` profiled runs of ``calls`` calls.  Each try's profiler count
-    is printed beside a second witness, the launches that ``wrapper``
-    counted over the same calls, and a try that reads fewer kernels than
-    the most gets a line of its own: once on the card the profiler saw 3
-    kernels in 10 calls of one-kernel B4, and whether it dropped device
-    records there is not known."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _kernels_per_call(label, fn) -> int:
+    """The graph nodes of one call of ``fn`` (kernels and any other work),
+    by :func:`_kernel_names`; printed by name."""
+    names = _kernel_names(fn)
+    print(f"{label}: one call's graph nodes {json.dumps(names)}")
+    return sum(names.values())
 
-    fn()
-    torch.cuda.synchronize()
-    counts, launched = [], []
-    for _ in range(tries):
-        before = wrapper.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        launched.append(wrapper.launches - before)
-        counts.append(sum(e.count for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA))
-    print(f"{label}: profiled {calls} calls {tries} times: CUDA kernels {counts}, "
-          f"{wrapper.__name__} launches {launched}")
-    for i, (n, k) in enumerate(zip(counts, launched)):
-        if n != max(counts):
-            print(f"{label}: try {i} DISAGREES: the profiler saw {n} CUDA kernels where "
-                  f"another try saw {max(counts)}; the wrapper counted {k} launches")
-    return max(counts) / calls
+
+# cuda.h's CUgraphNodeType: the node kinds a captured call can hold
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child graph",
+                    5: "empty", 6: "event wait", 7: "event record", 10: "mem alloc",
+                    11: "mem free"}
 
 
 def _kernel_names(fn) -> dict:
-    """{CUDA kernel name: launches} of one call of ``fn``, from
-    torch.profiler."""
+    """{CUDA kernel name: launches} of one call of ``fn``, read through the
+    driver API from the nodes of a CUDA graph that captures the call: the
+    driver's own record of the work, where torch.profiler has dropped kernel
+    records on this card (B18's FFT kernel in each of three tries of one
+    run).  A node that is not a kernel counts under "<kind> node"; empty
+    nodes, which do no work, are left out.  Names are as the driver gives
+    them (mangled)."""
+    import ctypes
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        err = getattr(cu, name)(*args)
+        check(err == 0, f"{name} returned CUresult {err}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(count))
+    names = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value == 5:
+            continue
+        key = f"{GRAPH_NODE_KINDS.get(kind.value, kind.value)} node"
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2: the CUfunction first, the CUkernel
+            # at byte 56 (set where the runtime launched a library kernel)
+            params = (ctypes.c_void_p * 9)()
+            call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), params)
+            name = ctypes.c_char_p()
+            if params[0]:
+                call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params[0]))
+            else:
+                call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params[7]))
+            key = name.value.decode()
+        names[key] = names.get(key, 0) + 1
+    del graph
+    return names
 
 
 def _b4_is_b15_then_b14(case, args, got) -> None:
@@ -884,7 +926,7 @@ def _self_step(inp: Inputs, b, k, length, slot, pads, int4):
     from ttasr_torch.ops import self_attention as sa
 
     kc, ks, vc, vs = inp.self_kv(b, k, length, int4)
-    qkv = inp.randn(b, k, 3 * D, scale=0.5)
+    qkv = inp.randn(b, k, 3 * inp.d, scale=0.5)
     pad = torch.tensor(pads, dtype=torch.int32, device="cuda").reshape(b, k)
     if k > 1:
         anc = torch.randint(0, k, (b, k, length), generator=inp.gen, device="cuda",
@@ -1062,7 +1104,8 @@ def _b6_windows(gen, colscale, card: str) -> dict:
 def _acc_case(gen, b, k, n):
     """W1's (k, n) = (D, FFN) or W2's (FFN, D) accumulators (b, ENC_T, n)
     from the int8 GEMM on seeded codes, the first rows and columns all 127
-    so some pass 2**24 (where the int -> float conversion rounds), with
+    so some pass 2**24 where k allows it (where the int -> float conversion
+    rounds), with
     row scales, column scales and a bf16 bias of the encoder's magnitudes
     (outputs of a few units)."""
     import torch
@@ -1075,7 +1118,8 @@ def _acc_case(gen, b, k, n):
     w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
     w[:, :4] = 127
     acc = quant._int8_product(a, quant.kmajor(w)).view(b, ENC_T, n)
-    check(acc.abs().max().item() > 2 ** 24, "no accumulator beyond 2**24")
+    if k * 127 * 127 > 2 ** 24:  # out of reach below k = 1041 (micro widths)
+        check(acc.abs().max().item() > 2 ** 24, "no accumulator beyond 2**24")
     xs = torch.rand((b, ENC_T, 1), generator=gen, device="cuda") * 0.045 + 0.005
     ws = torch.rand((1, n), generator=gen, device="cuda") * 8e-4 + 2e-4
     bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
@@ -1492,8 +1536,7 @@ def check_tp_kernels(card: str) -> dict:
                     main = b14
     _same_bits("mlp_int8_fused n=1 R=5 partial", lambda: mlp.mlp_int8_fused(*main, partial=True))
     n_kernels = _kernels_per_call("mlp_int8_fused n=1 R=5 partial",
-                                  lambda: mlp.mlp_int8_fused(*main, partial=True),
-                                  mlp.mlp_int8_fused)
+                                  lambda: mlp.mlp_int8_fused(*main, partial=True))
     print(f"mlp_int8_fused n=1 R=5 partial: {n_kernels:.0f} CUDA kernel(s) per call, in a "
           f"graph of 20 {per_call_ms(lambda: mlp.mlp_int8_fused(*main, partial=True)):.4f} ms "
           f"({card})")
@@ -1571,13 +1614,13 @@ def plain_encoder_kernels():
             setattr(mod, name, fn)
 
 
-def _act8_encoder_launches(passes: int, gemms: int = 4) -> dict:
+def _act8_encoder_launches(passes: int, gemms: int = 4, layers: int = N_LAYERS) -> dict:
     """The fused-quant s8 x s8 encoder's row-kernel and GEMM launches over
-    ``passes`` passes: B5 from x in layer 0 and from W2's accumulators in
-    the layers after it, B9 from W1's and B8 from wo's accumulators, B7
-    and ``gemms`` int8 GEMMs per layer (4 with the fused qkv leaf, whose
-    accumulators go to the qkv epilogue, 6 without)."""
-    L = N_LAYERS
+    ``passes`` passes of ``layers`` layers: B5 from x in layer 0 and from
+    W2's accumulators in the layers after it, B9 from W1's and B8 from wo's
+    accumulators, B7 and ``gemms`` int8 GEMMs per layer (4 with the fused
+    qkv leaf, whose accumulators go to the qkv epilogue, 6 without)."""
+    L = layers
     want = dict(ln_quant=passes, ln_quant_acc=(L - 1) * passes, quant_only=L * passes,
                 add_ln_quant_acc=L * passes, gelu_quant_acc=L * passes,
                 quant_matmul_act8=gemms * L * passes)
@@ -1874,59 +1917,15 @@ def check_standalone_kernels(card: str) -> tuple:
 # ---------------------------------------------------------------------------
 
 SR = 16000
-VAD_WINDOW = 512  # the VAD's frame, for synth_speech's labels
-
-
-def _formant_filter(x, freq, bw, sr=SR):
-    """2nd-order resonator (all-pole)."""
-    from scipy.signal import lfilter
-
-    r = np.exp(-np.pi * bw / sr)
-    theta = 2 * np.pi * freq / sr
-    return lfilter([1.0], [1.0, -2 * r * np.cos(theta), r * r], x)
 
 
 def synth_speech(rng, seconds=3.0):
-    """Speech-like signal + per-frame labels: a glottal pulse train through
-    three formant resonators, syllabic modulation, pauses and fricative
-    bursts (a copy of ``tools/train_vad.py::synth_speech``, which the
-    smoke run's audio has come from since the port began)."""
-    n = int(SR * seconds)
-    t = np.arange(n) / SR
-    # pitch contour 80-300 Hz with slow wander + jitter
-    f0 = rng.uniform(90, 250)
-    contour = f0 * (1 + 0.15 * np.sin(2 * np.pi * rng.uniform(0.3, 1.5) * t))
-    contour *= 1 + 0.02 * rng.standard_normal(n).cumsum() / np.sqrt(np.arange(1, n + 1))
-    phase = 2 * np.pi * np.cumsum(contour) / SR
-    # glottal-ish pulse train: rectified+sharpened harmonic sum
-    voiced = np.maximum(np.sin(phase), 0.0) ** 3
-    # formants (F1-F3 random per "speaker")
-    sig = np.zeros(n)
-    for lo, hi, bw in ((300, 900, 80), (900, 2200, 120), (2200, 3200, 200)):
-        sig += _formant_filter(voiced, rng.uniform(lo, hi), bw) * rng.uniform(0.5, 1.0)
-    sig /= np.max(np.abs(sig)) + 1e-9
-    # syllabic envelope: 2-8 Hz with hard pauses
-    env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(2.0, 8.0) * t + rng.uniform(0, 6)))
-    env = env ** rng.uniform(1.0, 2.0)
-    # utterance gating: speech bursts with silence gaps
-    gate = np.zeros(n)
-    pos = 0
-    while pos < n:
-        burst = int(SR * rng.uniform(0.4, 1.5))
-        gap = int(SR * rng.uniform(0.2, 1.0))
-        gate[pos : pos + burst] = 1.0
-        pos += burst + gap
-    # fricative bursts (unvoiced): high-passed noise in short spans
-    fric = rng.standard_normal(n) * 0.15
-    fric = np.diff(fric, prepend=0.0)  # crude high-pass
-    fric_gate = (rng.random(n // (SR // 10) + 1) < 0.2).repeat(SR // 10)[:n]
-    out = (sig * env + fric * fric_gate * env) * gate
-    out = out / (np.max(np.abs(out)) + 1e-9) * rng.uniform(0.2, 0.9)
-    # frame labels: envelope*gate active
-    act = (env * gate)
-    frames = act[: (n // VAD_WINDOW) * VAD_WINDOW].reshape(-1, VAD_WINDOW).mean(axis=1)
-    labels = (frames > 0.25).astype(np.float32)
-    return out.astype(np.float32), labels
+    """Speech-like audio and its per-frame labels from
+    ``ttasr_torch/tools/synth.py`` (the VAD trainer's synthesizer; the smoke
+    run's audio has come from it since the port began)."""
+    from ttasr_torch.tools.synth import synth_speech as synth
+
+    return synth(rng, seconds)
 
 
 AUDIO = (("speech20", 20.0, 0), ("speech45", 45.0, 1))
@@ -2116,27 +2115,32 @@ def _int8_counters():
             blk.ln_q_cross_int8, mlp.mlp_int8_fused]
 
 
-def _expect_int8_launches(label, counts, st, act8: bool = True) -> None:
+def _expect_int8_launches(label, counts, st, act8: bool = True,
+                          layers: int = N_LAYERS, decoder_layers=None) -> None:
     """The int8 engine's launches against its decode stats: B1, B3 and B4
-    32 times per decode step, B2 per beam step, B10 per greedy step, and
-    the encoder's kernels 32 times per pass (B11 for the bf16 encoder)."""
+    once per decoder layer and decode step, B2 per beam step, B10 per
+    greedy step, and the encoder's kernels once per layer and pass (B11 for
+    the bf16 encoder); ``layers``: the model's depth, ``decoder_layers``
+    the decoder's where it is cut (default ``layers``)."""
     steps = st["beam_steps"] + st["greedy_steps"]
     passes = st["encoder_passes"]
     check(passes > 0 and steps > 0, f"{label}: no encoder pass or step")
-    want = {"qkv_int8_fused": N_LAYERS * steps,
-            "attnout_ln_q_cross_int8": N_LAYERS * steps,
-            "mlp_with_crossout_int8": N_LAYERS * steps,
-            "self_attn_step_indirect_int8": N_LAYERS * st["beam_steps"],
-            "self_attn_step_int8": N_LAYERS * st["greedy_steps"]}
+    dl = layers if decoder_layers is None else decoder_layers
+    want = {"qkv_int8_fused": dl * steps,
+            "attnout_ln_q_cross_int8": dl * steps,
+            "mlp_with_crossout_int8": dl * steps,
+            "self_attn_step_indirect_int8": dl * st["beam_steps"],
+            "self_attn_step_int8": dl * st["greedy_steps"]}
     if act8:
-        want.update(_act8_encoder_launches(passes),
-                    encoder_attention_merged_qkv=N_LAYERS * passes)
+        want.update(_act8_encoder_launches(passes, layers=layers),
+                    encoder_attention_merged_qkv=layers * passes)
     else:
-        want["encoder_attention_merged"] = N_LAYERS * passes
+        want["encoder_attention_merged"] = layers * passes
     _expect(label, counts, want)
     print(f"{label}: launch counts match the decode stats "
           f"({st['beam_steps']} beam + {st['greedy_steps']} greedy steps, "
-          f"{st['encoder_passes']} encoder passes, x {N_LAYERS} layers)")
+          f"{st['encoder_passes']} encoder passes, x {layers} layers"
+          + (f", the decoder's {dl}" if dl != layers else "") + ")")
 
 
 def run_int8_path(card: str, act8: bool) -> dict:
@@ -2845,6 +2849,10 @@ def tp_rank_main(rank: int, tmp: str) -> int:
 # the phase keeps to 240 s
 UPLOADS = (("upload0", 12.0, 10), ("upload1", 16.0, 11))
 CLI_MODE_FILES = UPLOADS[:1]  # the CLI modes' folder
+# the CLI modes' decoder depth (of 32): on random weights each mode runs
+# the whole fallback ladder (11 sweeps of 224 steps), ~57 s a mode at full
+# depth; every layer is the same arithmetic and the encoder stays whole
+CLI_MODE_DECODER_LAYERS = 8
 # ttasr/api/file_tasks.py TRANSCRIBE_KWARGS, the task worker's decode kwargs
 TASK_KWARGS = dict(language="zh", word_timestamps=False, vad_filter=True, beam_size=5,
                    condition_on_previous_text=True, initial_prompt="")
@@ -2977,10 +2985,20 @@ def _beam_rows_alone(engine, rec, out, logits):
 
 def _uploads(engine, paths):
     """The task API's call: every path submitted at once as an upload (PCM
-    loaded with ``int16=True`` off the loop), through ``shared_server(engine,
-    slots=4, linger_ms=5)`` and ``transcribe_batched_with_server`` with the
-    task worker's kwargs.  Returns the results (an exception where one
-    failed), the group wrapper and the wall."""
+    loaded with ``int16=True`` off the loop, every file before the first
+    submission), through ``shared_server(engine, slots=4, linger_ms=5)`` and
+    ``transcribe_batched_with_server`` with the task worker's kwargs.
+    Returns the results (an exception where one failed), the group wrapper
+    and the wall.
+
+    The loads finish before any upload is submitted, so the uploads' VADs
+    are queued together and the server coalesces their first windows into
+    one beam group (it defers a bulk sweep while a VAD is pending); their
+    first fallback rung's best-of candidates (5 per upload) then reach the
+    queue in one loop tick, and the server dispatches the second group of
+    4 while the first decodes.  A load that finished a VAD's length after
+    another's split the beam group, and no dispatch overlapped (0 of 17
+    sweeps once on the card)."""
     import asyncio
 
     from ttasr_torch.audio.io import load_audio
@@ -2997,13 +3015,12 @@ def _uploads(engine, paths):
         groups = ServedGroups(server, engine, keep)
         loop = asyncio.get_running_loop()
 
-        async def upload(path):
-            audio, _ = await loop.run_in_executor(None, lambda: load_audio(path, int16=True))
-            return await transcribe_batched_with_server(engine, server, audio, **TASK_KWARGS)
-
         try:
-            return await asyncio.gather(*[upload(p) for p in paths],
-                                        return_exceptions=True), groups
+            loaded = await asyncio.gather(*[loop.run_in_executor(
+                None, lambda p=p: load_audio(p, int16=True)) for p in paths])
+            return await asyncio.gather(*[
+                transcribe_batched_with_server(engine, server, audio, **TASK_KWARGS)
+                for audio, _ in loaded], return_exceptions=True), groups
         finally:
             await server.stop()
             groups.close()
@@ -3160,6 +3177,18 @@ def _server_shape_kernels(card: str) -> dict:
     return res
 
 
+def _decoder_cut(engine, layers: int):
+    """A view of ``engine`` whose decoder is its first ``layers`` layers
+    (the encoder whole): the same weights, device lock and decode stats."""
+    import copy
+
+    view = copy.copy(engine)
+    dec = engine.params["decoder"]
+    view.params = dict(engine.params, decoder=dict(dec, blocks=dec["blocks"][:layers]))
+    view.cfg = dataclasses.replace(engine.cfg, decoder_layers=layers)
+    return view
+
+
 def run_server_path(engine, card: str) -> dict:
     """Phase 14 on the main path's engine: the task API's call (two
     uploads at once through the shared server and
@@ -3215,10 +3244,12 @@ def run_server_path(engine, card: str) -> dict:
         del logits
 
     modes = {}
+    shallow = _decoder_cut(engine, CLI_MODE_DECODER_LAYERS)
     for mode in ({"concurrency": TASK_SLOTS}, {"batched": True}):
-        mode_label = f"CLI {json.dumps(mode)}"
-        run = _drive_cli(engine, mode_label, card, counters, files=CLI_MODE_FILES, **mode)
-        _expect_int8_launches(mode_label, run["counts"], run["stats"])
+        mode_label = f"CLI {json.dumps(mode)} (decoder {CLI_MODE_DECODER_LAYERS} of {N_LAYERS})"
+        run = _drive_cli(shallow, mode_label, card, counters, files=CLI_MODE_FILES, **mode)
+        _expect_int8_launches(mode_label, run["counts"], run["stats"],
+                              decoder_layers=CLI_MODE_DECODER_LAYERS)
         modes[mode_label] = run["wall"] / run["audio_seconds"]
 
     _short_windows(engine)
@@ -4239,6 +4270,426 @@ def run_training(card: str) -> dict:
                 against_cpu=against_cpu, resume=resume, cli=cli_run, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: a trained model recognised on the card
+# ---------------------------------------------------------------------------
+
+# d 128, 2 heads of 64, F 512, 2 + 2 layers: large-v3's fused int8 path
+MICRO = "micro64-test"
+# the recognition check's defaults (tools/check_trained_recognition.py's main)
+RECOG_CLIPS, RECOG_STEPS, RECOG_LR, RECOG_SEED = 6, 800, 3e-3, 0
+MAX_CER = 0.05
+MICRO_SELF = ((64, 61), (480, 477))  # B2/B10 cache lengths and slots
+# the VAD: the torch forward on the card against the numpy inference on the
+# shipped weights (float32 FFTs and convs in other orders; 1.5e-5 and 6.0e-5
+# on the CPU for two synthesized clips).  A batch's log-mel, card against
+# CPU, where the mel power is well above the 1e-8 floor: near the floor a
+# power difference of 1e-11 moves the log by 1e-3, and on tonal negatives
+# (most bins at the floor, each bin's spread over time ~1e-5) the
+# per-utterance normalisation lifts that to O(1) inputs (the reference's JAX
+# forward and numpy inference differ by up to 0.12 in probability there),
+# so training is compared on the CPU's log-mels: the first step's grads, of
+# each leaf's largest |g|, within VAD_CONTROL_MARGIN times the CPU's own
+# gap when the log-mels move by one float32 ulp (the normalisation is as
+# ill-conditioned there: float32 against float64 on the same log-mels
+# differs by 0.6 % of w1's largest grad on the CPU); after VAD_STEPS steps
+# each leaf's L2 gap over its norm and the losses (Adam steps sign(g) where
+# |g| is near 0, so 1e-7 of relative noise on the CPU's log-mels alone moved
+# the params by 0.2-5 % and the losses by up to 3e-3 after 20 steps)
+VAD_PROB_ABS = 1e-3
+VAD_LOUD_POWER = 1e-4
+VAD_MEL_REL = 1e-4
+VAD_CONTROL_SEEDS, VAD_CONTROL_MARGIN = 3, 2.0
+VAD_STEPS, VAD_BATCH, VAD_SECONDS, VAD_LR = 20, 16, 3.0, 3e-3
+VAD_PARAM_L2 = 0.15
+VAD_LOSS_ABS = 0.02
+DIVERGENCE_ARGS = ("--ab", "kernels", "--windows", "2", "--sample-len", "32")
+PROFILE_BATCH = 1
+
+
+def _micro_kernels(card: str) -> dict:
+    """B1-B10 and the qkv epilogue at ``MICRO``'s widths against their plain
+    versions, under the bounds of phases 4 and 5: the decode kernels at 5
+    rows, beam 5 of one audio and 5 audios x 1 row, cache lengths 64 and
+    480 (int4 and int8 self-KV, new codes exact), B3 over int4 and int8
+    cross-KV of S = 1500; the encoder's at B = 1, T = 1500 (B5, B8, B9
+    from x and from the int8 GEMM's accumulators); each timed beside its
+    plain version with its bound.  Returns {name: measured}."""
+    import torch
+
+    from ttasr_torch.models.whisper.config import get_config
+    from ttasr_torch.ops import decoder_blocks as blk
+    from ttasr_torch.ops import decoder_mlp as mlp
+    from ttasr_torch.ops import encoder_fused as ef
+    from ttasr_torch.ops.encoder_attention import (
+        encoder_attention_merged_qkv,
+        encoder_attention_merged_qkv_ref,
+    )
+
+    cfg = get_config(MICRO)
+    d, h, ffn = cfg.d_model, cfg.decoder_heads, cfg.ffn_dim
+    inp = Inputs(18, d=d, h=h, ffn=ffn)
+    lay = inp.layer()
+    res = {}
+
+    def timed(name, case, fn, ref, args, err, ops, kind="bf16", read=None):
+        """``read``: the inputs as the kernel reads them, for the bound."""
+        ms, plain_ms = in_turns(lambda: fn(*args), lambda: ref(*args))
+        res[name] = dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **bound(_tensors(read or args, fn(*args)), ops, kind))
+        r = res[name]
+        print(f"{name} {MICRO} {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / ms:.1%} of the "
+              f"bound ({card})")
+
+    # B1 at 5 rows
+    b1 = (inp.randn(5, d, scale=0.5), lay["ln1_s"], lay["ln1_b"], lay["wqkv"],
+          lay["wqkv_s"], lay["bqkv"])
+    err = _hold("qkv_int8_fused", f"{MICRO} R=5", blk.qkv_int8_fused(*b1),
+                blk.qkv_int8_fused_ref(*b1), 0.0)
+    _same_bits(f"qkv_int8_fused {MICRO} R=5", lambda: blk.qkv_int8_fused(*b1))
+    timed("qkv_int8_fused", "R=5", blk.qkv_int8_fused, blk.qkv_int8_fused_ref, b1, err,
+          2.0 * 5 * d * 3 * d)
+
+    # B3: beam 5 of one audio over int4 cross-KV, 5 audios x 1 over int8
+    worst, b3 = 0.0, None
+    for b, k, int4 in ((1, 5, True), (5, 1, False)):
+        args = (inp.randn(b, k, d, scale=0.5), inp.randn(b, k, d, scale=0.5),
+                lay["wo"], lay["wo_s"], lay["bo"], lay["lnc_s"], lay["lnc_b"],
+                lay["wqc"], lay["wqc_s"], lay["bqc"], *inp.cross_kv(b, int4), S_REAL)
+        got, want = blk.attnout_ln_q_cross_int8(*args), blk.attnout_ln_q_cross_int8_ref(*args)
+        case = f"{MICRO} B={b} K={k} {'int4' if int4 else 'int8'} cross-KV"
+        worst = _hold("attnout_ln_q_cross_int8", case + " x'", got[0], want[0], worst)
+        worst = _hold("attnout_ln_q_cross_int8", case + " cross", got[1], want[1], worst)
+        b3 = b3 or args
+    timed("attnout_ln_q_cross_int8", "B=1 K=5 int4 cross-KV", blk.attnout_ln_q_cross_int8,
+          blk.attnout_ln_q_cross_int8_ref, b3, worst,
+          2.0 * 2 * 5 * d * d + 2.0 * 2 * 5 * S_REAL * d)
+
+    # B4 at 5 and 10 rows: the persistent plan with most blocks idle
+    worst, b4 = 0.0, None
+    for r in (5, 10):
+        args = (inp.randn(r, d, scale=0.5), inp.randn(r, d, scale=0.5),
+                lay["woc"], lay["woc_s"], lay["boc"], lay["ln2_s"], lay["ln2_b"],
+                lay["w1"], lay["w1_s"], lay["b1"], lay["w2"], lay["w2_s"], lay["b2"])
+        got = mlp.mlp_with_crossout_int8(*args)
+        worst = _hold("mlp_with_crossout_int8", f"{MICRO} R={r}", got,
+                      mlp.mlp_with_crossout_int8_ref(*args), worst)
+        _b4_is_b15_then_b14(f"{MICRO} R={r}", args, got)
+        b4 = b4 or args
+    _same_bits(f"mlp_with_crossout_int8 {MICRO} R=5", lambda: mlp.mlp_with_crossout_int8(*b4))
+    timed("mlp_with_crossout_int8", "R=5", mlp.mlp_with_crossout_int8,
+          mlp.mlp_with_crossout_int8_ref, b4, worst, 2.0 * 5 * (d * d + 2 * d * ffn))
+
+    # B2 (beam 5 of one audio, through the ancestry map) and B10 (5 x 1)
+    for name, b, k in (("self_attn_step_indirect_int8", 1, 5), ("self_attn_step_int8", 5, 1)):
+        worst = 0.0
+        for length, slot in MICRO_SELF:
+            for int4 in (True, False):
+                fn, ref, args = _self_step(inp, b, k, length, slot, [0] * 5, int4)
+                kw = dict(n_heads=h, int4=int4)
+                got, want = fn(*args, **kw), ref(*args, **kw)
+                case = f"{MICRO} B={b} K={k} len={length} {'int4' if int4 else 'int8'}"
+                check(bool(torch.isfinite(got[0]).all()), f"{name} {case}: not finite")
+                worst = _hold(name, case, got[0], want[0], worst)
+                for i in range(1, 5):
+                    check(torch.equal(got[i], want[i]),
+                          f"{name} {case}: new codes or scales differ from the plain version")
+        _same_bits(f"{name} {MICRO} len=480 int4", lambda: fn(*args, **kw))
+        for length, slot in MICRO_SELF:
+            fn, ref, args = _self_step(inp, b, k, length, slot, [0] * 5, True)
+            positions = float((slot + 1 - args[-2]).sum().item())
+            timed(name if length == 480 else f"{name} len={length}",
+                  f"B={b} K={k} len={length} int4",
+                  functools.partial(fn, n_heads=h, int4=True),
+                  functools.partial(ref, n_heads=h, int4=True), args, worst,
+                  2.0 * 2 * positions * d)
+
+    # the encoder's row kernels at B = 1, T = 1500
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def act(*shape, scale=1.0):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        spread = torch.rand(shape[:-1] + (1,), generator=gen, device="cuda") * 3.9 + 0.1
+        return (x * spread).to(torch.bfloat16)
+
+    ln_s = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+    ln_b = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+    x, y, hid = act(1, ENC_T, d), act(1, ENC_T, d, scale=0.5), act(1, ENC_T, ffn, scale=2.0)
+    rows = {  # name: (kernel, plain, args, operations per element, the element count)
+        "ln_quant": (ef.ln_quant, ef.ln_quant_ref, (x, ln_s, ln_b), 14, x.numel()),
+        "quant_only": (ef.quant_only, ef.quant_only_ref, (x,), 4, x.numel()),
+        "add_ln_quant": (ef.add_ln_quant, ef.add_ln_quant_ref, (x, y, ln_s, ln_b), 15,
+                         x.numel()),
+        "gelu_quant": (ef.gelu_quant, ef.gelu_quant_ref, (hid,), 26, hid.numel()),
+    }
+    w1, w2, wo, qkv = (_acc_case(gen, 1, *kn) for kn in ((d, ffn), (ffn, d), (d, d),
+                                                         (d, 3 * d)))
+    rows.update({
+        "gelu_quant_acc": (ef.gelu_quant_acc, ef.gelu_quant_acc_ref, w1, 30, w1[0].numel()),
+        "ln_quant_acc": (ef.ln_quant_acc, ef.ln_quant_acc_ref, (x, *w2, ln_s, ln_b), 20,
+                         w2[0].numel()),
+        "add_ln_quant_acc": (ef.add_ln_quant_acc, ef.add_ln_quant_acc_ref,
+                             (x, *wo, ln_s, ln_b), 20, wo[0].numel()),
+        "qkv_epilogue_acc": (ef.qkv_epilogue_acc, ef.qkv_epilogue_acc_ref, (*qkv, Q_SCALE),
+                             4, qkv[0].numel()),
+    })
+    for name, (fn, ref, args, per_elem, n) in rows.items():
+        got, want = fn(*args), ref(*args)
+        case = f"{MICRO} B=1 T={ENC_T} width={n // ENC_T}"
+        if name == "qkv_epilogue_acc":
+            same = torch.equal(got, want)
+            print(f"{name} {case}: equal to the plain version bit for bit: {same}")
+            check(same, f"{name} {case}: differs from the plain version")
+            err = 0.0
+        else:
+            if name in ("add_ln_quant", "ln_quant_acc", "add_ln_quant_acc"):
+                check(torch.equal(got[0], want[0]),
+                      f"{name} {case}: the bf16 residual differs from the plain version")
+                got, want = got[1:], want[1:]
+            err = _hold_codes(name, case, got, want)
+        # the LN parameters and column vectors are read as f32
+        timed(name, f"B=1 T={ENC_T}", fn, ref, args, err, float(per_elem * n), "f32",
+              read=[a.float() if getattr(a, "ndim", 0) == 1 else a for a in args])
+
+    # B6 from the fused (1, 1500, 3 d) buffer, q pre-scaled
+    colscale = torch.ones(3 * d, device="cuda")
+    colscale[:d] = 0.125
+    qkv_buf = (torch.randn((1, ENC_T, 3 * d), generator=gen, device="cuda") * colscale
+               ).to(torch.bfloat16)
+    got = encoder_attention_merged_qkv(qkv_buf, ENC_T)
+    want = encoder_attention_merged_qkv_ref(qkv_buf, ENC_T)
+    err, scale = _max_err(got, want), want.float().abs().max().item()
+    print(f"encoder_attention_merged_qkv {MICRO} B=1 T={ENC_T} ({h} heads): max_abs_err "
+          f"{err:.3e} (bound {BF16_REL * scale:.3e})")
+    check(err <= BF16_REL * scale, f"B6 at {MICRO} disagrees with its plain version: {err}")
+    timed("encoder_attention_merged_qkv", f"B=1 T={ENC_T}", encoder_attention_merged_qkv,
+          encoder_attention_merged_qkv_ref, (qkv_buf, ENC_T), err, 4.0 * ENC_T * ENC_T * d)
+    return res
+
+
+def _recognise(compute: str, examples, trained, card: str) -> dict:
+    """The recognition check's transcription (greedy and beam 5, VAD on, the
+    temperature ladder) of every clip through a ``compute`` engine on the
+    trained params (bf16 for int8, as the tool serves them): greedy CER <=
+    MAX_CER, launches exact against the decode stats.  Returns the CERs, the
+    wall and the engine."""
+    import torch
+
+    from ttasr_torch.engine.transcriber import WhisperEngine
+    from ttasr_torch.text.cer import cer_metric
+    from ttasr_torch.tools.check_trained_recognition import served_params, transcribe_clips
+
+    params, cfg, tok = trained
+    engine = WhisperEngine(MICRO, params=served_params(params, compute), config=cfg,
+                           tokenizer=tok, compute_type=compute, device="cuda")
+    label = f"recognition {MICRO} {compute}"
+    counters = _int8_counters()
+    before = dict(engine.decode_stats)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_clip, hyps = transcribe_clips(engine, examples)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counters}
+    st = {k: engine.decode_stats[k] - before[k] for k in before}
+    refs = [ex.sentence.lower() for ex in examples]
+    cer = {beam: cer_metric(refs, hyps[beam]) for beam in hyps}
+    for row in per_clip:
+        print(f"  {label}: {row['ref']} -> greedy {row['hyp_beam1']!r}, beam 5 "
+              f"{row['hyp_beam5']!r}, segments {row['segments']}, VAD kept "
+              f"{row['vad_kept_s']} of {row['duration_s']} s")
+    print(f"{label}: CER greedy {cer[1]:.4f} (bound {MAX_CER}), beam 5 {cer[5]:.4f} "
+          f"(recorded, not gated); {len(examples)} clips in {wall:.2f} s; decode stats "
+          f"{json.dumps(st)} ({card})")
+    check(st["nonfinite_logits"] == 0, f"{label}: a decode produced non-finite logits")
+    check(cer[1] <= MAX_CER, f"{label}: greedy CER {cer[1]} > {MAX_CER}")
+    check(all(r["vad_kept_s"] > 0.5 for r in per_clip), f"{label}: the VAD dropped a clip")
+    if compute == "int8":
+        _expect_int8_launches(label, counts, st, layers=cfg.decoder_layers)
+    else:  # B11 in float32 (3xTF32) per encoder layer and pass, nothing else
+        _expect(label, counts, {"encoder_attention_merged":
+                                cfg.encoder_layers * st["encoder_passes"]})
+        print(f"{label}: B11 launched {counts['encoder_attention_merged']} times for "
+              f"{st['encoder_passes']} encoder passes x {cfg.encoder_layers} layers")
+    return dict(cer_greedy=cer[1], cer_beam5=cer[5], wall=wall, engine=engine)
+
+
+def _card_texts_are_cpu_texts(engine, examples, trained) -> None:
+    """The int8 engine's greedy texts at T = 0 on the card equal, clip for
+    clip, an int8 engine's on the CPU (the plain versions) on the same
+    params."""
+    from ttasr_torch.core.checkpoint import map_leaves
+    from ttasr_torch.engine.transcriber import WhisperEngine
+    from ttasr_torch.tools.check_trained_recognition import served_params, transcribe_clips
+
+    params, cfg, tok = trained
+    cpu = WhisperEngine(MICRO, params=map_leaves(lambda _, x: x.cpu(),
+                                                 served_params(params, "int8")),
+                        config=cfg, tokenizer=tok, compute_type="int8", device="cpu")
+    kw = dict(beams=(1,), temperature=(0.0,))
+    _, card_hyps = transcribe_clips(engine, examples, **kw)
+    _, cpu_hyps = transcribe_clips(cpu, examples, **kw)
+    same = [a == b for a, b in zip(card_hyps[1], cpu_hyps[1])]
+    print(f"recognition {MICRO} int8: greedy texts at T = 0 on the card equal the CPU's "
+          f"plain versions': {same}")
+    check(all(same), f"the card's greedy texts differ from the CPU's: "
+                     f"{card_hyps[1]} against {cpu_hyps[1]}")
+
+
+def _vad_on_card(card: str) -> dict:
+    """The VAD's torch forward on the card against ``vad_probabilities``
+    (numpy) on the shipped weights; the card's log-mel of a training batch
+    against the CPU's; then, on the CPU's log-mels of VAD_STEPS batches
+    from one seed, the first step's grads and VAD_STEPS Adam steps on the
+    card against the CPU."""
+    import torch
+
+    from ttasr_torch.audio import vad_model as vm
+    from ttasr_torch.tools import synth
+    from ttasr_torch.tools import train_vad as tv
+
+    rng = np.random.default_rng(50)
+    audio = np.concatenate([synth.synth_speech(rng, 8.0)[0], np.zeros(2 * SR, np.float32),
+                            synth.synth_negative(rng, 6.0)[0]]).astype(np.float32)
+    want = vm.vad_probabilities(audio)
+    with torch.no_grad():
+        got = vm.forward(tv.to_device(vm._load_weights(), "cuda"), vm.log_mel_frames(
+            torch.as_tensor(audio, device="cuda"), vm.mel_filterbank())).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    print(f"VAD forward on the card against vad_probabilities (numpy), {len(want)} frames of "
+          f"the shipped weights: max |delta p| {err:.3e} (bound {VAD_PROB_ABS})")
+    check(got.shape == want.shape and err <= VAD_PROB_ABS, f"the VAD forward on the card "
+          f"disagrees with the numpy inference: {err}")
+
+    fb, n_frames = vm.mel_filterbank(), int(SR * VAD_SECONDS) // vm.WINDOW
+    batches = [tv.make_batch(rng, VAD_BATCH, VAD_SECONDS) for _ in range(VAD_STEPS)]
+    mels = [(tv.batch_mels(a, fb, n_frames, "cpu"), torch.as_tensor(lab[:, :n_frames]))
+            for a, lab in batches]
+    card_mel = tv.batch_mels(batches[0][0], fb, n_frames, "cuda").cpu()
+    loud = mels[0][0] > np.log(VAD_LOUD_POWER)
+    gap = (card_mel - mels[0][0]).abs()
+    loud_gap = gap[loud].max().item() / mels[0][0].abs().max().item()
+    print(f"VAD log-mel of a batch, card against CPU: {loud_gap:.2e} of the largest magnitude "
+          f"where the power exceeds {VAD_LOUD_POWER:g} (bound {VAD_MEL_REL}), "
+          f"{gap[~loud].max().item():.3e} at most near the 1e-8 floor (not bounded)")
+    check(loud_gap <= VAD_MEL_REL, f"the card's VAD log-mel disagrees with the CPU's: {loud_gap}")
+
+    def train(dev):
+        params = tv.to_device(vm.init_vad_params(0), dev)
+        opt = tv.Adam(VAD_LR)
+        state, losses = opt.init(params), []
+        for mel, lab in mels:
+            losses.append(tv.train_step(params, opt, state, mel.to(dev), lab.to(dev)))
+        return params, [float(x) for x in losses]
+
+    def grads(dev, mel):
+        return tv.value_and_grad(tv.to_device(vm.init_vad_params(0), dev), mel.to(dev),
+                                 mels[0][1].to(dev))[1]
+
+    def gaps(got, want):
+        return {k: (got[k].cpu() - want[k]).abs().max().item() / want[k].abs().max().item()
+                for k in want}
+
+    cpu_grads = grads("cpu", mels[0][0])
+    grad_gap = gaps(grads("cuda", mels[0][0]), cpu_grads)
+    # the control: the CPU's grads on the log-mels moved by one float32 ulp
+    # (2**-23 relative noise), the worst of VAD_CONTROL_SEEDS draws
+    control = {}
+    for seed in range(VAD_CONTROL_SEEDS):
+        gen = torch.Generator().manual_seed(seed)
+        noisy = mels[0][0] * (1 + 2.0 ** -23 * torch.randn(mels[0][0].shape, generator=gen))
+        for k, g in gaps(grads("cpu", noisy), cpu_grads).items():
+            control[k] = max(control.get(k, 0.0), g)
+    print(f"VAD first step's grads on the same log-mels, card against CPU, of each leaf's "
+          f"largest |g|: {json.dumps(grad_gap)}; the CPU's own on log-mels one ulp apart "
+          f"(bound: {VAD_CONTROL_MARGIN} x it): {json.dumps(control)}")
+    check(all(grad_gap[k] <= VAD_CONTROL_MARGIN * control[k] for k in control),
+          "the VAD's grads on the card disagree with the CPU's beyond the control")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = train(dev)
+        print(f"VAD training on {dev}: {VAD_STEPS} steps of {VAD_BATCH} clips in "
+              f"{time.perf_counter() - t0:.2f} s, loss {runs[dev][1][0]:.4f} -> "
+              f"{runs[dev][1][-1]:.4f}")
+    (card_p, card_l), (cpu_p, cpu_l) = runs["cuda"], runs["cpu"]
+    l2 = {k: ((card_p[k].cpu() - cpu_p[k]).norm() / cpu_p[k].norm()).item() for k in cpu_p}
+    loss_gap = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+    print(f"VAD params after {VAD_STEPS} steps, card against CPU, each leaf's L2 gap over "
+          f"its norm: {json.dumps(l2)} (bound {VAD_PARAM_L2}); losses within {loss_gap:.2e} "
+          f"(bound {VAD_LOSS_ABS}) ({card})")
+    check(all(np.isfinite(card_l)) and max(l2.values()) <= VAD_PARAM_L2
+          and loss_gap <= VAD_LOSS_ABS, "VAD training on the card disagrees with the CPU's")
+    return dict(forward_err=err, mel_gap=loud_gap, grad_gap=grad_gap, grad_control=control,
+                param_l2=l2, loss_gap=loss_gap)
+
+
+def _other_tools(card: str) -> dict:
+    """``check_beam_divergence`` (DIVERGENCE_ARGS, large-v3) and
+    ``profile_decode --batch PROFILE_BATCH`` at large-v3, in this process:
+    a well-formed report, and the profile's stage sum within its tolerance
+    of the step's device time."""
+    import torch
+
+    from ttasr_torch.tools import check_beam_divergence, profile_decode
+
+    t0 = time.perf_counter()
+    report = check_beam_divergence.main(list(DIVERGENCE_ARGS))
+    windows = int(DIVERGENCE_ARGS[DIVERGENCE_ARGS.index("--windows") + 1])
+    check(report["windows"] == windows and report["windows"] >= report["diverging_windows"] >= 0
+          and 0.0 <= report["exact_agreement_rate"] <= 1.0
+          and report["cer_between_paths"] >= 0.0, f"beam divergence report: {report}")
+    print(f"check_beam_divergence {' '.join(DIVERGENCE_ARGS)}: {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    profile = profile_decode.profile_step(batch=PROFILE_BATCH)
+    check(profile["sum_checks"], f"profile_decode: the stages sum to "
+          f"{profile['stage_sum_over_step']:.1%} of the step's device time")
+    print(f"profile_decode --batch {PROFILE_BATCH}: {time.perf_counter() - t0:.1f} s ({card})")
+    torch.cuda.empty_cache()
+    return dict(divergence=report, profile=profile)
+
+
+def run_recognition(card: str) -> dict:
+    """Phase 18: a trained model recognised on the card, legs a-e."""
+    import torch
+
+    from ttasr_torch.tools import check_trained_recognition as ctr
+
+    t_phase = time.perf_counter()
+    kernels = _micro_kernels(card)
+    print(f"micro64-test kernels: {json.dumps(kernels)} ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = ctr.make_clips(RECOG_CLIPS, RECOG_SEED, tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, cfg, tok, metrics = ctr.train_model(
+            examples, MICRO, RECOG_STEPS, RECOG_LR, RECOG_SEED, "cuda", os.path.join(tmp, "out"))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        print(f"recognition {MICRO}: {RECOG_STEPS} steps on {RECOG_CLIPS} clips, lr {RECOG_LR}, "
+              f"in {train_s:.1f} s ({train_s / RECOG_STEPS * 1e3:.1f} ms a step), final loss "
+              f"{metrics['train_loss']:.4f} ({card})")
+        check(np.isfinite(metrics["train_loss"]), "the recognition model's loss is not finite")
+        trained = (params, cfg, tok)
+        recognised = {compute: _recognise(compute, examples, trained, card)
+                      for compute in ("int8", "float32")}
+        _card_texts_are_cpu_texts(recognised["int8"].pop("engine"), examples, trained)
+        recognised["float32"].pop("engine")
+    del params, trained
+    torch.cuda.empty_cache()
+    vad = _vad_on_card(card)
+    tools = _other_tools(card)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18 (a trained model recognised on the card): {seconds:.1f} s ({card})")
+    return dict(kernels=kernels, train_s=train_s, train_loss=metrics["train_loss"],
+                recognised=recognised, vad=vad, tools=tools, seconds=seconds)
+
+
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces
     ("encoder_attention_merged", "ttasr_torch/csrc/encoder_attention.cu",
      "ttasr/ops/encoder_attention_pallas.py:156"),
@@ -4338,6 +4789,7 @@ def main() -> int:
     main_path = run_int8_path(card, act8=True)
     int8_bf16_encoder = run_int8_path(card, act8=False)
     training = run_training(card)
+    recognition = run_recognition(card)
     launches = dict(main_path["counts"], encoder_attention_merged=bf16["launches"])
     for name, leg in BRANCH_LAUNCHES.items():
         launches[name] = main_path["branches"][leg]["counts"][name]

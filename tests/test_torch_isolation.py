@@ -12,16 +12,20 @@ copies of the JAX package's host modules behave as the originals.
   ``write_wav``/``load_audio`` round trip with resampling,
   ``compare_texts`` and ``postprocess_transcript`` on ``sample_corpus/``,
   the mel constants (the DFT basis and filterbank that the fused log-mel
-  kernel reads too), the ``TTASR_UNFUSED_RULES`` truthiness,
-  ``chip_smoke.synth_speech``, and the subtitle writers of
+  kernel reads too), the ``TTASR_UNFUSED_RULES`` truthiness, the
+  synthesizer ``tools/synth.py`` (``tools/train_vad.py``'s generators, code
+  and outputs on seeds; ``chip_smoke.synth_speech`` reads it),
+  ``core/flops.py`` (the original's code but ``peak_tflops``), and the
+  subtitle writers of
   ``engine/results.py`` (``format_srt_timestamp``, ``segments_to_srt``,
   ``segments_to_txt``).
 - The plain copies of the HTTP service are the originals' text: ``api/jwt.py``,
   ``api/passwords.py``, ``text/filters.py`` and ``streaming/utils.py`` with
   ``ttasr.`` read as ``ttasr_torch.``, and the two test pages byte for byte.
 - The training modules (``ttasr_torch/train/``, ``cli/train.py``,
-  ``core/checkpoint.py``) import nothing of ``jax``, ``optax``, ``orbax``
-  or ``ttasr``; ``train/data.py`` is the original's code with its
+  ``core/checkpoint.py``), the VAD model and the tools (``tools/``,
+  ``core/flops.py``) import nothing of ``jax``, ``optax``, ``orbax`` or
+  ``ttasr``; ``train/data.py`` is the original's code with its
   ``device`` argument, ``get_last_checkpoint``/``_cleanup_old`` and
   ``audio/io.py``'s ``probe_num_samples`` the originals', and
   ``cli/train.py`` takes every flag of the original, plus ``--device``.
@@ -107,7 +111,11 @@ _ISOLATED = textwrap.dedent("""
              "ttasr_torch.train", "ttasr_torch.train.data",
              "ttasr_torch.train.spec_augment", "ttasr_torch.train.train_step",
              "ttasr_torch.train.trainer", "ttasr_torch.cli.train",
-             "ttasr_torch.core.checkpoint"}} <= set(names), names
+             "ttasr_torch.core.checkpoint", "ttasr_torch.core.flops",
+             "ttasr_torch.tools", "ttasr_torch.tools.synth",
+             "ttasr_torch.tools.train_vad", "ttasr_torch.tools.check_trained_recognition",
+             "ttasr_torch.tools.check_beam_divergence",
+             "ttasr_torch.tools.profile_decode"}} <= set(names), names
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
@@ -324,7 +332,39 @@ def test_fused_mel_and_rules_copies_match(monkeypatch):
         assert t_dec._env_unfused_rules() == j_dec._env_unfused_rules(), value
 
 
+SYNTH_FUNCTIONS = ("_formant_filter", "synth_speech", "_reverb", "synth_babble",
+                   "synth_vocal_music", "synth_negative", "make_example", "_auc")
+
+
+def test_synth_copy_matches():
+    """``ttasr_torch/tools/synth.py`` holds ``tools/train_vad.py``'s
+    generators: their code and their output on seeds."""
+    from ttasr_torch.tools import synth
+
+    want = _defs(_read("tools", "train_vad.py"))
+    got = _defs(_read("ttasr_torch", "tools", "synth.py"))
+    for name in SYNTH_FUNCTIONS:
+        assert ast.dump(got[name]) == ast.dump(want[name]), name
+    assert synth.SR == j_train_vad.SR and synth.WINDOW == j_train_vad.WINDOW
+    for seed, seconds in ((0, 3.0), (1, 5.0)):
+        for name in ("synth_speech", "synth_babble", "synth_vocal_music", "make_example"):
+            got_out = getattr(synth, name)(np.random.default_rng(seed), seconds)
+            want_out = getattr(j_train_vad, name)(np.random.default_rng(seed), seconds)
+            for g, w in zip(*(o if isinstance(o, tuple) else (o,)
+                              for o in (got_out, want_out))):
+                np.testing.assert_array_equal(g, w)
+        for kind in range(9):
+            for g, w in zip(synth.synth_negative(np.random.default_rng(seed), seconds, kind),
+                            j_train_vad.synth_negative(np.random.default_rng(seed), seconds,
+                                                       kind)):
+                np.testing.assert_array_equal(g, w)
+    labels = np.random.default_rng(3).random(500) > 0.5
+    scores = np.random.default_rng(4).random(500)
+    assert synth._auc(labels, scores) == j_train_vad._auc(labels, scores)
+
+
 def test_chip_smoke_synth_speech_matches():
+    """``chip_smoke.synth_speech`` reads the port's copy, output for output."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_copy", os.path.join(REPO_ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -334,6 +374,20 @@ def test_chip_smoke_synth_speech_matches():
         want = j_train_vad.synth_speech(np.random.default_rng(seed), seconds)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+def test_flops_copy_is_the_originals_code():
+    """``core/flops.py`` is the original's code but ``peak_tflops`` (the
+    card's rate in place of the TPU's)."""
+    def code(src):
+        tree = _StripDocstrings().visit(ast.parse(src))
+        tree.body = [n for n in tree.body
+                     if not (isinstance(n, ast.FunctionDef) and n.name == "peak_tflops")]
+        return ast.dump(tree)
+
+    assert (code(_read("ttasr_torch", "core", "flops.py"))
+            == code(_read("ttasr", "core", "flops.py")))
+    assert "peak_tflops" in _defs(_read("ttasr_torch", "core", "flops.py"))
 
 
 def test_subtitle_writer_copies_match():
@@ -432,7 +486,10 @@ def test_align_host_half_matches():
 _IMPORT_JAX_FAMILY = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|optax|orbax|ttasr)(\.|\s|$)")
 TRAINING_MODULES = ("train/__init__.py", "train/data.py", "train/spec_augment.py",
                     "train/train_step.py", "train/trainer.py", "cli/train.py",
-                    "core/checkpoint.py")
+                    "core/checkpoint.py", "core/flops.py", "audio/vad_model.py",
+                    "tools/__init__.py", "tools/synth.py", "tools/train_vad.py",
+                    "tools/check_trained_recognition.py", "tools/check_beam_divergence.py",
+                    "tools/profile_decode.py")
 
 
 def test_training_modules_import_no_jax_optax_orbax():

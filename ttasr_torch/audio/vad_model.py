@@ -1,6 +1,7 @@
-"""Learned voice-activity model, numpy inference only (the port's copy of
-the serving half of ``ttasr/audio/vad_model.py``; training and the jax
-forward stay in the JAX package).
+"""Learned voice-activity model (the port of ``ttasr/audio/vad_model.py``):
+the numpy inference half that serves ``vad_filter=True``, and the torch
+forward and log-mel that ``ttasr_torch/tools/train_vad.py`` trains through
+(the JAX package's ``_forward`` and ``log_mel_frames``).
 
 Architecture: log-mel(64) -> per-utterance mean/var norm ->
 conv1d(64->32,k5) -> relu -> conv1d(32->32,k5,dil2) -> relu ->
@@ -50,6 +51,61 @@ def mel_filterbank(n_mels: int = N_MELS, n_fft: int = N_FFT,
         fb[i, l:c] = (np.arange(l, c) - l) / (c - l)
         fb[i, c:r] = (r - np.arange(c, r)) / (r - c)
     return fb
+
+
+def init_vad_params(seed: int = 0) -> Dict[str, np.ndarray]:
+    """He-initialised weights in the shipped layout: conv kernels (K, Cin,
+    Cout), as the JAX package's ``WIO``."""
+    rng = np.random.default_rng(seed)
+
+    def he(shape, fan_in):
+        return (rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)).astype(
+            np.float32
+        )
+
+    return {
+        "w1": he((5, N_MELS, 32), 5 * N_MELS), "b1": np.zeros(32, np.float32),
+        "w2": he((5, 32, 32), 5 * 32), "b2": np.zeros(32, np.float32),
+        "w3": he((1, 32, 1), 32), "b3": np.zeros(1, np.float32),
+    }
+
+
+def forward(params, logmel):
+    """logmel (T, N_MELS) or (B, T, N_MELS) tensor -> speech probability
+    (T,) or (B, T), each utterance normalised on its own.  ``params``:
+    tensors in the shipped (K, Cin, Cout) layout, on logmel's device."""
+    import torch
+    import torch.nn.functional as F
+
+    x = logmel[None] if logmel.dim() == 2 else logmel
+    # per-utterance normalization (jnp.std: ddof 0)
+    mu = x.mean(dim=1, keepdim=True)
+    sd = x.std(dim=1, keepdim=True, correction=0) + 1e-5
+    x = ((x - mu) / sd).transpose(1, 2)  # (B, C, T)
+
+    def conv(x, w, b, dilation=1):
+        return F.conv1d(x, w.permute(2, 1, 0), b, dilation=dilation,
+                        padding=dilation * (w.shape[0] // 2))
+
+    x = torch.relu(conv(x, params["w1"], params["b1"]))
+    x = torch.relu(conv(x, params["w2"], params["b2"], dilation=2))
+    x = conv(x, params["w3"], params["b3"])
+    probs = torch.sigmoid(x[:, 0])
+    return probs[0] if logmel.dim() == 2 else probs
+
+
+def log_mel_frames(audio, fb):
+    """audio (..., n * WINDOW) tensor -> log-mel (..., n, N_MELS): a
+    symmetric Hann window (``np.hanning``) and a 512-point real FFT per
+    512-sample frame, power through the mel bank ``fb`` (N_MELS, 257)."""
+    import torch
+
+    n = audio.shape[-1] // WINDOW
+    frames = audio[..., : n * WINDOW].reshape(*audio.shape[:-1], n, WINDOW)
+    win = torch.from_numpy(np.hanning(WINDOW).astype(np.float32)).to(audio.device)
+    spec = torch.fft.rfft(frames * win, n=N_FFT).abs() ** 2
+    mel = spec @ torch.as_tensor(fb, device=audio.device).T
+    return torch.log(mel + 1e-8)
 
 
 @functools.lru_cache(maxsize=1)

@@ -664,8 +664,11 @@ def _apply_rules_logprobs(logits, *, ti: TokenizerInfo,
 
     sup = torch.zeros(masked.shape, dtype=torch.bool, device=dev)
     if opts.suppress_blank:
-        blank = torch.zeros((v,), dtype=torch.bool, device=dev)
-        blank[list(ti.blank) + [ti.eot]] = True
+        # compared against the ids on the device (no host copy: the rules
+        # can run inside a CUDA graph capture)
+        blank = ids[0] == ti.eot
+        for t in ti.blank:
+            blank = blank | (ids[0] == t)
         sup = sup | ((n_sampled == 0)[:, None] & blank[None, :])
 
     ts0 = ti.timestamp_begin
@@ -923,6 +926,142 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
 # Beam search
 # ---------------------------------------------------------------------------
 
+def _update_finished(top_val, src_beam, is_eot, tokens, n, fin_tokens, fin_len,
+                     fin_logprob, fin_count):
+    """The finished set after one beam step (openai
+    ``BeamSearchDecoder.update``): the best-first scan of the (B, 2K)
+    candidates stops once K non-eot survivors are found, so an eot
+    candidate is stored only if it ranks above the K-th survivor, into the
+    audio's next free slot of K.  Returns (fin_tokens, fin_len,
+    fin_logprob, fin_count)."""
+    b, k, sample_len = fin_tokens.shape
+    non_eot = (~is_eot).long()
+    non_eot_before = torch.cumsum(non_eot, dim=1) - non_eot
+    qualifies = is_eot & (non_eot_before < k)
+    eot_rank = torch.cumsum(qualifies.long(), dim=1) - 1
+    slot = fin_count[:, None] + eot_rank
+    can_store = qualifies & (slot < k) & (eot_rank >= 0)
+    ar_b = torch.arange(b, device=src_beam.device)
+    src_flat = (ar_b[:, None] * k + src_beam).reshape(-1)
+    cand_tokens = tokens[src_flat].reshape(b, 2 * k, sample_len)
+    cand_n = n[src_flat].reshape(b, 2 * k)
+    # at most one storable candidate per target slot
+    ar_k = torch.arange(k, device=src_beam.device)
+    sel = can_store[:, None, :] & (slot[:, None, :] == ar_k[None, :, None])
+    has = sel.any(dim=2)                                # (B, K)
+    idx = torch.argmax(sel.long(), dim=2)               # (B, K)
+    got_tokens = torch.gather(
+        cand_tokens, 1, idx[:, :, None].expand(b, k, sample_len))
+    fin_tokens = torch.where(has[:, :, None], got_tokens, fin_tokens)
+    fin_len = torch.where(has, torch.gather(cand_n, 1, idx), fin_len)
+    fin_logprob = torch.where(has, torch.gather(top_val, 1, idx), fin_logprob)
+    fin_count = torch.clamp(fin_count + can_store.long().sum(dim=1), max=k)
+    return fin_tokens, fin_len, fin_logprob, fin_count
+
+
+def _survivors(top_val, src_beam, tok, is_eot, k: int):
+    """The K best non-eot candidates of each audio: their tokens (B, K),
+    scores (B, K) and flat source rows (B * K,)."""
+    surv_score = torch.where(is_eot, NEG_INF, top_val)
+    surv_rank = torch.argsort(-surv_score, dim=1, stable=True)[:, :k]
+    sel_src = torch.gather(src_beam, 1, surv_rank)
+    ar_b = torch.arange(src_beam.shape[0], device=src_beam.device)
+    return (torch.gather(tok, 1, surv_rank), torch.gather(surv_score, 1, surv_rank),
+            (ar_b[:, None] * k + sel_src).reshape(-1))
+
+
+def _permute_ancestry(anc, sel_flat_src, pos: int, own_row):
+    """The ancestry map after a beam step: each row takes its source row's
+    map, and the new entry at ``pos`` lands in the row's own physical
+    row."""
+    anc = anc[sel_flat_src]
+    anc[:, pos] = own_row
+    return anc
+
+
+@dataclasses.dataclass
+class _BeamLoop:
+    """What a beam step reads and advances: the live beams (rows B * K),
+    the finished set per audio, the next logits, the caches and the
+    ancestry map (None where the cache rows are gathered instead; ``spare``
+    then holds the buffers the last gather freed)."""
+
+    tokens: torch.Tensor
+    n: torch.Tensor
+    cum_logprob: torch.Tensor
+    last: torch.Tensor
+    penult: torch.Tensor
+    max_ts: torch.Tensor
+    logits: torch.Tensor
+    finite: torch.Tensor
+    fin_tokens: torch.Tensor
+    fin_len: torch.Tensor
+    fin_logprob: torch.Tensor
+    fin_count: torch.Tensor
+    cache: DecodeCache
+    anc: Optional[torch.Tensor]
+    spare: Optional[tuple] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class _BeamContext:
+    """What stays fixed over a beam decode's steps."""
+
+    ti: TokenizerInfo
+    opts: DecodingOptions
+    static_mask: torch.Tensor
+    max_prompt: int
+    own_row: torch.Tensor
+    pad_rep: torch.Tensor
+    s_real: int
+    tp: tuple
+
+
+def _beam_step(params, cfg: WhisperConfig, st: _BeamLoop, step: int,
+               ctx: _BeamContext) -> None:
+    """One beam-search step in place on ``st``: the logit rules, the top 2K
+    candidates per audio, the finished set, the K survivors (the state,
+    and the ancestry map or the cache rows, permuted along them), then the
+    decoder step on the new tokens at slot ``max_prompt + step``."""
+    ti, opts = ctx.ti, ctx.opts
+    b, k = st.fin_tokens.shape[:2]
+    v = ti.n_vocab
+    logprobs = _rules_logprobs(
+        st.logits, ti=ti, opts=opts, static_mask=ctx.static_mask,
+        n_sampled=st.n, last_tok=st.last, penult_tok=st.penult,
+        max_ts_tok=st.max_ts)
+    cand = (st.cum_logprob[:, None] + logprobs).reshape(b, k * v)
+    # top 2K candidates so that eot-finishing beams don't starve
+    top_val, top_idx = _top_k(cand, 2 * k)         # (B, 2K)
+    src_beam = top_idx // v
+    tok = top_idx % v
+    is_eot = tok == ti.eot
+    st.fin_tokens, st.fin_len, st.fin_logprob, st.fin_count = _update_finished(
+        top_val, src_beam, is_eot, st.tokens, st.n, st.fin_tokens, st.fin_len,
+        st.fin_logprob, st.fin_count)
+    sel_tok, sel_score, sel_flat_src = _survivors(top_val, src_beam, tok, is_eot, k)
+    st.tokens, st.n, st.last, st.max_ts = (
+        t[sel_flat_src] for t in (st.tokens, st.n, st.last, st.max_ts))
+    if st.anc is not None:
+        st.anc = _permute_ancestry(st.anc, sel_flat_src, ctx.max_prompt + step,
+                                   ctx.own_row)
+    else:
+        st.cache, st.spare = _gather_cache(st.cache, sel_flat_src, st.spare)
+
+    new_tok = sel_tok.reshape(-1)
+    st.tokens[:, step] = new_tok
+    st.penult = st.last
+    st.last = new_tok
+    is_ts = new_tok >= ti.timestamp_begin
+    st.max_ts = torch.where(is_ts, torch.maximum(st.max_ts, new_tok), st.max_ts)
+    st.n = st.n + 1
+    st.cum_logprob = sel_score.reshape(-1)
+    st.logits, st.cache = _step(params, cfg, new_tok[:, None],
+                                ctx.max_prompt + step, ctx.pad_rep, st.cache,
+                                st.anc, ctx.s_real, *ctx.tp)
+    st.finite = st.finite & torch.isfinite(st.logits).all()
+
+
 def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
                 rng: Optional[torch.Generator] = None, *,
                 opts: DecodingOptions, ti: TokenizerInfo):
@@ -946,7 +1085,6 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     b = enc_out.shape[0]
     s_real = enc_out.shape[1]
     bk = b * k
-    v = ti.n_vocab
     L = opts.sample_len
     prompt, pad_len = _prompt_tensors(prompt, pad_len, dev)
     pad_rep = pad_len.repeat_interleave(k)
@@ -962,7 +1100,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     # map of each row's source row within its beam group is permuted
     # instead, starting at the identity (each row holds its own prompt)
     own_row = (torch.arange(bk, device=dev) % k).to(torch.int32)
-    anc = spare = None
+    anc = None
     if cache.quantized and cache.flat and opts.beam_indirect:
         anc = own_row[:, None].expand(bk, buckets[0]).contiguous()
     no_speech_prob = _no_speech_prob(params, hidden_b, prompt, ti)
@@ -970,99 +1108,39 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     static_mask = torch.from_numpy(_static_suppress_mask(ti)).to(dev)
     max_finished = k  # completion target per audio (patience=1.0)
     ar_b = torch.arange(b, device=dev)
-    ar_k = torch.arange(k, device=dev)
 
-    tokens = torch.full((bk, L), ti.eot, dtype=torch.long, device=dev)
-    n = torch.zeros((bk,), dtype=torch.long, device=dev)
-    cum_logprob = torch.where(torch.arange(bk, device=dev) % k == 0,
-                              0.0, NEG_INF).to(torch.float32)  # beam 0 live
-    last = torch.full((bk,), -1, dtype=torch.long, device=dev)
-    penult = torch.full((bk,), -1, dtype=torch.long, device=dev)
-    max_ts = torch.zeros((bk,), dtype=torch.long, device=dev)
     logits = _logits_at(params, hidden_b[:, -1]).repeat_interleave(k, dim=0)
-    finite = torch.isfinite(logits).all()
-    fin_tokens = torch.full((b, k, L), ti.eot, dtype=torch.long, device=dev)
-    fin_len = torch.zeros((b, k), dtype=torch.long, device=dev)
-    fin_logprob = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
-    fin_count = torch.zeros((b,), dtype=torch.long, device=dev)
+    st = _BeamLoop(
+        tokens=torch.full((bk, L), ti.eot, dtype=torch.long, device=dev),
+        n=torch.zeros((bk,), dtype=torch.long, device=dev),
+        cum_logprob=torch.where(torch.arange(bk, device=dev) % k == 0,
+                                0.0, NEG_INF).to(torch.float32),  # beam 0 live
+        last=torch.full((bk,), -1, dtype=torch.long, device=dev),
+        penult=torch.full((bk,), -1, dtype=torch.long, device=dev),
+        max_ts=torch.zeros((bk,), dtype=torch.long, device=dev),
+        logits=logits, finite=torch.isfinite(logits).all(),
+        fin_tokens=torch.full((b, k, L), ti.eot, dtype=torch.long, device=dev),
+        fin_len=torch.zeros((b, k), dtype=torch.long, device=dev),
+        fin_logprob=torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev),
+        fin_count=torch.zeros((b,), dtype=torch.long, device=dev),
+        cache=cache, anc=anc)
+    ctx = _BeamContext(ti=ti, opts=opts, static_mask=static_mask, max_prompt=max_prompt,
+                       own_row=own_row, pad_rep=pad_rep, s_real=s_real, tp=tp)
 
     step = 0
     for bucket_len in buckets:
-        cache = _pad_cache_to(cache, bucket_len)
-        if anc is not None and anc.shape[1] < bucket_len:
-            anc = torch.cat([anc, own_row[:, None].expand(
-                bk, bucket_len - anc.shape[1])], dim=1)
+        st.cache = _pad_cache_to(st.cache, bucket_len)
+        if st.anc is not None and st.anc.shape[1] < bucket_len:
+            st.anc = torch.cat([st.anc, own_row[:, None].expand(
+                bk, bucket_len - st.anc.shape[1])], dim=1)
         cap = bucket_len - max_prompt
         while (step < cap and step < L
-               and not bool((fin_count >= max_finished).all())):
-            logprobs = _rules_logprobs(
-                logits, ti=ti, opts=opts, static_mask=static_mask,
-                n_sampled=n, last_tok=last, penult_tok=penult,
-                max_ts_tok=max_ts)
-            cand = (cum_logprob[:, None] + logprobs).reshape(b, k * v)
-            # top 2K candidates so that eot-finishing beams don't starve
-            top_val, top_idx = _top_k(cand, 2 * k)         # (B, 2K)
-            src_beam = top_idx // v
-            tok = top_idx % v
-            is_eot = tok == ti.eot
-
-            # finished bookkeeping (openai BeamSearchDecoder.update): the
-            # best-first scan stops once K non-eot survivors are found, so
-            # an eot candidate is stored only if it ranks above the K-th
-            # survivor
-            non_eot = (~is_eot).long()
-            non_eot_before = torch.cumsum(non_eot, dim=1) - non_eot
-            qualifies = is_eot & (non_eot_before < k)
-            eot_rank = torch.cumsum(qualifies.long(), dim=1) - 1
-            slot = fin_count[:, None] + eot_rank
-            can_store = qualifies & (slot < k) & (eot_rank >= 0)
-            src_flat = (ar_b[:, None] * k + src_beam).reshape(-1)
-            cand_tokens = tokens[src_flat].reshape(b, 2 * k, L)
-            cand_n = n[src_flat].reshape(b, 2 * k)
-            # at most one storable candidate per target slot
-            sel = can_store[:, None, :] & (slot[:, None, :] == ar_k[None, :, None])
-            has = sel.any(dim=2)                                # (B, K)
-            idx = torch.argmax(sel.long(), dim=2)               # (B, K)
-            got_tokens = torch.gather(
-                cand_tokens, 1, idx[:, :, None].expand(b, k, L))
-            fin_tokens = torch.where(has[:, :, None], got_tokens, fin_tokens)
-            fin_len = torch.where(has, torch.gather(cand_n, 1, idx), fin_len)
-            fin_logprob = torch.where(has, torch.gather(top_val, 1, idx),
-                                      fin_logprob)
-            fin_count = torch.clamp(fin_count + can_store.long().sum(dim=1),
-                                    max=k)
-
-            # K surviving (non-eot) candidates, reorder state along beams
-            surv_score = torch.where(is_eot, NEG_INF, top_val)
-            surv_rank = torch.argsort(-surv_score, dim=1, stable=True)[:, :k]
-            sel_tok = torch.gather(tok, 1, surv_rank)
-            sel_score = torch.gather(surv_score, 1, surv_rank)
-            sel_src = torch.gather(src_beam, 1, surv_rank)
-            sel_flat_src = (ar_b[:, None] * k + sel_src).reshape(-1)
-            tokens = tokens[sel_flat_src]
-            n = n[sel_flat_src]
-            last = last[sel_flat_src]
-            max_ts = max_ts[sel_flat_src]
-            if anc is not None:
-                # the new entry lands in each row's own physical row
-                anc = anc[sel_flat_src]
-                anc[:, max_prompt + step] = own_row
-            else:
-                cache, spare = _gather_cache(cache, sel_flat_src, spare)
-
-            new_tok = sel_tok.reshape(-1)
-            tokens[:, step] = new_tok
-            penult = last
-            last = new_tok
-            is_ts = new_tok >= ti.timestamp_begin
-            max_ts = torch.where(is_ts, torch.maximum(max_ts, new_tok), max_ts)
-            n = n + 1
-            cum_logprob = sel_score.reshape(-1)
-            logits, cache = _step(params, cfg, new_tok[:, None],
-                                  max_prompt + step, pad_rep, cache, anc,
-                                  s_real, *tp)
-            finite = finite & torch.isfinite(logits).all()
+               and not bool((st.fin_count >= max_finished).all())):
+            _beam_step(params, cfg, st, step, ctx)
             step += 1
+    tokens, n, cum_logprob = st.tokens, st.n, st.cum_logprob
+    fin_tokens, fin_len, fin_logprob, fin_count = (st.fin_tokens, st.fin_len,
+                                                   st.fin_logprob, st.fin_count)
 
     # an audio with no finished sequence falls back to its best live beam
     live_best = torch.argmax(cum_logprob.reshape(b, k), dim=1)
@@ -1091,7 +1169,7 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
         "sum_logprob": fin_logprob[ar_b, best],
         "no_speech_prob": no_speech_prob,
         "steps": step,
-        "logits_finite": bool(finite),
+        "logits_finite": bool(st.finite),
     }
 
 
