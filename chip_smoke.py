@@ -64,7 +64,12 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    (``scaled_dot_product_attention``) and the GEMM (a bf16 matmul); B6
    also at bench.py's 48 windows, (48, 1500, 3840), held to and timed in
    turns with ``scaled_dot_product_attention``, with TFLOP/s and the share
-   of the bound;
+   of the bound; then the row kernels on float32 rows (``check_f32_rows``,
+   ROADMAP C9: the int8 engine on float32 params): B5, B7, B8, B9, B5 and
+   B8 from the accumulators with an f32 residual, and the qkv epilogue
+   writing f32, at one window, codes within the envelope and row scales
+   within ``SCALE_RTOL``, the f32 residuals and the f32 qkv buffer bit for
+   bit, the same bits twice, each timed beside its plain version and bound;
 6. holds the kernels of the decode's other branches against their plain
    versions at large-v3 shapes: B12 ``attnout_ln_q_fused`` at 5 and 10
    rows and B13 ``cross_attention_int8`` at (B, K) = (1, 5), (5, 1) and
@@ -267,7 +272,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    6 synthesized clips, 800 steps, lr 3e-3, timestamp labels), its seconds;
    (c) the check's transcription of every clip (VAD on, greedy and beam 5,
    the temperature ladder) through the int8 engine (the main path's
-   kernels, on the weights in bf16) and the float32 engine (B11 on 3xTF32):
+   kernels, on the trained float32 params as they are: the s8 x s8
+   encoder's row kernels on float32 rows, ROADMAP C9) and the float32
+   engine (B11 on 3xTF32):
    greedy CER <= ``MAX_CER`` on each, beam 5 recorded, launches exact
    against the decode stats, and the int8 engine's greedy texts at T = 0
    equal an int8 engine's on the CPU (the plain versions); (d) the VAD's
@@ -277,6 +284,29 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    (e) ``check_beam_divergence --ab kernels --windows 2 --sample-len 32``
    and ``profile_decode --batch 1`` at large-v3, its stage sum within 10 %
    of the step's device time; and its own seconds.
+19. the GSPMD mesh path (after 12, on the main path's window and engine):
+   ``WhisperEngine("large-v3", mesh=...)`` on meshes the fused TP decode
+   refuses, which decode through ``ShardedDecoder`` (``shard_params``'
+   slices and the unfused graph), 96 tokens beam 5 and greedy through the
+   engine's ``run_*_decode``: (a) int8 at (1, 4) on four ``gloo`` ranks of
+   this card (5 heads a shard, the embedding whole), B13 exactly 32 x steps
+   on each rank; (b) bf16 at (1, 2) on two (10 heads and 25933 vocabulary
+   rows a shard), no kernel; both started before phase 12 as processes of
+   this script (``--sharded-rank``), so that they decode beside phase 12
+   (each step mostly waits on gloo's host round trips; phase 12's ms per
+   step read the shared card), and held, rank 0's step
+   logits, to the one-card decode of the same weights (the unfused int8
+   graph of the main engine's weights; the bf16 weights' plain layer loop)
+   under ROADMAP C3's rule: worst and median gaps within
+   ``CONTROL_MARGIN`` x the larger of two one-card controls' measured in
+   the same run (wo, wo_c and w2 as partial products of n and of 2n row
+   blocks, n the model axis); (c) the bf16 engine at (1,
+   1) on a one-rank NCCL group: tokens equal to its one-card decode, step
+   logits within ``STEP_LOGIT_REL`` with every argmax equal; (e) B13 at
+   h = 5 and 3, K = 1..5, S = 1500 within ``DECODE_REL`` x max of its
+   plain version, timed at h = 5, K = 5.  (d), the int8 engine on float32
+   params, is phase 18's int8 recognition leg and phase 5's float32 rows.
+   Prints its seconds after phase 12 and the ranks' from their start.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
@@ -1239,6 +1269,68 @@ def _check_acc_entries(gen, ln_s, ln_b, act, card: str) -> dict:
     return res
 
 
+def check_f32_rows(card: str) -> dict:
+    """The row kernels on float32 rows (the int8 engine on float32 params):
+    B5 ``ln_quant``, B7 ``quant_only``, B8 ``add_ln_quant`` and B9
+    ``gelu_quant`` on f32 x, y and h, B5 and B8 from the accumulators with
+    an f32 residual x, and the qkv epilogue writing f32, at large-v3's
+    widths and one window: codes within the envelope and row scales within
+    SCALE_RTOL of the plain versions, the f32 residuals and the f32 qkv
+    buffer bit for bit, the same bits twice; each timed in turns with its
+    plain version beside its bound.  Returns {name: measurements}."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def act(*shape, scale=1.0):
+        """f32 activations, rows of different magnitude (not bf16 values)."""
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        return x * (torch.rand(shape[:-1] + (1,), generator=gen, device="cuda") * 3.9 + 0.1)
+
+    ln_s = 1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    ln_b = 0.1 * torch.randn(D, generator=gen, device="cuda")
+    x, y, h = act(1, ENC_T, D), act(1, ENC_T, D, scale=0.5), act(1, ENC_T, FFN, scale=2.0)
+    w2, wo, qkv = (_acc_case(gen, 1, k, n) for k, n in ((FFN, D), (D, D), (D, 3 * D)))
+    cases = {  # name: (kernel, plain, args, elements, operations per element)
+        "ln_quant": (ef.ln_quant, ef.ln_quant_ref, (x, ln_s, ln_b), x, 14),
+        "quant_only": (ef.quant_only, ef.quant_only_ref, (x,), x, 4),
+        "add_ln_quant": (ef.add_ln_quant, ef.add_ln_quant_ref, (x, y, ln_s, ln_b), x, 15),
+        "gelu_quant": (ef.gelu_quant, ef.gelu_quant_ref, (h,), h, 26),
+        "ln_quant_acc": (ef.ln_quant_acc, ef.ln_quant_acc_ref, (x, *w2, ln_s, ln_b), x, 20),
+        "add_ln_quant_acc": (ef.add_ln_quant_acc, ef.add_ln_quant_acc_ref,
+                             (x, *wo, ln_s, ln_b), x, 20),
+        "qkv_epilogue_acc": (ef.qkv_epilogue_acc, ef.qkv_epilogue_acc_ref,
+                             (*qkv, Q_SCALE, torch.float32), qkv[0], 4),
+    }
+    res = {}
+    for name, (fn, ref, args, elems, per_elem) in cases.items():
+        got, want = fn(*args), ref(*args)
+        case = f"f32 rows B=1 T={ENC_T} width={elems.shape[-1]}"
+        if name == "qkv_epilogue_acc":
+            check(got.dtype == torch.float32 and torch.equal(got, want),
+                  f"{name} {case}: the f32 buffer differs from the plain version")
+            print(f"{name} {case}: the f32 buffer equal to the plain version bit for bit")
+            err = 0.0
+        else:
+            if name in ("add_ln_quant", "ln_quant_acc", "add_ln_quant_acc"):
+                check(got[0].dtype == torch.float32 and torch.equal(got[0], want[0]),
+                      f"{name} {case}: the f32 residual differs from the plain version")
+                got, want = got[1:], want[1:]
+            err = _hold_codes(name, case, got, want)
+        _same_bits(f"{name} {case}", lambda: fn(*args))
+        ms, plain_ms = in_turns(lambda: fn(*args), lambda: ref(*args))
+        ins = [a for a in args if isinstance(a, torch.Tensor)]
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
+            _tensors(ins, fn(*args)), float(per_elem * elems.numel()), "f32"))
+        print(f"{name} {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']}) ({card})")
+    print(f"row kernels on float32 rows: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def check_encoder_kernels(card: str) -> dict:
     """B5, B6, B7, B8 and B9 (both entries of B5, B8 and B9) and the qkv
     epilogue against their plain versions, and the int8 GEMM against the
@@ -1465,6 +1557,45 @@ def check_branch_kernels(card: str) -> dict:
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) ({card})")
     return res
+
+
+ODD_HEADS = (5, 3)  # B13 on a shard's odd local heads: large-v3 at model 4, d 384 at 2
+
+
+def check_b13_odd_heads(card: str) -> dict:
+    """B13 on odd head counts (a tensor-parallel shard's local heads, int8
+    cross-KV): h = 5 and 3, K = 1..5 beam rows of one audio, S = 1500,
+    against its plain version within DECODE_REL x max|plain|; at h = 5, K = 5
+    (large-v3's shard on a (1, 4) mesh, beam 5) timed beside it with its
+    bound.  Returns its measurements."""
+    import torch
+
+    from ttasr_torch.ops import cross_attention as ca
+
+    worst, main = 0.0, None
+    for h in ODD_HEADS:
+        inp = Inputs(19 + h, d=64 * h, h=h)
+        ck, cks, cv, cvs = inp.cross_kv(1, False)
+        for k in range(1, 6):
+            b13 = (inp.randn(1, k, h, 64, scale=0.5).to(torch.bfloat16), ck, cks, cv, cvs,
+                   S_REAL)
+            got, want = ca.cross_attention_int8(*b13), ca.cross_attention_int8_ref(*b13)
+            err = _max_err(got, want)
+            limit = DECODE_REL * want.float().abs().max().item()
+            print(f"cross_attention_int8 h={h} K={k} S={S_REAL}: max_abs_err {err:.3e} "
+                  f"(bound {limit:.3e})")
+            check(err <= limit, f"B13 at h={h} K={k} disagrees with its plain version: {err}")
+            worst = max(worst, err / max(want.float().abs().max().item(), 1e-30))
+            if (h, k) == (5, 5):
+                main = b13
+    ms, plain_ms = in_turns(lambda: ca.cross_attention_int8(*main),
+                            lambda: ca.cross_attention_int8_ref(*main))
+    m = dict(max_rel_err=worst, ms=ms, plain_ms=plain_ms,
+             **bound(_tensors(main, ca.cross_attention_int8(*main)),
+                     2.0 * 2 * 5 * S_REAL * 5 * 64, "bf16"))
+    print(f"cross_attention_int8 h=5 K=5 (a (1, 4) shard of large-v3): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}) ({card})")
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -2060,9 +2191,10 @@ def _encoder_agrees(engine, audio, label: str, plain=None) -> None:
     check(err <= ENCODER_REL * scale, f"{label}: encoder disagrees with its plain versions")
 
 
-# the bf16 path's decoder depth (of 32): the script keeps within its time;
-# every layer is the same arithmetic, and the encoder stays whole (B11)
-BF16_DECODER_LAYERS = 8
+# the bf16 path's decoder depth (of 32): the script keeps within its time
+# (4 since phase 19 joined, 8 before); every layer is the same arithmetic,
+# and the encoder stays whole (B11)
+BF16_DECODER_LAYERS = 4
 
 
 def run_bf16_path(card: str) -> dict:
@@ -2171,19 +2303,23 @@ def run_int8_path(card: str, act8: bool) -> dict:
     if act8:
         _encoder_agrees(engine, run["first"], label, plain=plain_encoder_kernels)
     ms = encoder_ms(engine, run["first"], label, card)
-    branches = tp = routes = server = service = words = None
+    branches = tp = sharded = routes = server = service = words = None
     if act8:
         routes = compare_encoder_routes(engine, run["first"], card)
         branches, main_leg = run_branch_paths(engine, run["first"], card)
-        tp = run_tp_paths(engine, run["first"], main_leg, card)
+        # phase 19's ranks decode the main window beside phase 12 (ROADMAP:
+        # the script's time)
+        with sharded_ranks(engine, main_leg) as ranks:
+            tp = run_tp_paths(engine, run["first"], main_leg, card)
+            sharded = run_sharded_paths(engine, main_leg, card, ranks)
         server = run_server_path(engine, card)
         service = run_http_service(engine, card)
         words = run_words_and_tools(engine, card)
         registry.reset_engines()
     del engine
     torch.cuda.empty_cache()
-    return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp, routes=routes,
-                server=server, service=service, words=words)
+    return dict(counts=c, encoder_ms=ms, branches=branches, tp=tp, sharded=sharded,
+                routes=routes, server=server, service=service, words=words)
 
 
 # ---------------------------------------------------------------------------
@@ -2449,8 +2585,11 @@ def run_branch_paths(engine, audio, card: str):
     for label, fn, rows in (("unfused int8 graph beam 5 (B13, 5-D cache)", beam_decode, 1),
                             ("unfused int8 graph greedy 5 rows (B13, 5-D cache)",
                              greedy_decode, 5)):
-        _, s = leg(label, fn, unfused, rows=rows, beam_size=5 if rows == 1 else 1)
+        with _step_logits() as unfused_logits:
+            out, s = leg(label, fn, unfused, rows=rows, beam_size=5 if rows == 1 else 1)
         _expect(label, legs[label]["counts"], {"cross_attention_int8": L * s})
+        if rows == 1:  # phase 19's one-card int8 beam decode (the profiled run's after)
+            main_leg["unfused_beam"] = dict(out=out, logits=unfused_logits[:s])
 
     label = "engine transcribe beam_size=10 (B12, XLA cross)"
     for c in counters:
@@ -2840,6 +2979,296 @@ def tp_rank_main(rank: int, tmp: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 19: the GSPMD mesh path (ShardedDecoder) on the main path's window
+# ---------------------------------------------------------------------------
+
+# (label, compute type, model axis): rank processes of this script on this
+# card over gloo.  large-v3's 20 heads over 4 shards leave 5 a shard (odd:
+# the fused TP decode refuses it) and its 51866 vocabulary rows do not
+# divide by 4 (the embedding stays whole); over 2 shards, 10 heads and
+# 25933 vocabulary rows a shard in bf16 (TP refuses bf16 weights)
+SHARDED_RANK_LEGS = (("GSPMD int8 (1, 4), 4 gloo ranks", "int8", 4),
+                     ("GSPMD bf16 (1, 2), 2 gloo ranks", "bfloat16", 2))
+SHARDED_MODES = (("beam 5", 5), ("greedy", 1))
+
+
+def _sharded_opts(compute: str, beam: int):
+    """The engine's decode options for ``compute`` (``_decoding_options``):
+    the int8 caches with their int4 sub-modes asked for (off the fused path
+    the decode keeps them int8, as the JAX package does)."""
+    from ttasr_torch.models.whisper.decode import DecodingOptions
+
+    int8 = compute == "int8"
+    return DecodingOptions(beam_size=beam, sample_len=BRANCH_STEPS, kv_int8=int8,
+                           cross_kv_int8=int8, cross_kv_int4=int8, kv_int4=int8)
+
+
+def _sharded_launches(compute: str, steps: int) -> dict:
+    """The unfused graph's launches: B13 once per layer and step over the
+    int8 cross-KV (the prefill's cross-attention takes the plain branch, as
+    the reference's does), nothing on the float path."""
+    return {"cross_attention_int8": N_LAYERS * steps} if compute == "int8" else {}
+
+
+@contextlib.contextmanager
+def _row_sums_in_parts(n: int):
+    """The one-card plain layer loop's wo, wo_c and w2 as ``n`` partial
+    products of their row blocks, summed in f32 with the bias added once
+    after: the arithmetic of an n-way row split without the collective."""
+    import torch
+    import torch.nn.functional as F
+
+    from ttasr_torch.models.whisper import decode as dm
+    from ttasr_torch.ops.quant import is_quantized, quant_matmul
+
+    real_out, real_mlp = dm._out_proj, dm._block_mlp
+
+    def parts(x, w, b):
+        k = dm._in_rows(w) // n
+        total = None
+        for i in range(n):
+            xi = x[..., i * k:(i + 1) * k]
+            if is_quantized(w):
+                part = quant_matmul(xi, {"q": w["q"][i * k:(i + 1) * k], "s": w["s"]})
+            else:
+                part = torch.matmul(xi.float(), w[i * k:(i + 1) * k].float())
+            total = part if total is None else total + part
+        return (total + b.float()).to(x.dtype)
+
+    def out_proj(merged, w, b, group, whole, row_parallel):
+        if group is None and merged.shape[-1] == whole:
+            return parts(merged, w, b)
+        return real_out(merged, w, b, group, whole, row_parallel)
+
+    def block_mlp(xln, blk, group, ffn, row_parallel):
+        if group is None:
+            return parts(F.gelu(dm._proj(xln, blk["w1"], blk["b1"])), blk["w2"], blk["b2"])
+        return real_mlp(xln, blk, group, ffn, row_parallel)
+
+    dm._out_proj, dm._block_mlp = out_proj, block_mlp
+    try:
+        yield
+    finally:
+        dm._out_proj, dm._block_mlp = real_out, real_mlp
+
+
+def _one_card_legs(label, compute, params, cfg, window, counters, card, n: int,
+                   known=None) -> dict:
+    """The one-card unfused graph on ``window`` (beam 5 and greedy; a mode
+    in ``known``, {mode: {out, logits}}, was decoded already), then each
+    mode under two controls that only reorder sums: wo, wo_c and w2 summed
+    in ``n`` row blocks, as the n-way shard's all-reduce adds them, and in
+    2n (:func:`_row_sums_in_parts`).  Returns {mode: {out, logits,
+    controls: {label: gap summary}}}."""
+    from ttasr_torch.models.whisper.decode import beam_decode, greedy_decode
+
+    enc, prompt, pad, ti = window
+    res = {}
+    for mode, beam in SHARDED_MODES:
+        fn = beam_decode if beam > 1 else greedy_decode
+        extra = () if beam > 1 else (None, 0.0)
+
+        def run():
+            return fn(params, cfg, enc, prompt, pad, *extra,
+                      opts=_sharded_opts(compute, beam), ti=ti)
+
+        if known and mode in known:
+            out, logits = known[mode]["out"], known[mode]["logits"]
+            print(f"{label} one card {mode}: phase 11's leg of the same decode")
+        else:
+            out, logits, leg = _decode_leg(f"{label} one card {mode}", run, counters, card)
+            _expect(f"{label} one card {mode}", leg["counts"],
+                    _sharded_launches(compute, out["steps"]))
+        controls = {}
+        for parts in (n, 2 * n):
+            name = f"control: wo, wo_c, w2 summed in {parts} row blocks"
+            with _row_sums_in_parts(parts):
+                c_out, c_logits, _ = _decode_leg(f"{label} {name} {mode}", run, counters,
+                                                 card)
+            controls[name] = dict(_gap_summary(logits, c_logits),
+                                  first_difference=_first_difference(out, c_out))
+            print(f"{label} {name} {mode}: {json.dumps(controls[name])}")
+        res[mode] = dict(out=out, logits=logits, controls=controls)
+    return res
+
+
+@contextlib.contextmanager
+def sharded_ranks(engine, main):
+    """Every rank of SHARDED_RANK_LEGS, all started at once on the main
+    path's window: processes of this script (``--sharded-rank``), one group
+    per leg, in a temporary directory; those still running are killed on
+    the way out.  Yields {tmp, procs, t0}.  The ranks spend most of a step
+    waiting on gloo's round trips through the host, so they run beside this
+    process's work: phase 12's and phase 19's own."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(enc=main["enc"], prompt=main["prompt"], pad=main["pad"],
+                        ti=engine.ti), os.path.join(tmp, "window.pt"))
+        procs = []
+        try:
+            for i, (_, compute, world) in enumerate(SHARDED_RANK_LEGS):
+                store = os.path.join(tmp, f"leg{i}")
+                os.makedirs(store)
+                procs += [subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+                     str(world), compute, store]) for r in range(world)]
+            yield dict(tmp=tmp, procs=procs, t0=time.perf_counter())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+
+
+def run_sharded_paths(engine, main, card: str, ranks=None) -> dict:
+    """Phase 19: the GSPMD decode (``WhisperEngine(mesh=...)`` on a mesh the
+    fused TP decode refuses) on the main path's window, 96 tokens beam 5
+    and greedy.  (a) int8 at (1, 4) and (b) bf16 at (1, 2) on gloo ranks of
+    this card (``ranks``, :func:`sharded_ranks`, started before phase 12;
+    None: started here); meanwhile in this process the one-card
+    references (the unfused int8 graph of the main engine's weights, the
+    bf16 weights' plain layer loop) and their controls, (c) the bf16 engine
+    at (1, 1) on a one-rank NCCL group held to its one-card decode
+    (tokens equal, step logits within STEP_LOGIT_REL, every argmax equal),
+    and (e) B13 on odd head counts.  Each rank's launches are exact (B13
+    32 x steps on the int8 ranks, nothing on the bf16 ones); rank 0's
+    worst and median step-logit gaps to its one-card decode within
+    CONTROL_MARGIN x the larger of its two controls'.  Returns {leg: {steps,
+    ms_per_step, ...}} and B13's odd-head measurements."""
+    import torch
+    import torch.distributed as dist
+
+    from ttasr_torch.engine.transcriber import WhisperEngine
+    from ttasr_torch.parallel.distributed import initialize_distributed
+    from ttasr_torch.parallel.sharding import create_mesh
+
+    if ranks is None:
+        with sharded_ranks(engine, main) as started:
+            return run_sharded_paths(engine, main, card, started)
+    t0 = time.perf_counter()
+    counters = _int8_counters()
+    legs = {}
+    window = (main["enc"], main["prompt"], main["pad"], engine.ti)
+    refs = {"int8": _one_card_legs(
+        "int8", "int8", _unfused_decoder(engine.params), engine.cfg, window, counters,
+        card, 4, known={"beam 5": main["unfused_beam"]} if "unfused_beam" in main else None)}
+    b13 = check_b13_odd_heads(card)
+    with tempfile.TemporaryDirectory() as store:
+        initialize_distributed(f"file://{store}/store", world_size=1, rank=0)
+        try:
+            bf16 = WhisperEngine("large-v3", compute_type="bfloat16", device="cuda",
+                                 mesh=create_mesh(1, 1))
+            check(bf16._tp is None and bf16._sharded is not None,
+                  "the bf16 engine at (1, 1) must take the GSPMD path")
+            refs["bfloat16"] = _one_card_legs(
+                "bf16", "bfloat16", bf16.params, bf16.cfg, window, counters, card, 2)
+            for mode, beam in SHARDED_MODES:
+                label = f"GSPMD bf16 (1, 1), one NCCL rank, {mode}"
+                run = (functools.partial(bf16.run_beam_decode, *window[:3], None)
+                       if beam > 1 else functools.partial(
+                           bf16.run_greedy_decode, *window[:3], None, 0.0))
+                out, logits, legs[label] = _decode_leg(
+                    label, lambda: run(_sharded_opts("bfloat16", beam)), counters, card)
+                _expect(label, legs[label]["counts"], {})
+                ref = refs["bfloat16"][mode]
+                legs[label]["worst_gap"] = _hold_to_main(
+                    label, out, logits, dict(out=ref["out"], logits=ref["logits"]))
+            del bf16
+        finally:
+            dist.destroy_process_group()
+    own = time.perf_counter() - t0
+    codes = [p.wait(timeout=900) for p in ranks["procs"]]
+    check(codes == [0] * len(codes), f"sharded rank exit codes {codes}")
+    rank_s = time.perf_counter() - ranks["t0"]
+    for i, (label, compute, world) in enumerate(SHARDED_RANK_LEGS):
+        store = os.path.join(ranks["tmp"], f"leg{i}")
+        for r in range(world):
+            with open(os.path.join(store, f"rank{r}.json"), encoding="utf-8") as fh:
+                for mode, leg in json.load(fh).items():
+                    _expect(f"{label} {mode} rank {r}", leg["counts"],
+                            _sharded_launches(compute, leg["steps"]))
+                    if r == 0:
+                        legs[f"{label} {mode}"] = leg
+        for mode, _ in SHARDED_MODES:
+            ref = refs[compute][mode]
+            got = torch.load(os.path.join(store, f"{mode}.pt"), weights_only=False)
+            leg = legs[f"{label} {mode}"]
+            leg.update(_gap_summary(ref["logits"], list(got["logits"].cuda())),
+                       first_difference=_first_difference(ref["out"], got["out"]))
+            limit = {k: CONTROL_MARGIN * max(c[k] for c in ref["controls"].values())
+                     for k in ("worst_gap", "median_gap")}
+            print(f"{label} {mode}: {leg['steps']} steps, {leg['ms_per_step']:.2f} ms per "
+                  f"step (rank 0, the card shared by {world} ranks and the other work); "
+                  f"to the one-card decode: first token difference (row, step) "
+                  f"{leg['first_difference']}, step logits worst {leg['worst_gap']:.3e} "
+                  f"(limit {limit['worst_gap']:.3e}), median {leg['median_gap']:.3e} "
+                  f"(limit {limit['median_gap']:.3e}), argmax equal on "
+                  f"{leg['argmax_equal_steps']} of {leg['compared_steps']} steps ({card})")
+            check(leg["compared_steps"] == leg["steps"]
+                  and all(leg[k] <= limit[k] for k in limit),
+                  f"{label} {mode}: further from the one-card decode than its controls")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print("GSPMD legs, ms per step: " + json.dumps(
+        {k: round(v["ms_per_step"], 3) for k, v in legs.items()}) + f" ({card})")
+    print(f"phase 19 (the GSPMD mesh path): {seconds:.1f} s after phase 12 ({own:.1f} s of "
+          f"this process's legs, then the ranks' end); the ranks ran {rank_s:.1f} s from "
+          f"their start before phase 12")
+    return dict(legs=legs, b13_odd_heads=b13, seconds=seconds, rank_seconds=rank_s)
+
+
+def sharded_rank_main(rank: int, world: int, compute: str, store: str) -> int:
+    """One rank of :func:`run_sharded_paths`: ``WhisperEngine("large-v3",
+    compute_type=compute, mesh=create_mesh(1, world))`` (the seeded weights
+    of the main engine), the saved window decoded beam 5 and greedy through
+    the engine's ``run_*_decode``; writes its legs to ``rank<r>.json`` and,
+    rank 0, each mode's tokens and step logits to ``<mode>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from ttasr_torch import resolve_device
+    from ttasr_torch.engine.transcriber import WhisperEngine
+    from ttasr_torch.parallel.distributed import initialize_distributed
+    from ttasr_torch.parallel.sharding import create_mesh
+
+    resolve_device("cuda")
+    # one intra-op thread: up to seven processes share the machine's cores
+    torch.set_num_threads(1)
+    initialize_distributed(f"file://{store}/store", world_size=world, rank=rank,
+                           backend="gloo")
+    try:
+        engine = WhisperEngine("large-v3", compute_type=compute, device="cuda",
+                               mesh=create_mesh(1, world))
+        check(engine._tp is None and engine._sharded is not None,
+              f"rank {rank}: the {compute} engine at (1, {world}) must take the GSPMD path")
+        ref = torch.load(os.path.join(os.path.dirname(store), "window.pt"),
+                         map_location="cuda", weights_only=False)
+        window = (ref["enc"], ref["prompt"], ref["pad"], None)
+        counters = _int8_counters()
+        legs = {}
+        for mode, beam in SHARDED_MODES:
+            opts = _sharded_opts(compute, beam)
+            if beam > 1:
+                def run():
+                    return engine.run_beam_decode(*window, opts)
+            else:
+                def run():
+                    return engine.run_greedy_decode(*window, 0.0, opts)
+            out, logits, legs[mode] = _decode_leg(f"{compute} (1, {world}) {mode}", run,
+                                                  counters, f"rank {rank}")
+            if rank == 0:
+                torch.save(dict(logits=torch.stack(logits).cpu(),
+                                out={k: out[k] for k in ("tokens", "lengths", "steps")}),
+                           os.path.join(store, f"{mode}.pt"))
+        with open(os.path.join(store, f"rank{rank}.json"), "w", encoding="utf-8") as fh:
+            json.dump(legs, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: the server path (BatchServer, the task API's call, the CLI modes)
 # ---------------------------------------------------------------------------
 
@@ -2851,8 +3280,9 @@ UPLOADS = (("upload0", 12.0, 10), ("upload1", 16.0, 11))
 CLI_MODE_FILES = UPLOADS[:1]  # the CLI modes' folder
 # the CLI modes' decoder depth (of 32): on random weights each mode runs
 # the whole fallback ladder (11 sweeps of 224 steps), ~57 s a mode at full
-# depth; every layer is the same arithmetic and the encoder stays whole
-CLI_MODE_DECODER_LAYERS = 8
+# depth, 16-23 s at 8; 4 since phase 19 joined; every layer is the same
+# arithmetic and the encoder stays whole
+CLI_MODE_DECODER_LAYERS = 4
 # ttasr/api/file_tasks.py TRANSCRIBE_KWARGS, the task worker's decode kwargs
 TASK_KWARGS = dict(language="zh", word_timestamps=False, vad_filter=True, beam_size=5,
                    condition_on_previous_text=True, initial_prompt="")
@@ -4471,18 +4901,19 @@ def _micro_kernels(card: str) -> dict:
 def _recognise(compute: str, examples, trained, card: str) -> dict:
     """The recognition check's transcription (greedy and beam 5, VAD on, the
     temperature ladder) of every clip through a ``compute`` engine on the
-    trained params (bf16 for int8, as the tool serves them): greedy CER <=
+    trained float32 params as they are (the int8 engine's s8 x s8 encoder
+    then runs the row kernels on float32 rows, ROADMAP C9): greedy CER <=
     MAX_CER, launches exact against the decode stats.  Returns the CERs, the
     wall and the engine."""
     import torch
 
     from ttasr_torch.engine.transcriber import WhisperEngine
     from ttasr_torch.text.cer import cer_metric
-    from ttasr_torch.tools.check_trained_recognition import served_params, transcribe_clips
+    from ttasr_torch.tools.check_trained_recognition import transcribe_clips
 
     params, cfg, tok = trained
-    engine = WhisperEngine(MICRO, params=served_params(params, compute), config=cfg,
-                           tokenizer=tok, compute_type=compute, device="cuda")
+    engine = WhisperEngine(MICRO, params=params, config=cfg, tokenizer=tok,
+                           compute_type=compute, device="cuda")
     label = f"recognition {MICRO} {compute}"
     counters = _int8_counters()
     before = dict(engine.decode_stats)
@@ -4523,11 +4954,10 @@ def _card_texts_are_cpu_texts(engine, examples, trained) -> None:
     params."""
     from ttasr_torch.core.checkpoint import map_leaves
     from ttasr_torch.engine.transcriber import WhisperEngine
-    from ttasr_torch.tools.check_trained_recognition import served_params, transcribe_clips
+    from ttasr_torch.tools.check_trained_recognition import transcribe_clips
 
     params, cfg, tok = trained
-    cpu = WhisperEngine(MICRO, params=map_leaves(lambda _, x: x.cpu(),
-                                                 served_params(params, "int8")),
+    cpu = WhisperEngine(MICRO, params=map_leaves(lambda _, x: x.cpu(), params),
                         config=cfg, tokenizer=tok, compute_type="int8", device="cpu")
     kw = dict(beams=(1,), temperature=(0.0,))
     _, card_hyps = transcribe_clips(engine, examples, **kw)
@@ -4779,6 +5209,7 @@ def main() -> int:
     measured = {"encoder_attention_merged": check_encoder_attention(card)}
     measured.update(check_decode_kernels(card))
     measured.update(check_encoder_kernels(card))
+    f32_rows = check_f32_rows(card)
     measured.update(check_branch_kernels(card))
     measured.update(check_tp_kernels(card))
     standalone, standalone_launches = check_standalone_kernels(card)
@@ -4820,6 +5251,14 @@ def main() -> int:
               "evaluate wall s": training["evaluate"]["wall"],
               "evaluate wall s, SIMT kernel": EVAL_WALL_SIMT_S}) + f" ({card})")
 
+    print("row kernels on float32 rows (C9; ms, plain_ms, bound_ms): " + json.dumps(
+        {k: [round(v[m], 4) for m in ("ms", "plain_ms", "bound_ms")]
+         for k, v in f32_rows.items()}) + f" ({card})")
+    sharded = main_path["sharded"]
+    print(f"B13 on a (1, 4) shard's 5 heads, beam 5: {sharded['b13_odd_heads']['ms']:.4f} ms "
+          f"(plain {sharded['b13_odd_heads']['plain_ms']:.4f}, bound "
+          f"{sharded['b13_odd_heads']['bound_ms']:.4f}); phase 19 "
+          f"{sharded['seconds']:.1f} s ({card})")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches[name],
@@ -4837,6 +5276,9 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--tp-rank"]:  # a rank of run_two_ranks
             sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--sharded-rank"]:  # a rank of run_sharded_paths
+            sys.exit(sharded_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                                       sys.argv[5]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)

@@ -24,9 +24,10 @@ JAX case compiles a shard_map program in interpret mode, seconds apiece).
   the engine's 30 s window and tokenizer need them), the JAX s8 x s8
   encoder in interpret mode as ``tests/test_torch_int8_encoder.py`` runs it.
 
-In-process: a decode naming an unbound axis raises, the engine raises on a
-mesh ``tp_eligible`` refuses, and the port's shards equal the JAX
-package's ``build_tp_decoder`` output leaf for leaf.
+In-process: a decode naming an unbound axis raises, the engine takes the
+GSPMD path (``ShardedDecoder``) on a mesh ``tp_eligible`` refuses, and the
+port's shards equal the JAX package's ``build_tp_decoder`` output leaf for
+leaf.
 
 This module imports no JAX at its top: the ranks run its ``_rank_main``,
 the JAX subprocess its ``_jax_main``.
@@ -402,6 +403,11 @@ def test_a_decode_naming_an_unbound_axis_raises():
 
 
 def test_the_engine_raises_on_a_mesh_tp_refuses():
+    """A mesh the fused TP decode refuses no longer raises: the engine takes
+    the GSPMD path (``ShardedDecoder`` on ``shard_params``' slices), as the
+    reference falls back to it."""
+    from ttasr_torch.parallel.gspmd import ShardedDecoder
+
     q, cfg = _port_qparams()
     odd = sharding.Mesh(shape={"data": 1, "model": 4}, coords={"data": 0, "model": 0},
                         groups={})  # 4 heads over 4 shards: 1 local head, odd
@@ -412,9 +418,14 @@ def test_the_engine_raises_on_a_mesh_tp_refuses():
     params = init_params(cfg, seed=0)
     for compute_type, mesh in (("int8", odd), ("float32", dataclasses.replace(
             odd, shape={"data": 1, "model": 1}))):
-        with pytest.raises(NotImplementedError, match="GSPMD"):
-            TEngine("tp", compute_type=compute_type, params=params, config=cfg,
-                    device="cpu", mesh=mesh)
+        engine = TEngine("tp", compute_type=compute_type, params=params, config=cfg,
+                         device="cpu", mesh=mesh)
+        assert engine._tp is None and isinstance(engine._sharded, ShardedDecoder)
+        blk = engine._sharded.params["decoder"]["blocks"][0]
+        n = mesh.shape["model"]
+        assert "wqkv" not in blk  # the unfused graph, int8 included
+        wq = blk["wq"]["q"] if compute_type == "int8" else blk["wq"]
+        assert wq.shape == (CFG["d_model"], CFG["d_model"] // n)
 
 
 @pytest.mark.parametrize("row_parallel", [False, True], ids=["v1", "v2"])

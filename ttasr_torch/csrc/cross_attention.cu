@@ -6,9 +6,12 @@
 //   out[b, k, h] = softmax(bf16(q) . K^T * ks, slots >= s_real masked) * vs
 //                  -> bf16, @ V
 // over the int8 (B, S, D) or int4 (B, S/2, D) uint8 cross-KV cache with
-// (B, H, S) f32 scales.  The decoder reaches it through
-// _cross_attn_quantized (decode.py:852) on the unfused int8 graph, once per
-// token and layer.  The queries arrive pre-scaled by dh^-0.5 in f32, as the
+// (B, H, S) f32 scales, for any head count H (the TPU kernel asserts an
+// even one: it pairs heads into one lane-aligned query tile, which this
+// kernel, one cluster per head and audio, has no use for).  The decoder
+// reaches it through _cross_attn_quantized (decode.py) on the unfused int8
+// graph, once per token and layer, on one card or on a shard's local heads
+// (an odd count, 5, for large-v3 on a 4-way model axis).  The queries arrive pre-scaled by dh^-0.5 in f32, as the
 // TPU kernel takes them; the kernel rounds them to bf16.
 //
 // What bounds it, and the design: cross_attention.cuh, which B3 and B16

@@ -23,6 +23,17 @@
 //                     are ws and b with their first q_cols columns times
 //                     q_scale, the dh^-0.5 query scale that
 //                     ttasr/models/whisper/model.py:264-269 folds in
+// Rows are bf16 or, through the entries named ..._f32, float32 (the int8
+// engine on float32 params): the Pallas kernels read any float rows
+// (encoder_fused_pallas.py:122) and write the residual in x's own type
+// (:169).  The template takes the row type as a parameter; on f32 rows the
+// roundings to the row type drop out (x', the residuals, the qkv output,
+// add_ln_quant_acc's y), those to bf16 that the plain versions keep for any
+// x stay (W1's output before the GELU, W2's before ln_quant_acc's add), and
+// gelu_quant computes gelu_as on its f32 h (the table holds bf16 values).
+// The f32 instantiations hold twice the row words and spill more at 128
+// registers (ptxas: up to 180 bytes of spill stores); the bf16 ones are the
+// same code as before.
 // The epilogue is the written expression, ((f32(acc) * xs) * ws) + b, one
 // _rn operation each (no FMA contraction), then the bf16 rounding of the
 // GEMM's output type; x' is the eager bf16 add (an f32 sum, rounded), and
@@ -104,6 +115,11 @@ __host__ __device__ constexpr bool has_gelu(int m) { return m == kGelu || m == k
 __host__ __device__ constexpr bool two_inputs(int m) {
   return m == kAddLn || m == kAccAddLn || m == kAccAddLnSum;
 }
+// the GELU of bf16 values by table (gelu_bf16): h is bf16 but in gelu_quant
+// on f32 rows, which computes gelu_as
+__host__ __device__ constexpr bool gelu_table_used(int m, bool f32) {
+  return has_gelu(m) && !(f32 && m == kGelu);
+}
 // f32 column vectors in shared memory: the epilogue's (ws, b), then the
 // LayerNorm's (scale, bias)
 __host__ __device__ constexpr int col_vectors(int m) {
@@ -111,8 +127,8 @@ __host__ __device__ constexpr int col_vectors(int m) {
 }
 
 struct RowArgs {
-  const void* a;            // bf16 x / h, or the int32 accumulators
-  const __nv_bfloat16* x2;  // add_ln_quant: y; ln_quant_acc, add_ln_quant_acc: the residual x
+  const void* a;            // x / h (bf16 or f32 rows), or the int32 accumulators
+  const void* x2;           // add_ln_quant: y; ln_quant_acc, add_ln_quant_acc: the residual x
   const float* xs;          // accumulators: row scales (rows,)
   const float* ws;          // accumulators: column scales (W,), f32
   const void* b;            // accumulators: bias (W,) or NULL
@@ -121,7 +137,7 @@ struct RowArgs {
   const void* ln_s;         // LayerNorm scale and bias (W,)
   const void* ln_b;
   int vec_bf16;             // bit 0: b, bit 1: ln_s, bit 2: ln_b are bf16 (else f32)
-  __nv_bfloat16* resid;     // two inputs: the bf16 residual; qkv epilogue: its output
+  void* resid;              // two inputs: the residual; qkv epilogue: its output (row type)
   int8_t* codes;            // (rows, W)
   float* scales;            // (rows,)
 };
@@ -144,6 +160,13 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
 
 __device__ __forceinline__ float lo_f32(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi_f32(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// value i of a chunk of 8 row values: 8 bf16 in q[0], or 8 f32 in q[0..1]
+template <bool kF32>
+__device__ __forceinline__ float row_at(const uint4* q, int i) {
+  if constexpr (kF32) return __uint_as_float(word(q[i >> 2], i & 3));
+  return bf16_at(q[0], i);
+}
 
 // A column vector of W values (bf16 or f32; NULL: zeros) into shared
 // memory as f32, 8 values per load, a thread's loads all issued before
@@ -269,12 +292,25 @@ __device__ __forceinline__ float team_reduce(float v, float* part, int& half, in
 }
 
 // One row's raw inputs in a lane's registers: 8 values per chunk, as 8 bf16
-// (a[c][0]) or 8 int32 (a[c][0..1]), and the second bf16 input (b[c]).
-template <int M>
+// (a[c][0]) or 8 int32 or f32 (a[c][0..1]), and the second input (b[c], bf16
+// or, with kF32, f32 rows).
+template <int M, bool kF32>
 struct RowRaw {
-  uint4 a[kChunks][reads_acc(M) ? 2 : 1];
-  uint4 b[kChunks];
+  static constexpr int kRowWords = kF32 ? 2 : 1;  // uint4 per chunk of a row input
+  uint4 a[kChunks][reads_acc(M) ? 2 : kRowWords];
+  uint4 b[kChunks][kRowWords];
   float xs;
+
+  // 8 row values at element e: one 16-byte load (bf16) or two (f32)
+  __device__ __forceinline__ static void load_row(uint4* dst, const void* src, size_t e) {
+    if constexpr (kF32) {
+      const uint4* f = reinterpret_cast<const uint4*>(static_cast<const float*>(src) + e);
+      dst[0] = __ldg(f);
+      dst[kRowWords - 1] = __ldg(f + 1);
+    } else {
+      dst[0] = __ldg(reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(src) + e));
+    }
+  }
 
   // every load of row r issued at once
   __device__ __forceinline__ void load(const RowArgs& p, int r, int W, int t, int team_threads) {
@@ -290,15 +326,34 @@ struct RowRaw {
         a[c][0] = __ldg(src);
         a[c][reads_acc(M) ? 1 : 0] = __ldg(src + 1);
       } else {
-        a[c][0] = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const __nv_bfloat16*>(p.a) + off + col));
+        load_row(a[c], p.a, off + col);
       }
-      if (two_inputs(M)) b[c] = __ldg(reinterpret_cast<const uint4*>(p.x2 + off + col));
+      if (two_inputs(M)) load_row(b[c], p.x2, off + col);
     }
   }
 };
 
-template <int M>
+// 8 row-type values at element e of dst: v as 8 f32 (two 16-byte stores) or
+// the 4 words of 8 bf16 already rounded (one)
+template <bool kF32>
+__device__ __forceinline__ void store_row(void* dst, size_t e, const float* v,
+                                          const uint32_t* bf16_words) {
+  if constexpr (kF32) {
+    uint4* d = reinterpret_cast<uint4*>(static_cast<float*>(dst) + e);
+    d[0] = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+    d[1] = make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]), __float_as_uint(v[6]),
+                      __float_as_uint(v[7]));
+  } else {
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(dst) + e) =
+        make_uint4(bf16_words[0], bf16_words[1], bf16_words[2], bf16_words[3]);
+  }
+}
+
+// kF32: the row inputs (x, h, y and the residual x) and the row outputs (the
+// residual, the qkv epilogue's output) are f32, else bf16.  The producer
+// runs in f32 either way; only the roundings to the row type drop out.
+template <int M, bool kF32>
 __global__ void __launch_bounds__(kThreads, 2)
 row_quant_kernel(const RowArgs p, int rows, int W, int G) {
   extern __shared__ float cols[];  // col_vectors(M) x W, then the GELU table
@@ -310,7 +365,7 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
   const bool live_team = team < teams;
 
   // the team's first row in flight while the block fills its column vectors
-  RowRaw<M> raw;
+  RowRaw<M, kF32> raw;
   if (live_team && r < rows) raw.load(p, r, W, t, team_threads);
   constexpr int kLnCols = reads_acc(M) ? 2 : 0;
   if (reads_acc(M)) {
@@ -323,7 +378,7 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
     fill_vec(cols + (kLnCols + 1) * W, p.ln_b, p.vec_bf16 & 4, W);
   }
   float* gelu_table = cols + col_vectors(M) * W;
-  if (has_gelu(M)) fill_gelu_table(gelu_table);
+  if (gelu_table_used(M, kF32)) fill_gelu_table(gelu_table);
   __syncthreads();
   if (!live_team) return;
   const float* ws = cols;
@@ -339,7 +394,7 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
     // the producer's input in f32; the residual out (the qkv epilogue's
     // output kept until the next row's loads are issued)
     float v[kChunks][kVec];
-    uint32_t out[M == kAccOut ? kChunks : 1][kVec / 2];
+    uint32_t out[M == kAccOut ? kChunks : 1][kF32 ? kVec : kVec / 2];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int col = (c * team_threads + t) * kVec;
@@ -358,35 +413,42 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
           v[c][i] = __fmul_rn(__fmul_rn(__int2float_rn(acc), raw.xs), w8[i]);
           if (add_b) v[c][i] = __fadd_rn(v[c][i], b8[i]);
         } else {
-          v[c][i] = bf16_at(raw.a[c][0], i);
-          if (M == kAddLn) v[c][i] = __fadd_rn(v[c][i], bf16_at(raw.b[c], i));
+          v[c][i] = row_at<kF32>(raw.a[c], i);
+          if (M == kAddLn) v[c][i] = __fadd_rn(v[c][i], row_at<kF32>(raw.b[c], i));
         }
       }
-      // bf16 roundings two at a time: the GEMM's output, then x' (or the
-      // add_ln_quant residuals, whose LayerNorm reads the f32 sum)
+      // bf16 roundings two at a time: the GEMM's output (in the row type,
+      // but always bf16 before GELU and before ln_quant_acc's add), then x'
+      // (or the add_ln_quant residuals, whose LayerNorm reads the f32 sum)
+      // in the row type; with f32 rows those to the row type drop out
+      constexpr bool kRoundY = !kF32 || M == kAccGelu || M == kAccAddLn;
       uint32_t res[kVec / 2];
 #pragma unroll
       for (int i = 0; i < kVec; i += 2) {
-        uint32_t w = bf16x2_bits(v[c][i], v[c][i + 1]);
+        uint32_t w = kF32 ? 0u : bf16x2_bits(v[c][i], v[c][i + 1]);
         if (reads_acc(M)) {
-          v[c][i] = lo_f32(w), v[c][i + 1] = hi_f32(w);
-          if (M == kAccAddLn) {
-            w = bf16x2_bits(__fadd_rn(bf16_at(raw.b[c], i), v[c][i]),
-                            __fadd_rn(bf16_at(raw.b[c], i + 1), v[c][i + 1]));
-            v[c][i] = lo_f32(w), v[c][i + 1] = hi_f32(w);
-          } else if (M == kAccAddLnSum) {
-            v[c][i] = __fadd_rn(bf16_at(raw.b[c], i), v[c][i]);
-            v[c][i + 1] = __fadd_rn(bf16_at(raw.b[c], i + 1), v[c][i + 1]);
+          if (kRoundY) {
             w = bf16x2_bits(v[c][i], v[c][i + 1]);
+            v[c][i] = lo_f32(w), v[c][i + 1] = hi_f32(w);
+          }
+          if (M == kAccAddLn || M == kAccAddLnSum) {
+            v[c][i] = __fadd_rn(row_at<kF32>(raw.b[c], i), v[c][i]);
+            v[c][i + 1] = __fadd_rn(row_at<kF32>(raw.b[c], i + 1), v[c][i + 1]);
+            if (!kF32) w = bf16x2_bits(v[c][i], v[c][i + 1]);
+            if (M == kAccAddLn && !kF32) v[c][i] = lo_f32(w), v[c][i + 1] = hi_f32(w);
           }
         }
         res[i >> 1] = w;
       }
-      if (two_inputs(M))
-        *reinterpret_cast<uint4*>(p.resid + off + col) = make_uint4(res[0], res[1], res[2], res[3]);
+      if (two_inputs(M)) store_row<kF32>(p.resid, off + col, v[c], res);
       if constexpr (M == kAccOut) {
+        if constexpr (kF32) {
 #pragma unroll
-        for (int i = 0; i < kVec / 2; ++i) out[c][i] = res[i];
+          for (int i = 0; i < kVec; ++i) out[c][i] = __float_as_uint(v[c][i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kVec / 2; ++i) out[c][i] = res[i];
+        }
       }
     }
 
@@ -395,9 +457,15 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
         const int col = (c * team_threads + t) * kVec;
-        if (col < W)
-          *reinterpret_cast<uint4*>(p.resid + off + col) =
-              make_uint4(out[c][0], out[c][1], out[c][2], out[c][3]);
+        if (col >= W) continue;
+        if constexpr (kF32) {
+          float vals[kVec];
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) vals[i] = __uint_as_float(out[c][i]);
+          store_row<true>(p.resid, off + col, vals, nullptr);
+        } else {
+          store_row<false>(p.resid, off + col, nullptr, out[c]);
+        }
       }
       continue;
     }
@@ -439,8 +507,10 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
 #pragma unroll
       for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-        for (int i = 0; i < kVec; ++i)  // h is bf16 (GELU(0) = 0 for dead chunks)
-          v[c][i] = gelu_bf16(__float_as_uint(v[c][i]) >> 16, gelu_table);
+        for (int i = 0; i < kVec; ++i)  // GELU(0) = 0 for dead chunks
+          v[c][i] = gelu_table_used(M, kF32)
+                        ? gelu_bf16(__float_as_uint(v[c][i]) >> 16, gelu_table)
+                        : ttasr::gelu_as(v[c][i]);  // f32 h: no table
     }
 
     float am = 0.f;
@@ -469,40 +539,55 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
   }
 }
 
-template <int M>
-int launch_rows(const RowArgs& args, int rows, int W, void* stream) {
+template <int M, bool kF32>
+int launch_rows_as(const RowArgs& args, int rows, int W, void* stream) {
   if (W % kVec || W < kVec || W > kMaxWidth || rows < 1 || args.q_cols < 0 ||
       args.q_cols > W)
     return (int)cudaErrorInvalidValue;
   const int G = (W + kTeamWidth - 1) / kTeamWidth, teams = kWarps / G;
-  const size_t smem = ((size_t)col_vectors(M) * W + (has_gelu(M) ? kGeluTable : 0)) * sizeof(float);
+  const size_t smem =
+      ((size_t)col_vectors(M) * W + (gelu_table_used(M, kF32) ? kGeluTable : 0)) * sizeof(float);
   static size_t smem_limit = 48 * 1024;
-  cudaError_t err = ttasr::reserve_smem(row_quant_kernel<M>, smem, &smem_limit);
+  cudaError_t err = ttasr::reserve_smem(row_quant_kernel<M, kF32>, smem, &smem_limit);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_quant_kernel<M>, kThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_quant_kernel<M, kF32>,
+                                                        kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = std::min((rows + teams - 1) / teams, std::max(per_sm, 1) * sms);
-  row_quant_kernel<M><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args, rows, W,
-                                                                                   G);
+  row_quant_kernel<M, kF32><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      args, rows, W, G);
   return (int)cudaGetLastError();
+}
+
+// The instantiation for the row type: f32 rows or bf16 rows.
+template <int M>
+int launch_rows(const RowArgs& args, int rows, int W, bool f32, void* stream) {
+  if constexpr (M == kAccGelu) {  // no row input: its h is the GEMM's bf16 output
+    if (f32) return (int)cudaErrorInvalidValue;
+  } else {
+    if (f32) return launch_rows_as<M, true>(args, rows, W, stream);
+  }
+  return launch_rows_as<M, false>(args, rows, W, stream);
 }
 
 }  // namespace
 
 // Rows of W contiguous values (W a multiple of 8, at most 8192), 16-byte
-// aligned: bf16 inputs, or int32 accumulators acc (rows, W) with f32 row
-// scales xs (rows,), f32 column scales w_scale (W,) and bias b (W,) or
-// NULL; ln_s/ln_b (W,); b, ln_s and ln_b bf16 where bits 0, 1 and 2 of
-// vec_bf16 say so, else f32; codes int8 (rows, W); scales f32 (rows,);
-// resid bf16 (rows, W).  Each launches on `stream` and returns
-// cudaGetLastError().
-extern "C" int ttasr_ln_quant(const void* x, const void* ln_s, const void* ln_b,
-                              void* codes, void* scales, int rows, int D, int vec_bf16,
-                              void* stream) {
+// aligned: x, y and h bf16 rows (the entries named ..._f32: f32 rows), or
+// int32 accumulators acc (rows, W) with f32 row scales xs (rows,), f32 column
+// scales w_scale (W,) and bias b (W,) or NULL; ln_s/ln_b (W,); b, ln_s and
+// ln_b bf16 where bits 0, 1 and 2 of vec_bf16 say so, else f32; codes int8
+// (rows, W); scales f32 (rows,); resid (rows, W) of the rows' type.  Each
+// launches on `stream` and returns cudaGetLastError().  Every entry but
+// gelu_quant_acc (its GELU reads the bf16 GEMM output whatever x is) has an
+// f32 twin of the same signature.
+namespace {
+
+int ln_quant_rows(const void* x, const void* ln_s, const void* ln_b, void* codes, void* scales,
+                  int rows, int D, int vec_bf16, bool f32, void* stream) {
   RowArgs a = {};
   a.a = x;
   a.ln_s = ln_s;
@@ -510,42 +595,93 @@ extern "C" int ttasr_ln_quant(const void* x, const void* ln_s, const void* ln_b,
   a.vec_bf16 = vec_bf16;
   a.codes = static_cast<int8_t*>(codes);
   a.scales = static_cast<float*>(scales);
-  return launch_rows<kLn>(a, rows, D, stream);
+  return launch_rows<kLn>(a, rows, D, f32, stream);
 }
 
-extern "C" int ttasr_add_ln_quant(const void* x, const void* y, const void* ln_s,
-                                  const void* ln_b, void* resid, void* codes, void* scales,
-                                  int rows, int D, int vec_bf16, void* stream) {
+int add_ln_quant_rows(const void* x, const void* y, const void* ln_s, const void* ln_b,
+                      void* resid, void* codes, void* scales, int rows, int D, int vec_bf16,
+                      bool f32, void* stream) {
   RowArgs a = {};
   a.a = x;
-  a.x2 = static_cast<const __nv_bfloat16*>(y);
+  a.x2 = y;
   a.ln_s = ln_s;
   a.ln_b = ln_b;
   a.vec_bf16 = vec_bf16;
-  a.resid = static_cast<__nv_bfloat16*>(resid);
+  a.resid = resid;
   a.codes = static_cast<int8_t*>(codes);
   a.scales = static_cast<float*>(scales);
-  return launch_rows<kAddLn>(a, rows, D, stream);
+  return launch_rows<kAddLn>(a, rows, D, f32, stream);
 }
 
-extern "C" int ttasr_gelu_quant(const void* h, void* codes, void* scales, int rows, int F,
-                                void* stream) {
-  RowArgs a = {};
-  a.a = h;
-  a.codes = static_cast<int8_t*>(codes);
-  a.scales = static_cast<float*>(scales);
-  return launch_rows<kGelu>(a, rows, F, stream);
-}
-
-extern "C" int ttasr_quant_only(const void* x, void* codes, void* scales, int rows, int D,
-                                void* stream) {
+// gelu_quant (kGelu) and quant_only (kIdentity): one row input, codes out
+template <int M>
+int one_input_rows(const void* x, void* codes, void* scales, int rows, int W, bool f32,
+                   void* stream) {
   RowArgs a = {};
   a.a = x;
   a.codes = static_cast<int8_t*>(codes);
   a.scales = static_cast<float*>(scales);
-  return launch_rows<kIdentity>(a, rows, D, stream);
+  return launch_rows<M>(a, rows, W, f32, stream);
 }
 
+// the operands of ln_quant_acc and add_ln_quant_acc
+RowArgs acc_add_ln_args(const void* x, const void* acc, const void* xs, const void* w_scale,
+                        const void* b, const void* ln_s, const void* ln_b, void* resid,
+                        void* codes, void* scales, int vec_bf16) {
+  RowArgs a = {};
+  a.a = acc;
+  a.x2 = x;
+  a.xs = static_cast<const float*>(xs);
+  a.ws = static_cast<const float*>(w_scale);
+  a.b = b;
+  a.ln_s = ln_s;
+  a.ln_b = ln_b;
+  a.vec_bf16 = vec_bf16;
+  a.resid = resid;
+  a.codes = static_cast<int8_t*>(codes);
+  a.scales = static_cast<float*>(scales);
+  return a;
+}
+
+int qkv_epilogue_rows(const void* acc, const void* xs, const void* w_scale, const void* b,
+                      void* out, int rows, int W, int q_cols, float q_scale, int vec_bf16,
+                      bool f32, void* stream) {
+  RowArgs a = {};
+  a.a = acc;
+  a.xs = static_cast<const float*>(xs);
+  a.ws = static_cast<const float*>(w_scale);
+  a.b = b;
+  a.q_cols = q_cols;
+  a.q_scale = q_scale;
+  a.vec_bf16 = vec_bf16;
+  a.resid = out;
+  return launch_rows<kAccOut>(a, rows, W, f32, stream);
+}
+
+}  // namespace
+
+// B5, B8, B9, B7 on bf16 rows and, as ..._f32, on f32 rows
+#define TTASR_ROW_ENTRY(name, impl, params, args)                            \
+  extern "C" int ttasr_##name params { return impl(args, false, stream); } \
+  extern "C" int ttasr_##name##_f32 params { return impl(args, true, stream); }
+#define TTASR_ARGS(...) __VA_ARGS__
+
+TTASR_ROW_ENTRY(ln_quant, ln_quant_rows,
+                (const void* x, const void* ln_s, const void* ln_b, void* codes, void* scales,
+                 int rows, int D, int vec_bf16, void* stream),
+                TTASR_ARGS(x, ln_s, ln_b, codes, scales, rows, D, vec_bf16))
+TTASR_ROW_ENTRY(add_ln_quant, add_ln_quant_rows,
+                (const void* x, const void* y, const void* ln_s, const void* ln_b, void* resid,
+                 void* codes, void* scales, int rows, int D, int vec_bf16, void* stream),
+                TTASR_ARGS(x, y, ln_s, ln_b, resid, codes, scales, rows, D, vec_bf16))
+TTASR_ROW_ENTRY(gelu_quant, one_input_rows<kGelu>,
+                (const void* h, void* codes, void* scales, int rows, int F, void* stream),
+                TTASR_ARGS(h, codes, scales, rows, F))
+TTASR_ROW_ENTRY(quant_only, one_input_rows<kIdentity>,
+                (const void* x, void* codes, void* scales, int rows, int D, void* stream),
+                TTASR_ARGS(x, codes, scales, rows, D))
+
+// B9 from W1's accumulators: no row input, so no f32 twin
 extern "C" int ttasr_gelu_quant_acc(const void* acc, const void* xs, const void* w_scale,
                                     const void* b, void* codes, void* scales, int rows, int F,
                                     int vec_bf16, void* stream) {
@@ -557,64 +693,42 @@ extern "C" int ttasr_gelu_quant_acc(const void* acc, const void* xs, const void*
   a.vec_bf16 = vec_bf16;
   a.codes = static_cast<int8_t*>(codes);
   a.scales = static_cast<float*>(scales);
-  return launch_rows<kAccGelu>(a, rows, F, stream);
+  return launch_rows<kAccGelu>(a, rows, F, false, stream);
 }
 
 namespace {
 
-// the operands of ln_quant_acc and add_ln_quant_acc
-RowArgs acc_add_ln_args(const void* x, const void* acc, const void* xs, const void* w_scale,
-                        const void* b, const void* ln_s, const void* ln_b, void* resid,
-                        void* codes, void* scales, int vec_bf16) {
-  RowArgs a = {};
-  a.a = acc;
-  a.x2 = static_cast<const __nv_bfloat16*>(x);
-  a.xs = static_cast<const float*>(xs);
-  a.ws = static_cast<const float*>(w_scale);
-  a.b = b;
-  a.ln_s = ln_s;
-  a.ln_b = ln_b;
-  a.vec_bf16 = vec_bf16;
-  a.resid = static_cast<__nv_bfloat16*>(resid);
-  a.codes = static_cast<int8_t*>(codes);
-  a.scales = static_cast<float*>(scales);
-  return a;
+template <int M>
+int acc_add_ln_rows(const void* x, const void* acc, const void* xs, const void* w_scale,
+                    const void* b, const void* ln_s, const void* ln_b, void* resid, void* codes,
+                    void* scales, int rows, int D, int vec_bf16, bool f32, void* stream) {
+  return launch_rows<M>(
+      acc_add_ln_args(x, acc, xs, w_scale, b, ln_s, ln_b, resid, codes, scales, vec_bf16), rows,
+      D, f32, stream);
 }
 
 }  // namespace
 
-extern "C" int ttasr_ln_quant_acc(const void* x, const void* acc, const void* xs,
-                                  const void* w_scale, const void* b, const void* ln_s,
-                                  const void* ln_b, void* resid, void* codes, void* scales,
-                                  int rows, int D, int vec_bf16, void* stream) {
-  return launch_rows<kAccAddLn>(
-      acc_add_ln_args(x, acc, xs, w_scale, b, ln_s, ln_b, resid, codes, scales, vec_bf16), rows,
-      D, stream);
-}
+// B5 after W2 (x' = x + y, LN of x') and B8 after wo (LN of the f32 sum)
+TTASR_ROW_ENTRY(ln_quant_acc, acc_add_ln_rows<kAccAddLn>,
+                (const void* x, const void* acc, const void* xs, const void* w_scale,
+                 const void* b, const void* ln_s, const void* ln_b, void* resid, void* codes,
+                 void* scales, int rows, int D, int vec_bf16, void* stream),
+                TTASR_ARGS(x, acc, xs, w_scale, b, ln_s, ln_b, resid, codes, scales, rows, D,
+                           vec_bf16))
+TTASR_ROW_ENTRY(add_ln_quant_acc, acc_add_ln_rows<kAccAddLnSum>,
+                (const void* x, const void* acc, const void* xs, const void* w_scale,
+                 const void* b, const void* ln_s, const void* ln_b, void* resid, void* codes,
+                 void* scales, int rows, int D, int vec_bf16, void* stream),
+                TTASR_ARGS(x, acc, xs, w_scale, b, ln_s, ln_b, resid, codes, scales, rows, D,
+                           vec_bf16))
 
-extern "C" int ttasr_add_ln_quant_acc(const void* x, const void* acc, const void* xs,
-                                      const void* w_scale, const void* b, const void* ln_s,
-                                      const void* ln_b, void* resid, void* codes,
-                                      void* scales, int rows, int D, int vec_bf16,
-                                      void* stream) {
-  return launch_rows<kAccAddLnSum>(
-      acc_add_ln_args(x, acc, xs, w_scale, b, ln_s, ln_b, resid, codes, scales, vec_bf16), rows,
-      D, stream);
-}
+// The qkv epilogue: out (rows, W) bf16 (..._f32: f32); the first q_cols
+// columns of w_scale and b are multiplied by q_scale.
+TTASR_ROW_ENTRY(qkv_epilogue_acc, qkv_epilogue_rows,
+                (const void* acc, const void* xs, const void* w_scale, const void* b, void* out,
+                 int rows, int W, int q_cols, float q_scale, int vec_bf16, void* stream),
+                TTASR_ARGS(acc, xs, w_scale, b, out, rows, W, q_cols, q_scale, vec_bf16))
 
-// The qkv epilogue: out (rows, W) bf16; the first q_cols columns of
-// w_scale and b are multiplied by q_scale.
-extern "C" int ttasr_qkv_epilogue_acc(const void* acc, const void* xs, const void* w_scale,
-                                      const void* b, void* out, int rows, int W, int q_cols,
-                                      float q_scale, int vec_bf16, void* stream) {
-  RowArgs a = {};
-  a.a = acc;
-  a.xs = static_cast<const float*>(xs);
-  a.ws = static_cast<const float*>(w_scale);
-  a.b = b;
-  a.q_cols = q_cols;
-  a.q_scale = q_scale;
-  a.vec_bf16 = vec_bf16;
-  a.resid = static_cast<__nv_bfloat16*>(out);
-  return launch_rows<kAccOut>(a, rows, W, stream);
-}
+#undef TTASR_ROW_ENTRY
+#undef TTASR_ARGS

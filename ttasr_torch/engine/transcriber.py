@@ -24,14 +24,17 @@ a float engine the 5-D int8 self-KV of the unfused graph
 (:mod:`ttasr_torch.models.whisper.decode`).
 
 ``mesh=`` (a :func:`ttasr_torch.parallel.sharding.create_mesh` mesh, one
-engine per rank) with ``compute_type="int8"`` quantizes without fusing
-q/k/v, as the reference does under a mesh: the encoder takes the unfused
-s8 x s8 branch (three GEMMs and B11), and the decodes go to a
-:class:`ttasr_torch.parallel.tp.TPDecoder` (heads split over the model axis,
-the batch over the data axis).  A mesh that ``tp_eligible`` refuses raises:
-the reference's GSPMD unfused graph is not ported.  Each rank runs the
+engine per rank) follows the reference's rule.  ``compute_type="int8"``
+quantizes without fusing q/k/v, as the reference does under a mesh (the
+encoder takes the unfused s8 x s8 branch: three GEMMs and B11).  Where
+``tp_eligible`` holds the decodes go to a
+:class:`ttasr_torch.parallel.tp.TPDecoder` (the fused int8 kernels, heads
+split over the model axis, the batch over the data axis); on every other
+mesh, for float32, bfloat16 and int8 alike, to a
+:class:`ttasr_torch.parallel.gspmd.ShardedDecoder` (``shard_params``' slices
+and the unfused graph, the reference's GSPMD path).  Each rank runs the
 whole encoder on its own card, where the JAX engine shards the encoder's
-weights under GSPMD; the results are the same.
+weights under GSPMD; the results are the same (ROADMAP C2).
 
 The continuous-batching path is the reference's too:
 :meth:`WhisperEngine.transcribe_with_server` runs the same seek loop with
@@ -101,6 +104,7 @@ from ttasr_torch.ops.mel import (
     log_mel_spectrogram,
 )
 from ttasr_torch.ops.quant import fuse_qkv, kmajor_encoder_codes, quantize_params
+from ttasr_torch.parallel.gspmd import ShardedDecoder
 from ttasr_torch.parallel.tp import TPDecoder, tp_eligible
 from ttasr_torch.text.tokenizer import WhisperTokenizer, load_tokenizer
 
@@ -281,20 +285,21 @@ class WhisperEngine:
         self.kv_cache_int8 = compute_type == "int8"
         self.cross_kv_int4 = cross_kv_int4 and self.kv_cache_int8
         self.kv_int4 = kv_int4 and self.kv_cache_int8
-        self._tp = None
+        self._tp = self._sharded = None
         if compute_type == "int8":
             self.params = quantize_params(self.params)
             if mesh is None:
                 self.params = fuse_qkv(self.params)
             self.params = kmajor_encoder_codes(self.params)
         if mesh is not None:
-            if not tp_eligible(self.params, self.cfg, mesh):
-                raise NotImplementedError(
-                    f"mesh {mesh.shape} with compute_type={compute_type!r}: the "
-                    f"fused tensor-parallel decode needs int8 weights, 64-wide "
-                    f"heads and an even head count per shard; the GSPMD graph "
-                    f"for other meshes is not ported to ttasr_torch yet")
-            self._tp = TPDecoder(self.params, self.cfg, mesh)
+            # the fused TP decode where it applies, else the GSPMD layout
+            # (as the reference falls back to shard_params and the unfused
+            # graph); self.params stays whole for the encoder, the language
+            # detection and the word alignment
+            if tp_eligible(self.params, self.cfg, mesh):
+                self._tp = TPDecoder(self.params, self.cfg, mesh)
+            else:
+                self._sharded = ShardedDecoder(self.params, self.cfg, mesh)
         # s8 x s8 encoder: None = the encoder's auto rule (on for quantized
         # weights), False forces it off; likewise its fused quantize kernels
         self._act8 = None if encoder_act_int8 else False
@@ -353,11 +358,12 @@ class WhisperEngine:
 
     @torch.inference_mode()
     def run_beam_decode(self, enc_out, prompt, pad, rng, opts: DecodingOptions):
-        """A beam decode: through the tensor-parallel decoder under a mesh,
-        else the single-card program."""
+        """A beam decode: through the mesh's decoder (tensor-parallel or
+        GSPMD) under a mesh, else the single-card program."""
+        mesh_decoder = self._tp or self._sharded
         with self._device_lock:
-            if self._tp is not None:
-                out = self._tp.beam(enc_out, prompt, pad, rng, opts=opts, ti=self.ti)
+            if mesh_decoder is not None:
+                out = mesh_decoder.beam(enc_out, prompt, pad, rng, opts=opts, ti=self.ti)
             else:
                 out = beam_decode(self.params, self.cfg, enc_out, prompt, pad, rng,
                                   opts=opts, ti=self.ti)
@@ -368,10 +374,11 @@ class WhisperEngine:
     def run_greedy_decode(self, enc_out, prompt, pad, rng, temperature,
                           opts: DecodingOptions):
         """Greedy/sampled counterpart of :meth:`run_beam_decode`."""
+        mesh_decoder = self._tp or self._sharded
         with self._device_lock:
-            if self._tp is not None:
-                out = self._tp.greedy(enc_out, prompt, pad, rng, temperature,
-                                      opts=opts, ti=self.ti)
+            if mesh_decoder is not None:
+                out = mesh_decoder.greedy(enc_out, prompt, pad, rng, temperature,
+                                          opts=opts, ti=self.ti)
             else:
                 out = greedy_decode(self.params, self.cfg, enc_out, prompt, pad,
                                     rng, temperature, opts=opts, ti=self.ti)

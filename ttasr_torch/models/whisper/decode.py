@@ -31,15 +31,28 @@ plain quantized attention, with B13 ``cross_attention_int8`` over an int8
 cross-KV.
 
 Tensor parallelism (``opts.tp_axis``, bound to a process group by
-:class:`ttasr_torch.parallel.tp.TPDecoder`): a rank's decoder carries its
-local heads' columns, so the attentions and caches run on those heads.  v1
-all-gathers the merged attention and cross outputs before the replicated
-wo/wo_c/MLP (B3, or B12, and B4); v2 (``opts.tp_row_parallel``) runs B15
-``matmul_int8_partial`` for wo and wo_c, B16 ``ln_q_cross_int8`` (or B1 on
-the cross query and the cross-attention outside the kernel where B3's
-condition fails) and B14 ``mlp_int8_fused(partial=True)`` on row- and
+:class:`ttasr_torch.parallel.tp.TPDecoder` or
+:class:`ttasr_torch.parallel.gspmd.ShardedDecoder`): a rank's decoder
+carries its local heads' columns, so the attentions and caches run on those
+heads.  v1 all-gathers the merged attention and cross outputs before the
+replicated wo/wo_c/MLP (B3, or B12, and B4); v2 (``opts.tp_row_parallel``)
+runs B15 ``matmul_int8_partial`` for wo and wo_c, B16 ``ln_q_cross_int8``
+(or B1 on the cross query and the cross-attention outside the kernel where
+B3's condition fails) and B14 ``mlp_int8_fused(partial=True)`` on row- and
 column-split weights, each partial sum all-reduced and its bias added once
 after the sum.
+
+The GSPMD layout (``ShardedDecoder``: ``shard_params``' slices, float or
+unfused int8 weights) runs the plain layer loop, which reads the layout
+from the shard's shapes, as XLA reads it from the shardings: q/k/v and the
+cross q/k/v column-split, so the attentions and caches (float, or the 5-D
+int8 self-KV and an int8 cross-KV with B13) run on the local heads, any
+count; wo, wo_c and w2 row-split, each partial product summed over the
+ranks in f32 with its bias added once after the sum; w1/b1 column-split; a
+vocabulary-split ``embed`` looked up with the other ranks' rows as zeros
+and summed, and its logits all-gathered in rank order before the rules.
+Where ``sanitize_spec`` replicated a leaf (a width the axis does not
+divide), that projection runs whole, with no collective.
 
 ``TTASR_UNFUSED_RULES`` (read when :func:`greedy_decode` or
 :func:`beam_decode` is called, as in the reference) or
@@ -79,6 +92,7 @@ from ttasr_torch.models.whisper.model import (
     _quant_self_attention,
     _split_heads,
     _unembed,
+    _width,
     init_cache,
     local_heads,
     quantize_kv,
@@ -96,6 +110,7 @@ from ttasr_torch.ops.decoder_blocks import (
 )
 from ttasr_torch.ops.decoder_mlp import mlp_int8_fused, mlp_with_crossout_int8
 from ttasr_torch.ops.int4 import pack_int4_lanes, quantize_kv4, unpack_int4
+from ttasr_torch.ops.quant import is_quantized, quant_matmul
 from ttasr_torch.ops.self_attention import (
     self_attn_step_indirect_int8,
     self_attn_step_int8,
@@ -249,6 +264,101 @@ def _qkv_proj(h, blk, cfg: WhisperConfig):
             _split_heads(_proj(h, blk["wv"], blk["bv"]), n))
 
 
+def _in_rows(w) -> int:
+    """Input rows of a weight leaf (float or quantized)."""
+    return (w["q"] if is_quantized(w) else w).shape[-2]
+
+
+def _sum_proj(x_local, w, b, group):
+    """A row-split projection of the GSPMD layout: the shard's partial
+    product of its input slice and its rows in f32, summed over the ranks,
+    the bias added once in f32, one rounding to x's type (on one card
+    ``_proj`` rounds once too; only the order of the sum differs)."""
+    if is_quantized(w):
+        part = quant_matmul(x_local, w)
+    else:
+        part = torch.matmul(x_local.float(), w.float())
+    out = _psum(part.contiguous(), group)
+    if b is not None:
+        out = out + b.float()
+    return out.to(x_local.dtype)
+
+
+def _out_proj(merged, w, b, group, whole: int, row_parallel: bool):
+    """An attention's output projection after its merged heads ``merged``:
+    TP v2's row-parallel sum (``row_parallel``); where the heads are whole,
+    the whole projection (one card, or a layer the mesh replicates) or, over
+    w's row slice, the rank's columns of them summed; the GSPMD sum where
+    both are the shard's; else TP v1's all-gather of the heads before the
+    replicated w."""
+    if row_parallel:
+        return _rp_proj(merged, w, b, group)
+    rows = _in_rows(w)
+    if merged.shape[-1] == whole and rows < whole:
+        # whole heads (gathered where the split cuts a head) before w's
+        # rows: this rank's columns of them
+        r = dist.get_rank(group)
+        return _sum_proj(merged[..., r * rows:(r + 1) * rows], w, b, group)
+    if merged.shape[-1] == whole:
+        return _proj(merged, w, b)
+    if rows < whole:
+        return _sum_proj(merged, w, b, group)
+    return _proj(_tp_gather(merged, group), w, b)
+
+
+def _block_mlp(xln, blk, group, ffn: int, row_parallel: bool):
+    """The MLP: TP v2's row-parallel sum (``row_parallel``), the GSPMD
+    layout's (w1/b1 column-split: the local hidden slice, then w2's rows
+    summed over the ranks), or whole."""
+    if row_parallel:
+        return _rp_mlp(xln, blk, group)
+    if _width(blk["w1"]) < ffn:
+        return _sum_proj(F.gelu(_proj(xln, blk["w1"], blk["b1"])), blk["w2"],
+                         blk["b2"], group)
+    return _mlp(xln, blk)
+
+
+def _vocab_shard(dec, cfg: WhisperConfig, group):
+    """(first id, count) of this rank's rows of a vocabulary-split
+    ``embed`` (``shard_params`` splits it where the model axis divides the
+    vocabulary; the rank's index on the axis is its rank in ``group``), or
+    None where the embedding is whole."""
+    e = dec["embed"]
+    rows = (e["q"] if is_quantized(e) else e).shape[0]
+    if group is None or rows == cfg.vocab_size:
+        return None
+    return dist.get_rank(group) * rows, rows
+
+
+def _local_embed(e, lo: int, n: int):
+    """The shard's rows of ``embed`` as (codes or values, per-row scales or
+    None): a quantized leaf keeps its scales whole (JAX's rule replicates
+    the scales of a weight that is not column-split), so the rank slices
+    its rows' scales."""
+    if not is_quantized(e):
+        return e, None
+    return e["q"], e["s"][lo:lo + n]
+
+
+def _embed_tokens(dec, cfg: WhisperConfig, tokens, group):
+    """Token embeddings: ``_embed_lookup``, or over a vocabulary-split
+    ``embed`` each rank's rows with the others' ids as zeros, summed over
+    the ranks in f32 (one non-zero term: exact)."""
+    shard = _vocab_shard(dec, cfg, group)
+    if shard is None:
+        return _embed_lookup(dec, tokens)
+    lo, n = shard
+    codes, scales = _local_embed(dec["embed"], lo, n)
+    local = tokens - lo
+    inside = (local >= 0) & (local < n)
+    idx = torch.where(inside, local, 0)
+    rows = codes[idx].float()
+    if scales is not None:
+        rows = rows * scales[idx]
+    rows = torch.where(inside[..., None], rows, 0.0).contiguous()
+    return _psum(rows, group).to(_model_dtype(dec))
+
+
 def _tp_gather(x, group):
     """Concatenate the ranks' head blocks along the last axis, in rank
     order (rank i holds heads [i * h_loc, (i + 1) * h_loc)); identity
@@ -285,8 +395,8 @@ def _rp_mlp(xln, blk, group):
 
 def _cross_attn_quantized(qc, ck8, cks_t, cv8, cvs_t, s_real: int):
     """Cross-attention over one layer's quantized cross-KV outside the
-    fused B3 kernel.  One token with at most 8 beam rows per audio,
-    64-wide heads and an even head count runs B13
+    fused B3 kernel.  One token with at most 8 beam rows per audio and
+    64-wide heads (any count: a shard's odd local heads too) runs B13
     (``cross_attention_int8``); other shapes (the prompt prefill, more
     than 8 beams) take the reference's XLA branch, with the int4 cache
     unpacked and slots >= ``s_real`` masked.  qc: (rows, T, H, Dh);
@@ -295,7 +405,7 @@ def _cross_attn_quantized(qc, ck8, cks_t, cv8, cvs_t, s_real: int):
     bk, t, h, dh = qc.shape
     b = ck8.shape[0]
     group = bk // b
-    if t == 1 and group <= MAX_BEAMS and dh == 64 and h % 2 == 0:
+    if t == 1 and group <= MAX_BEAMS and dh == 64:
         out = cross_attention_int8(qc.reshape(b, group, h, dh), ck8, cks_t,
                                    cv8, cvs_t, s_real)
         return out.reshape(bk, t, h, dh).to(qc.dtype)
@@ -354,7 +464,9 @@ def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
     cross-KV (the encoder length; default ``cfg.max_source_positions``).
     ``tp_group``: the tensor-parallel process group (attention on the local
     heads; v1 all-gathers the merged outputs before the replicated
-    wo/wo_c/MLP, v2 with ``tp_row_parallel`` sums row-parallel partials).
+    wo/wo_c/MLP, v2 with ``tp_row_parallel`` sums row-parallel partials,
+    the GSPMD layout sums the partials of its row-split leaves, read from
+    their shapes; :func:`_out_proj`, :func:`_block_mlp`).
     Returns (final-LN hidden states (B, W, d), cache).
     """
     if s_real is None:
@@ -363,7 +475,8 @@ def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
     b, t = tokens.shape
     ar = torch.arange(t, device=tokens.device)
     pos_ids = torch.clamp(ar[None, :] - pad_len[:, None], min=0)
-    x = (_embed_lookup(dec, tokens) + dec["pos"][pos_ids]).to(_model_dtype(dec))
+    x = (_embed_tokens(dec, cfg, tokens, tp_group) + dec["pos"][pos_ids]
+         ).to(_model_dtype(dec))
     valid = ar[None, None, :] >= pad_len[:, None, None]   # pad slots never attend
     causal = ar[None, None, :] <= ar[None, :, None]
     mask = (causal & valid)[:, None]                       # (B, 1, T, T)
@@ -372,11 +485,8 @@ def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
         q, k_new, v_new = _qkv_proj(h, blk, cfg)
         _write_prefill_kv(cache, i, k_new, v_new, t)
         attn = _attention(q, k_new, v_new, mask)  # its own exact K/V block
-        if tp_row_parallel:
-            x = x + _rp_proj(_merge_heads(attn), blk["wo"], blk["bo"], tp_group)
-        else:
-            x = x + _proj(_tp_gather(_merge_heads(attn), tp_group),
-                          blk["wo"], blk["bo"])
+        x = x + _out_proj(_merge_heads(attn), blk["wo"], blk["bo"], tp_group,
+                          cfg.d_model, tp_row_parallel)
         hc = _ln(x, blk["lnc_s"], blk["lnc_b"])
         qc = _proj(hc, blk["wq_c"], blk["bq_c"])
         qc = _split_heads(qc, qc.shape[-1] // q.shape[-1])
@@ -386,20 +496,26 @@ def _prefill(params, cfg: WhisperConfig, tokens, pad_len, cache: DecodeCache,
                                           s_real)
         else:
             cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
-        if tp_row_parallel:
-            x = x + _rp_proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"],
-                             tp_group)
-            x = x + _rp_mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk, tp_group)
-        else:
-            x = x + _proj(_tp_gather(_merge_heads(cross), tp_group),
-                          blk["wo_c"], blk["bo_c"])
-            x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+        x = x + _out_proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"], tp_group,
+                          cfg.d_model, tp_row_parallel)
+        x = x + _block_mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk, tp_group,
+                           cfg.ffn_dim, tp_row_parallel)
     return _ln(x, dec["ln_s"], dec["ln_b"]), cache
 
 
-def _logits_at(params, hidden):
-    """Project selected hidden rows (N, d) to f32 vocab logits (N, V)."""
-    return _unembed(hidden, params["decoder"])
+def _logits_at(params, hidden, cfg: Optional[WhisperConfig] = None, tp_group=None):
+    """Project selected hidden rows (N, d) to f32 vocab logits (N, V); over
+    a vocabulary-split ``embed`` (``cfg`` and the group given) each rank's
+    logits, all-gathered in rank order."""
+    dec = params["decoder"]
+    shard = None if cfg is None else _vocab_shard(dec, cfg, tp_group)
+    if shard is None:
+        return _unembed(hidden, dec)
+    codes, scales = _local_embed(dec["embed"], *shard)
+    local = torch.matmul(hidden.float(), codes.float().t())
+    if scales is not None:
+        local = local * scales[:, 0]
+    return _tp_gather(local, tp_group)
 
 
 def _self_mask(max_len: int, slot: int, pad_len):
@@ -537,14 +653,15 @@ def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
     path): the physical row, within the audio's beam group, that holds
     each row's entry at each cache position.  ``tp_group`` and
     ``tp_row_parallel``: tensor parallelism, as :func:`_prefill` (v2 runs
-    only on the flat fused path, :func:`_tp_setup`).
+    only on the flat fused path, :func:`_tp_setup`; the plain layer loop
+    runs TP v1 and the GSPMD layout).
     Returns (logits (B, V) f32, cache).
     """
     if s_real is None:
         s_real = cfg.max_source_positions
     dec = params["decoder"]
     pos = torch.clamp(slot - pad_len, min=0)              # (B,)
-    x = (_embed_lookup(dec, token)
+    x = (_embed_tokens(dec, cfg, token, tp_group)
          + dec["pos"][pos][:, None, :]).to(_model_dtype(dec))
     if cache.flat:
         return _step_fused(params, cfg, x, slot, pad_len, cache, anc, s_real,
@@ -561,8 +678,8 @@ def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
             cache.k[i, :, slot] = k_new[:, 0]
             cache.v[i, :, slot] = v_new[:, 0]
             attn = _attention(q, cache.k[i], cache.v[i], mask)
-        x = x + _proj(_tp_gather(_merge_heads(attn), tp_group),
-                      blk["wo"], blk["bo"])
+        x = x + _out_proj(_merge_heads(attn), blk["wo"], blk["bo"], tp_group,
+                          cfg.d_model, tp_row_parallel)
         hc = _ln(x, blk["lnc_s"], blk["lnc_b"])
         qc = _proj(hc, blk["wq_c"], blk["bq_c"])
         qc = _split_heads(qc, qc.shape[-1] // q.shape[-1])
@@ -572,11 +689,12 @@ def _step(params, cfg: WhisperConfig, token, slot: int, pad_len,
                                           s_real)
         else:
             cross = _cross_attention(qc, cache.cross_k[i], cache.cross_v[i])
-        x = x + _proj(_tp_gather(_merge_heads(cross), tp_group),
-                      blk["wo_c"], blk["bo_c"])
-        x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+        x = x + _out_proj(_merge_heads(cross), blk["wo_c"], blk["bo_c"], tp_group,
+                          cfg.d_model, tp_row_parallel)
+        x = x + _block_mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk, tp_group,
+                           cfg.ffn_dim, tp_row_parallel)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
-    return _unembed(x[:, 0], dec), cache
+    return _logits_at(params, x[:, 0], cfg, tp_group), cache
 
 
 # ---------------------------------------------------------------------------
@@ -806,15 +924,18 @@ def _prompt_tensors(prompt, pad_len, device):
             torch.as_tensor(np.asarray(pad_len), dtype=torch.long, device=device))
 
 
-def _no_speech_prob(params, hidden, prompt, ti: TokenizerInfo):
-    """P(no_speech) at the sot position's logits (faster-whisper)."""
+def _no_speech_prob(params, hidden, prompt, ti: TokenizerInfo,
+                    cfg: Optional[WhisperConfig] = None, tp_group=None):
+    """P(no_speech) at the sot position's logits (faster-whisper), the
+    whole vocabulary's (gathered over a vocabulary-split ``embed``)."""
     b, width = prompt.shape
     if ti.no_speech is None:
         return torch.zeros((b,), dtype=torch.float32, device=prompt.device)
     ar = torch.arange(width, device=prompt.device)
     sot_slot = torch.argmax((prompt == ti.sot).long() * ar[None, :], dim=1)
     sot_hidden = hidden[torch.arange(b, device=prompt.device), sot_slot]
-    return torch.softmax(_logits_at(params, sot_hidden), dim=-1)[:, ti.no_speech]
+    return torch.softmax(_logits_at(params, sot_hidden, cfg, tp_group),
+                         dim=-1)[:, ti.no_speech]
 
 
 # ---------------------------------------------------------------------------
@@ -865,10 +986,10 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
                        **_cache_flags(params, cfg, opts))
     hidden, cache = _prefill(params, cfg, prompt, pad_len, cache,
                              s_real, *tp)
-    no_speech_prob = _no_speech_prob(params, hidden, prompt, ti)
+    no_speech_prob = _no_speech_prob(params, hidden, prompt, ti, cfg, tp[0])
 
     static_mask = torch.from_numpy(_static_suppress_mask(ti)).to(dev)
-    logits = _logits_at(params, hidden[:, -1])
+    logits = _logits_at(params, hidden[:, -1], cfg, tp[0])
     finite = torch.isfinite(logits).all()
     tokens = torch.full((b, opts.sample_len), ti.eot, dtype=torch.long, device=dev)
     n = torch.zeros((b,), dtype=torch.long, device=dev)
@@ -1103,13 +1224,13 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, pad_len,
     anc = None
     if cache.quantized and cache.flat and opts.beam_indirect:
         anc = own_row[:, None].expand(bk, buckets[0]).contiguous()
-    no_speech_prob = _no_speech_prob(params, hidden_b, prompt, ti)
+    no_speech_prob = _no_speech_prob(params, hidden_b, prompt, ti, cfg, tp[0])
 
     static_mask = torch.from_numpy(_static_suppress_mask(ti)).to(dev)
     max_finished = k  # completion target per audio (patience=1.0)
     ar_b = torch.arange(b, device=dev)
 
-    logits = _logits_at(params, hidden_b[:, -1]).repeat_interleave(k, dim=0)
+    logits = _logits_at(params, hidden_b[:, -1], cfg, tp[0]).repeat_interleave(k, dim=0)
     st = _BeamLoop(
         tokens=torch.full((bk, L), ti.eot, dtype=torch.long, device=dev),
         n=torch.zeros((bk,), dtype=torch.long, device=dev),

@@ -109,6 +109,10 @@ ARGTYPES = {
     # v_new, vs_new; B, K, H, len, HP, slot, int4; stream
     "ttasr_self_attn_step": [_P] * 12 + [_I] * 7 + [_P],
 }
+# the row kernels on float32 rows: the same signatures
+ARGTYPES.update({name + "_f32": ARGTYPES[name] for name in (
+    "ttasr_ln_quant", "ttasr_add_ln_quant", "ttasr_gelu_quant", "ttasr_quant_only",
+    "ttasr_ln_quant_acc", "ttasr_add_ln_quant_acc", "ttasr_qkv_epilogue_acc")})
 
 
 def _nvcc() -> str:

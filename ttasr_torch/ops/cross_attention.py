@@ -10,7 +10,11 @@ Port of ``ttasr/ops/cross_attention_pallas.py::cross_attention_int8``
 over the int8 (B, S, D) or int4 (B, S/2, D) uint8 cross-KV cache (packed
 along S) with (B, H, S) f32 scales.  The query is scaled by dh**-0.5 in
 its own dtype, as the reference does, then taken to f32; the result is f32
-(B, K, H, dh).
+(B, K, H, dh).  Any head count: the Pallas kernel pairs heads into
+one lane-aligned query tile, a device of the TPU's layout that the Hopper
+kernel (one cluster per head and audio) does not need, so a tensor-parallel
+shard's odd local count (large-v3's 5 heads on a 4-way model axis) runs
+it too.
 
 :func:`cross_attention_int8` runs :func:`cross_attention_int8_ref` for CPU
 tensors and launches ``ttasr_torch/csrc/cross_attention.cu`` for CUDA
@@ -51,9 +55,9 @@ def cross_attention_int8(q, ck, cks, cv, cvs, s_real: int):
     d = h * dh
     packed = ck.dtype == torch.uint8
     s = cks.shape[-1]
-    if dh != DH or h % 2 or not 1 <= k <= MAX_BEAMS:
-        raise ValueError(f"q {tuple(q.shape)}: 64-wide heads, an even head "
-                         f"count and 1..{MAX_BEAMS} rows per audio expected")
+    if dh != DH or not 1 <= k <= MAX_BEAMS:
+        raise ValueError(f"q {tuple(q.shape)}: 64-wide heads and "
+                         f"1..{MAX_BEAMS} rows per audio expected")
     want = (torch.uint8, s // 2) if packed else (torch.int8, s)
     for name, t in (("ck", ck), ("cv", cv)):
         if t.dtype != want[0] or t.shape != (b, want[1], d):

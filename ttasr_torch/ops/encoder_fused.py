@@ -29,9 +29,15 @@ fused contract): ``scale = max(absmax, 1e-8) * f32(1/127)``, ``codes =
 round(v / scale)`` half to even.  The multiply by the reciprocal is what the
 JAX kernels compute (XLA rewrites the division by the constant inside the
 kernel, interpret mode included).  Inputs are (B, T, D) bf16; scales come
-back (B, T, 1) f32, codes (B, T, D) int8.
+back (B, T, 1) f32, codes (B, T, D) int8.  Rows may be bf16 or float32, as
+the Pallas kernels read any float rows (``encoder_fused_pallas.py:122``):
+the producer runs in f32 either way, and the residual (and the qkv
+epilogue's output) comes back in the rows' own type, so on float32 rows the
+roundings to bf16 drop out (not the bf16 rounding of W1's and W2's GEMM
+output, which the plain versions keep for any x).
 
-All eight run one kernel template.  Each wrapper runs its plain PyTorch
+All eight run one kernel template, instantiated for bf16 and for f32 rows
+(the ``..._f32`` entry points).  Each wrapper runs its plain PyTorch
 version (``*_ref``) for CPU tensors and
 launches the CUDA kernel (``ttasr_torch/csrc/encoder_fused.cu``) for CUDA
 tensors, counting launches in ``<wrapper>.launches``; anything else raises.
@@ -98,17 +104,34 @@ def qkv_epilogue_acc_ref(acc, xs, w_scale, b, q_scale, out_dtype=torch.bfloat16)
                          None if b is None else b * colscale, out_dtype)
 
 
-def _rows(x, name, dtype=torch.bfloat16):
-    """Checks a (..., D) operand of ``dtype`` for the kernel; returns
-    (rows, D)."""
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype} on the card, got {x.dtype}")
+ROW_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _rows(x, name, dtypes=ROW_DTYPES):
+    """Checks a (..., D) operand of one of ``dtypes`` for the kernel;
+    returns (rows, D)."""
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes} on the card, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     d = x.shape[-1]
     if d % 8 or d > 8192:
         raise ValueError(f"{name}: width {d} must be a multiple of 8, at most 8192")
     return x.numel() // d, d
+
+
+def _entry(name, x):
+    """The entry point of ``name`` for rows of x's type: ``name`` for bf16,
+    its ``_f32`` twin for float32."""
+    return name + "_f32" if x.dtype == torch.float32 else name
+
+
+def _same_rows(x, y, name):
+    """y (the second row input) matches x in shape, type and device."""
+    _rows(y, name)
+    if y.shape != x.shape or y.dtype != x.dtype or y.device != x.device:
+        raise ValueError(f"x {x.dtype} {tuple(x.shape)} and {name} {y.dtype} "
+                         f"{tuple(y.shape)} must match")
 
 
 def _outputs(x):
@@ -157,7 +180,7 @@ def _acc_rows(acc, xs, w_scale):
     """Checks the int32 accumulators (..., W) and their epilogue's row and
     column scales for the kernel; returns (rows, W, xs, w_scale) as the
     kernel reads them."""
-    rows, w = _rows(acc, "acc", torch.int32)
+    rows, w = _rows(acc, "acc", (torch.int32,))
     if xs.numel() != rows or xs.dtype != torch.float32 or xs.device != acc.device:
         raise ValueError(f"xs must hold {rows} f32 row scales on {acc.device}")
     return rows, w, xs.contiguous(), _vec(w_scale, w, "w_scale")
@@ -172,27 +195,26 @@ def ln_quant(x, scale, bias):
     from ttasr_torch.ops._build import launch
 
     s, b, mask = _vecs(d, scale=scale, bias=bias)
-    launch("ttasr_ln_quant", x.device, x, s, b, codes, scales, rows, d, mask)
+    launch(_entry("ttasr_ln_quant", x), x.device, x, s, b, codes, scales, rows, d,
+           mask)
     count_launch(ln_quant)
     return codes, scales
 
 
 def add_ln_quant(x, y, scale, bias):
-    """B8: x + y -> (bf16 residual, codes and row scales of LN2 of the f32
-    sum)."""
+    """B8: x + y -> (residual in x's type, codes and row scales of LN2 of
+    the f32 sum)."""
     if not _dispatch(x):
         return add_ln_quant_ref(x, y, scale, bias)
     _, d = _rows(x, "x")
-    _rows(y, "y")
-    if y.shape != x.shape or y.device != x.device:
-        raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} must match")
+    _same_rows(x, y, "y")
     rows, codes, scales = _outputs(x)
     resid = torch.empty_like(x)
     from ttasr_torch.ops._build import launch
 
     s, b, mask = _vecs(d, scale=scale, bias=bias)
-    launch("ttasr_add_ln_quant", x.device, x, y, s, b, resid, codes, scales, rows,
-           d, mask)
+    launch(_entry("ttasr_add_ln_quant", x), x.device, x, y, s, b, resid, codes,
+           scales, rows, d, mask)
     count_launch(add_ln_quant)
     return resid, codes, scales
 
@@ -205,7 +227,7 @@ def gelu_quant(h):
     rows, codes, scales = _outputs(h)
     from ttasr_torch.ops._build import launch
 
-    launch("ttasr_gelu_quant", h.device, h, codes, scales, rows, f)
+    launch(_entry("ttasr_gelu_quant", h), h.device, h, codes, scales, rows, f)
     count_launch(gelu_quant)
     return codes, scales
 
@@ -218,7 +240,7 @@ def quant_only(x):
     rows, codes, scales = _outputs(x)
     from ttasr_torch.ops._build import launch
 
-    launch("ttasr_quant_only", x.device, x, codes, scales, rows, d)
+    launch(_entry("ttasr_quant_only", x), x.device, x, codes, scales, rows, d)
     count_launch(quant_only)
     return codes, scales
 
@@ -241,9 +263,9 @@ def gelu_quant_acc(acc, xs, w_scale, b):
 
 
 def _acc_add_ln(entry, x, acc, xs, w_scale, b, scale, bias):
-    """Launches ``entry`` (``ln_quant_acc``'s or ``add_ln_quant_acc``'s) on
-    x (..., D) bf16 and acc (..., D) int32; returns (resid, codes,
-    scales)."""
+    """Launches ``entry`` (``ln_quant_acc``'s or ``add_ln_quant_acc``'s, or
+    its f32 twin) on x (..., D) bf16 or f32 and acc (..., D) int32; returns
+    (resid in x's type, codes, scales)."""
     _, d = _rows(x, "x")
     if acc.shape != x.shape or acc.device != x.device:
         raise ValueError(f"x {tuple(x.shape)} and acc {tuple(acc.shape)} must match")
@@ -253,15 +275,16 @@ def _acc_add_ln(entry, x, acc, xs, w_scale, b, scale, bias):
     resid = torch.empty_like(x)
     from ttasr_torch.ops._build import launch
 
-    launch(entry, x.device, x, acc, xs, ws, b, s, lb, resid, codes, scales, rows, d,
-           mask)
+    launch(_entry(entry, x), x.device, x, acc, xs, ws, b, s, lb, resid, codes,
+           scales, rows, d, mask)
     return resid, codes, scales
 
 
 def ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
     """B5 after W2: ``x' = x + bf16(acc * xs * w_scale + b)`` (the bf16
-    residual add), then LN1 of ``x'`` -> (x', int8 codes, f32 row scales
-    (..., 1)).  x (..., D) bf16; acc (..., D) int32 with row scales xs."""
+    residual add; on f32 rows the f32 sum), then LN1 of ``x'`` -> (x', int8
+    codes, f32 row scales (..., 1)).  x (..., D) bf16 or f32; acc (..., D)
+    int32 with row scales xs."""
     if not _dispatch(x):
         return ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
     out = _acc_add_ln("ttasr_ln_quant_acc", x, acc, xs, w_scale, b, scale, bias)
@@ -272,7 +295,7 @@ def ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
 def add_ln_quant_acc(x, acc, xs, w_scale, b, scale, bias):
     """B8 after wo: ``s = f32(x) + f32(y)``, y = ``acc * xs * w_scale + b``
     rounded to x's type -> (s in x's type, int8 codes and f32 row scales
-    (..., 1) of LN2 of the f32 sum ``s``).  x (..., D) bf16 on the card;
+    (..., 1) of LN2 of the f32 sum ``s``).  x (..., D) bf16 or f32 on the card;
     acc (..., D) int32 with row scales xs."""
     if not _dispatch(x):
         return add_ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias)
@@ -288,20 +311,21 @@ def qkv_epilogue_acc(acc, xs, w_scale, b, q_scale, out_dtype=torch.bfloat16):
     w_scale' and b' are w_scale and b with their first D columns times
     ``q_scale`` (the f32 products; exact for a power of two such as
     64**-0.5).  Returns the (..., 3D) buffer B6 reads; the kernel writes
-    bf16."""
+    bf16 or float32."""
     if not _dispatch(acc):
         return qkv_epilogue_acc_ref(acc, xs, w_scale, b, q_scale, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"the qkv epilogue kernel writes bf16, not {out_dtype}")
+    if out_dtype not in ROW_DTYPES:
+        raise TypeError(f"the qkv epilogue kernel writes one of {ROW_DTYPES}, not "
+                        f"{out_dtype}")
     rows, w, xs, ws = _acc_rows(acc, xs, w_scale)
     if w % 3:
         raise ValueError(f"acc: width {w} is not 3 x D")
     b, mask = _vecs(w, b=b)
-    out = torch.empty(acc.shape, dtype=torch.bfloat16, device=acc.device)
+    out = torch.empty(acc.shape, dtype=out_dtype, device=acc.device)
     from ttasr_torch.ops._build import launch
 
-    launch("ttasr_qkv_epilogue_acc", acc.device, acc, xs, ws, b, out, rows, w,
-           w // 3, float(q_scale), mask)
+    launch(_entry("ttasr_qkv_epilogue_acc", out), acc.device, acc, xs, ws, b, out,
+           rows, w, w // 3, float(q_scale), mask)
     count_launch(qkv_epilogue_acc)
     return out
 

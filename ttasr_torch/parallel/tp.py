@@ -20,6 +20,9 @@ bound to the mesh's model group:
   all-reduces per layer add up, the biases added once after each.
 
 The unembedding stays replicated.  Every rank returns the whole batch.
+:class:`MeshDecoder` holds what the GSPMD decode
+(:class:`ttasr_torch.parallel.gspmd.ShardedDecoder`) shares: the batch
+split, the axis binding and the gathers.
 """
 
 from __future__ import annotations
@@ -137,29 +140,22 @@ def _all_gather_rows(x, group):
     return torch.cat(parts, dim=0)
 
 
-class TPDecoder:
-    """This rank's decoder shard and the mesh it decodes on.
+class MeshDecoder:
+    """This rank's decoder shard (``params``) and the mesh it decodes on:
+    the batch split over ``data``, the decode run with the model axis bound
+    to the mesh's model group.  ``beam``/``greedy`` take the signatures of
+    ``decode.beam_decode``/``decode.greedy_decode`` minus the params, and
+    return the whole batch on every rank.  ``row_parallel`` is the decode's
+    ``tp_row_parallel``."""
 
-    ``beam``/``greedy`` take the signatures of ``decode.beam_decode``/
-    ``decode.greedy_decode`` minus the params, and return the whole batch
-    on every rank.  ``row_parallel=None`` takes v2 when the model axis is
-    wider than 1 and ffn and d_model divide over it, unless
-    ``TTASR_TP_ROW_PARALLEL`` is 0/false/no (read here, once).
-    """
+    params: Dict[str, Any]
+    cfg: Any
+    mesh: Any
+    row_parallel: bool = False
 
-    def __init__(self, params_quantized, cfg, mesh,
-                 row_parallel: Optional[bool] = None):
-        n = mesh.shape["model"]
-        if row_parallel is None:
-            env = os.environ.get("TTASR_TP_ROW_PARALLEL", "1")
-            row_parallel = (env.lower() not in ("0", "false", "no")
-                            and n > 1 and cfg.ffn_dim % n == 0
-                            and cfg.d_model % n == 0)
-        self.row_parallel = bool(row_parallel)
-        self.params = build_tp_shard(params_quantized, n, mesh.coords["model"],
-                                     self.row_parallel)
-        self.cfg = cfg
-        self.mesh = mesh
+    def _decode_params(self):
+        """The params a decode reads (inside the axis binding)."""
+        return self.params
 
     def _run(self, fn, enc_out, prompt, pad_len, opts, ti, temperature=None,
              **kw):
@@ -178,7 +174,7 @@ class TPDecoder:
                                       tp_row_parallel=self.row_parallel)
         sel = torch.as_tensor(rows, device=enc_out.device)
         with bind_axes({"model": self.mesh.groups["model"]}):
-            out = fn(self.params, self.cfg, enc_out.index_select(0, sel),
+            out = fn(self._decode_params(), self.cfg, enc_out.index_select(0, sel),
                      np.asarray(prompt)[rows], np.asarray(pad_len)[rows],
                      opts=tp_opts, ti=ti, **kw)
         group = self.mesh.groups["data"]
@@ -207,3 +203,25 @@ class TPDecoder:
                 seed + self.mesh.coords["data"])
         return self._run(greedy_decode, enc_out, prompt, pad_len, opts, ti,
                          temperature=temps, rng=rng)
+
+
+class TPDecoder(MeshDecoder):
+    """The fused TP decode: this rank's shard of a quantized, unfused
+    decoder (:func:`build_tp_shard`).  ``row_parallel=None`` takes v2 when
+    the model axis is wider than 1 and ffn and d_model divide over it,
+    unless ``TTASR_TP_ROW_PARALLEL`` is 0/false/no (read here, once).
+    """
+
+    def __init__(self, params_quantized, cfg, mesh,
+                 row_parallel: Optional[bool] = None):
+        n = mesh.shape["model"]
+        if row_parallel is None:
+            env = os.environ.get("TTASR_TP_ROW_PARALLEL", "1")
+            row_parallel = (env.lower() not in ("0", "false", "no")
+                            and n > 1 and cfg.ffn_dim % n == 0
+                            and cfg.d_model % n == 0)
+        self.row_parallel = bool(row_parallel)
+        self.params = build_tp_shard(params_quantized, n, mesh.coords["model"],
+                                     self.row_parallel)
+        self.cfg = cfg
+        self.mesh = mesh

@@ -116,21 +116,6 @@ def transcribe_clips(engine, examples, beams=(1, 5), **overrides):
     return per_clip, hyps
 
 
-def served_params(params, compute: str):
-    """The trained params as a ``compute`` engine serves them: int8
-    quantizes bfloat16 weights, as ``WhisperEngine`` loads a model for int8
-    (the s8 x s8 encoder's row kernels read bfloat16 rows on the card);
-    the float engines take the params as they are."""
-    if compute != "int8":
-        return params
-    import torch
-
-    from ttasr_torch.core.checkpoint import map_leaves
-
-    return map_leaves(lambda _, x: x.to(torch.bfloat16) if x.is_floating_point() else x,
-                      params)
-
-
 def device_name(device) -> str:
     import torch
 
@@ -154,7 +139,7 @@ def run_check(steps=800, n_clips=6, lr=2e-3, seed=0, max_cer=0.05,
             examples, model, steps, lr, seed, device, os.path.join(tmp, "out"))
 
         def make_engine(**kw):
-            return WhisperEngine(model, params=served_params(params, compute), config=cfg,
+            return WhisperEngine(model, params=params, config=cfg,
                                  tokenizer=tok, compute_type=compute, device=device, **kw)
 
         engine = make_engine()
