@@ -287,7 +287,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 19. the GSPMD mesh path (after 12, on the main path's window and engine):
    ``WhisperEngine("large-v3", mesh=...)`` on meshes the fused TP decode
    refuses, which decode through ``ShardedDecoder`` (``shard_params``'
-   slices and the unfused graph), 96 tokens beam 5 and greedy through the
+   slices and the unfused graph), ``BRANCH_STEPS`` tokens beam 5 and greedy through the
    engine's ``run_*_decode``: (a) int8 at (1, 4) on four ``gloo`` ranks of
    this card (5 heads a shard, the embedding whole), B13 exactly 32 x steps
    on each rank; (b) bf16 at (1, 2) on two (10 heads and 25933 vocabulary
@@ -307,6 +307,28 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    plain version, timed at h = 5, K = 5.  (d), the int8 engine on float32
    params, is phase 18's int8 recognition leg and phase 5's float32 rows.
    Prints its seconds after phase 12 and the ranks' from their start.
+20. fine-tuning on a mesh (its ranks start before 13, its comparisons
+   run after 18): large-v3's width at
+   ``MESH_TRAIN_LAYERS`` + ``MESH_TRAIN_LAYERS`` layers on two ``gloo``
+   ranks of this card (processes of this script, ``--train-rank``), while
+   this process runs the one-card references: (a) mesh (2, 1), f32,
+   ZeRO-1, remat, ``MESH_TRAIN_STEPS`` steps on a global batch of four
+   synthesized clips (labels of unequal lengths): losses and final params
+   against the one-card run, within ``CONTROL_MARGIN`` x a control that
+   only reorders sums (the two halves' grads, each loss over the global
+   token count, summed); (b) mesh (1, 2), bf16 compute (10 heads and 25933
+   vocabulary rows a rank): the first step's loss and grads against the
+   one-card bf16 step, within ``CONTROL_MARGIN`` x a control with a 2-way
+   split's arithmetic (column and row blocks, the logits in 2 vocabulary
+   blocks); no kernel launched in a-c; (c) each rank's peak memory of the
+   first step with ZeRO-1 against replicated moments, the difference within
+   ``ZERO1_PEAK_REL`` of half the moments' bytes that
+   ``ttasr_torch.tools.memory_accounting`` reckons (printed beside its
+   full-depth numbers); (d) a ``Trainer`` at (2, 1): 2 steps and its
+   checkpoint, greedy ``evaluate`` on two clips with B11 exactly
+   ``MESH_TRAIN_LAYERS`` launches a chunk on each rank and the same metrics
+   on both, then the checkpoint resumed in this process, equal bit for bit
+   to the ranks' gathered state; its seconds and each rank's peak memory.
 
 Every path's counts are set to 0 just before it and read just after, and
 each path ends with one 30 s window through its encoder, timed and
@@ -2326,7 +2348,10 @@ def run_int8_path(card: str, act8: bool) -> dict:
 # Phase 11: the decode's other branches on the main path's engine
 # ---------------------------------------------------------------------------
 
-BRANCH_STEPS = 96  # tokens per branch decode: three growth buckets
+# tokens per branch decode (phases 11, 12 and 19): two growth buckets, so
+# the cache grows once; 96 (three buckets) until the script's phases
+# outgrew the 1200-s limit on a slow host (1160 s of command with 96)
+BRANCH_STEPS = 64
 STEP_LOGIT_REL = 1.4e-2  # ROADMAP C: step logits within 1.4 % relative
 
 
@@ -2633,7 +2658,7 @@ TP_RANKS = 2  # the two-rank leg: large-v3's 20 heads split into 2 x 10
 # far above STEP_LOGIT_REL: a one-card decode whose only change is the
 # order (CONTROLS) moves as far.  So those legs are held to the controls'
 # gaps, measured in the same run, times this margin for the spread of a
-# maximum over 96 steps; the legs whose arithmetic is the main leg's are
+# maximum over BRANCH_STEPS steps; the legs whose arithmetic is the main leg's are
 # held to STEP_LOGIT_REL and equal tokens.
 CONTROL_MARGIN = 1.5
 
@@ -3122,8 +3147,8 @@ def sharded_ranks(engine, main):
 
 def run_sharded_paths(engine, main, card: str, ranks=None) -> dict:
     """Phase 19: the GSPMD decode (``WhisperEngine(mesh=...)`` on a mesh the
-    fused TP decode refuses) on the main path's window, 96 tokens beam 5
-    and greedy.  (a) int8 at (1, 4) and (b) bf16 at (1, 2) on gloo ranks of
+    fused TP decode refuses) on the main path's window, BRANCH_STEPS tokens
+    beam 5 and greedy.  (a) int8 at (1, 4) and (b) bf16 at (1, 2) on gloo ranks of
     this card (``ranks``, :func:`sharded_ranks`, started before phase 12;
     None: started here); meanwhile in this process the one-card
     references (the unfused int8 graph of the main engine's weights, the
@@ -5120,6 +5145,500 @@ def run_recognition(card: str) -> dict:
                 recognised=recognised, vad=vad, tools=tools, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: fine-tuning on a mesh
+# ---------------------------------------------------------------------------
+
+# large-v3's width at 8 of its 32 + 32 layers: two ranks and the one-card
+# references share the card, and the script keeps to its 1200 s
+MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LR = 1e-5
+MESH_TRAIN_SEED = 7
+MESH_RANKS = 2
+# leg a's batch: four synthesized clips, their labels of unequal lengths, so
+# the two ranks' rows hold unequal token counts
+MESH_TRAIN_CLIPS = (("mesh0", 12.0, 50, TRAIN_TEXT), ("mesh1", 20.0, 51, TRAIN_TEXT[:9]),
+                    ("mesh2", 27.0, 52, "the weather is fine today"),
+                    ("mesh3", 8.0, 53, TRAIN_TEXT[9:]))
+# leg c: ZeRO-1's saving in peak memory against half the moments' bytes
+# that ttasr_torch.tools.memory_accounting reckons at this depth
+ZERO1_PEAK_REL = 0.15
+
+
+def _mesh_train_config():
+    from ttasr_torch.models.whisper.config import PRESETS
+
+    n = MESH_TRAIN_LAYERS
+    return dataclasses.replace(PRESETS["large-v3"], name=f"large-v3-{n}+{n}",
+                               encoder_layers=n, decoder_layers=n)
+
+
+def _mesh_train_batch(root: str, tok) -> dict:
+    """Leg a's global batch of MESH_TRAIN_CLIPS (on the card), by the
+    port's data path."""
+    from ttasr_torch.audio.io import write_wav
+    from ttasr_torch.train.data import batch_iterator, load_tsv_corpus
+    from ttasr_torch.train.train_step import batch_to
+
+    clips = os.path.join(root, "mesh", "clips")
+    os.makedirs(clips)
+    rows = ["path\tsentence"]
+    for name, seconds, seed, text in MESH_TRAIN_CLIPS:
+        audio, _ = synth_speech(np.random.default_rng(seed), seconds)
+        write_wav(os.path.join(clips, f"{name}.wav"), audio, SR)
+        rows.append(f"{name}.wav\t{text}")
+    with open(os.path.join(root, "mesh", "train.tsv"), "w", encoding="utf-8") as fh:
+        fh.write("\n".join(rows) + "\n")
+    return batch_to(next(batch_iterator(
+        load_tsv_corpus(root, "mesh", "train"), tok, batch_size=len(MESH_TRAIN_CLIPS),
+        n_mels=_mesh_train_config().num_mel_bins, shuffle=False,
+        label_pad_to=TRAIN_LABEL_PAD, device="cuda")), "cuda")
+
+
+def _mesh_optimizer():
+    from ttasr_torch.train.train_step import make_optimizer
+
+    return make_optimizer(learning_rate=MESH_TRAIN_LR, warmup_steps=0, total_steps=100)
+
+
+def _mesh_trainer_config(out: str):
+    from ttasr_torch.train.trainer import TrainerConfig
+
+    return TrainerConfig(output_dir=out, max_steps=2, save_steps=1000,
+                         per_device_train_batch_size=len(TRAIN_CLIPS),
+                         per_device_eval_batch_size=EVAL_BATCH,
+                         generation_max_length=EVAL_MAX_LENGTH, learning_rate=MESH_TRAIN_LR,
+                         warmup_steps=0, logging_steps=1, label_pad_to=TRAIN_LABEL_PAD,
+                         seed=0)
+
+
+def _state_digest(flat: dict) -> dict:
+    """Two sums of each tensor's 32-bit words (plain, and weighted by the
+    position), on the card: equal digests stand for equal bits."""
+    import torch
+
+    out = {}
+    for k, t in flat.items():
+        if t.dim() == 0:
+            out[k] = [int(t)]
+            continue
+        words = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        weight = torch.arange(words.numel(), device=words.device) % 65521 + 1
+        out[k] = [int(words.sum()), int((words * weight).sum())]
+    return out
+
+
+def _gaps(got: dict, want: dict, relative: bool) -> dict:
+    """Per-leaf max|got - want| (over max|want| with ``relative``): the
+    worst and the median over the leaves, and the worst leaf."""
+    per = {}
+    for k, w in want.items():
+        gap = (got[k].float() - w.float()).abs().max().item()
+        per[k] = gap / max(w.abs().max().item(), 1e-30) if relative else gap
+    worst = max(per, key=per.get)
+    return dict(worst=per[worst], median=float(statistics.median(per.values())),
+                worst_leaf=worst)
+
+
+def _hold_to_control(label, mesh: dict, control: dict, card: str) -> None:
+    """ROADMAP C3's rule: each gap of the mesh to the one-card run within
+    CONTROL_MARGIN x the one-card control's gap."""
+    limits = {k: CONTROL_MARGIN * control[k] for k in mesh if k != "worst_leaf"}
+    print(f"{label}: to the one-card run {json.dumps(mesh)}; the control's "
+          f"{json.dumps(control)}; limits {json.dumps(limits)} ({card})")
+    check(all(mesh[k] <= limits[k] for k in limits),
+          f"{label}: further from the one-card run than {CONTROL_MARGIN} x its control")
+
+
+@contextlib.contextmanager
+def _train_in_blocks(n: int):
+    """The one-card training forward with the arithmetic of an n-way model
+    split and no collective: q/k/v (self and cross) and w1 as n column
+    blocks, wo, wo_c and w2 as n partial products of their row blocks
+    summed in f32 with the bias added once after, the logits as n
+    vocabulary blocks (leg b's control)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ttasr_torch.models.whisper import model as mm
+
+    saved = {k: getattr(mm, k) for k in ("_self_attn", "_decoder_attentions", "_mlp",
+                                         "_unembed")}
+    proj = mm._proj
+
+    def cols(x, w, b=None):
+        k = w.shape[-1] // n
+        return torch.cat([proj(x, w[:, i * k:(i + 1) * k],
+                               None if b is None else b[i * k:(i + 1) * k])
+                          for i in range(n)], dim=-1)
+
+    def rows(x, w, b):
+        k = w.shape[0] // n
+        total = None
+        for i in range(n):
+            part = torch.matmul(x[..., i * k:(i + 1) * k].float(), w[i * k:(i + 1) * k].float())
+            total = part if total is None else total + part
+        return (total + b.float()).to(x.dtype)
+
+    def attention(hq, hkv, blk, sfx, heads, mask):
+        q, k, v = (cols(hq, blk["wq" + sfx], blk["bq" + sfx]), cols(hkv, blk["wk" + sfx]),
+                   cols(hkv, blk["wv" + sfx], blk["bv" + sfx]))
+        out = mm._attention(mm._split_heads(q, heads), mm._split_heads(k, heads),
+                            mm._split_heads(v, heads), mask)
+        return rows(mm._merge_heads(out), blk["wo" + sfx], blk["bo" + sfx])
+
+    def self_attn(x, blk, heads, mask=None, fused=False, t_real=None):
+        return attention(x, x, blk, "", heads, mask)
+
+    def decoder_attentions(x, blk, enc_out, heads, causal):
+        x = x + attention(mm._ln(x, blk["ln1_s"], blk["ln1_b"]),
+                          mm._ln(x, blk["ln1_s"], blk["ln1_b"]), blk, "", heads, causal)
+        return x + attention(mm._ln(x, blk["lnc_s"], blk["lnc_b"]), enc_out, blk, "_c",
+                             heads, None)
+
+    def mlp(x, blk):
+        return rows(F.gelu(cols(x, blk["w1"], blk["b1"])), blk["w2"], blk["b2"])
+
+    def unembed(x, dec, cfg=None):
+        e = dec["embed"]
+        k = e.shape[0] // n
+        return torch.cat([torch.matmul(x.float(), e[i * k:(i + 1) * k].float().t())
+                          for i in range(n)], dim=-1)
+
+    mm._self_attn, mm._decoder_attentions, mm._mlp, mm._unembed = (
+        self_attn, decoder_attentions, mlp, unembed)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(mm, k, fn)
+
+
+def _one_card_references(cfg, batch, card: str) -> dict:
+    """The one-card runs the ranks are held to, in this process while they
+    run: (a) MESH_TRAIN_STEPS f32 steps on the global batch, and its
+    control, the batch as two halves, each loss over the global token count,
+    the grads summed; (b) the bf16 step's loss and grads, and its control,
+    the arithmetic of a 2-way model split (:func:`_train_in_blocks`)."""
+    import torch
+
+    from ttasr_torch.core.checkpoint import named_leaves
+    from ttasr_torch.models.whisper.model import init_params
+    from ttasr_torch.train.train_step import (
+        batch_to,
+        init_train_state,
+        make_train_step,
+        value_and_grad,
+    )
+
+    refs = {}
+    for control in (False, True):
+        opt = _mesh_optimizer()
+        state = init_train_state(init_params(cfg, seed=MESH_TRAIN_SEED, device="cuda"), opt)
+        step = make_train_step(cfg, opt, remat=True)
+        count = (batch["labels"] != -100).sum().to(torch.float32)
+        losses = []
+        for _ in range(MESH_TRAIN_STEPS):
+            if not control:
+                state, loss = step(state, batch)
+            else:
+                half = len(MESH_TRAIN_CLIPS) // MESH_RANKS
+                parts = [value_and_grad(state.params, cfg, batch_to(
+                    {k: v[i * half:(i + 1) * half] for k, v in batch.items()}, "cuda"),
+                    remat=True, token_count=count) for i in range(MESH_RANKS)]
+                loss = parts[0][0] + parts[1][0]
+                grads = {k: parts[0][1][k] + parts[1][1][k] for k in parts[0][1]}
+                del parts
+                opt.apply(grads, state.opt_state, state.params)
+                del grads
+                state.step += 1
+            losses.append(float(loss))
+        refs["a control" if control else "a"] = dict(
+            losses=losses, params={k: v.detach() for k, v in named_leaves(state.params).items()})
+        del state, step
+    params = init_params(cfg, seed=MESH_TRAIN_SEED, device="cuda")
+    loss, grads = value_and_grad(params, cfg, batch_to(batch, "cuda"), remat=True,
+                                 compute_dtype=torch.bfloat16)
+    refs["b"] = dict(loss=float(loss), grads=grads)
+    with _train_in_blocks(MESH_RANKS):
+        loss, grads = value_and_grad(params, cfg, batch_to(batch, "cuda"), remat=True,
+                                     compute_dtype=torch.bfloat16)
+    refs["b control"] = dict(loss=float(loss), grads=grads)
+    del params
+    torch.cuda.empty_cache()
+    return refs
+
+
+@contextlib.contextmanager
+def mesh_train_ranks():
+    """Phase 20's ranks, started: the corpus and leg a's batch written to a
+    temporary directory, then MESH_RANKS processes of this script
+    (``--train-rank``); those still running are killed on the way out.
+    Yields {store, batch, procs, t0}.  The ranks need little of the card
+    and no kernel but B11, so they run beside this process's phases 13,
+    17 and 18."""
+    import torch
+
+    from ttasr_torch.text.tokenizer import build_byte_fallback_tokenizer
+
+    with tempfile.TemporaryDirectory() as store:
+        _train_corpus(os.path.join(store, "corpus"))
+        batch = _mesh_train_batch(os.path.join(store, "corpus"),
+                                  build_byte_fallback_tokenizer())
+        torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(store, "batch.pt"))
+        procs = []
+        try:
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--train-rank", str(r), str(MESH_RANKS), store])
+                     for r in range(MESH_RANKS)]
+            yield dict(store=store, batch=batch, procs=procs, t0=time.perf_counter())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+
+
+def run_mesh_training(card: str, started=None) -> dict:
+    """Phase 20: fine-tuning on a mesh, large-v3's width at
+    MESH_TRAIN_LAYERS + MESH_TRAIN_LAYERS layers, on MESH_RANKS ``gloo``
+    ranks of this card (processes of this script, ``--train-rank``):
+    (a) mesh (2, 1), f32, ZeRO-1, remat, MESH_TRAIN_STEPS steps on a global
+    batch of 4; (b) mesh (1, 2), bf16 compute, the first step's loss and
+    grads; both held to one-card runs under ROADMAP C3's rule; (c) each
+    rank's peak memory over leg a's first step with ZeRO-1 against the same
+    step with replicated moments, the difference within ZERO1_PEAK_REL of
+    half the moments' bytes ``memory_accounting`` reckons; (d) a
+    ``Trainer`` at (2, 1): 2 steps, its checkpoint, greedy ``evaluate`` on
+    two clips (B11 exactly MESH_TRAIN_LAYERS times a chunk on each rank),
+    then that checkpoint resumed in this process, its state equal bit for
+    bit to the ranks' gathered one.  ``started``: :func:`mesh_train_ranks`'
+    ranks, started before phase 13 (None: started here)."""
+    import torch
+
+    from ttasr_torch.models.whisper.model import init_params
+    from ttasr_torch.text.tokenizer import build_byte_fallback_tokenizer
+    from ttasr_torch.tools.memory_accounting import account
+    from ttasr_torch.train.trainer import Trainer
+
+    if started is None:
+        with mesh_train_ranks() as ranks:
+            return run_mesh_training(card, ranks)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = _mesh_train_config()
+    tok = build_byte_fallback_tokenizer()
+    store = started["store"]
+    refs = _one_card_references(cfg, started["batch"], card)
+    own = time.perf_counter() - t_phase
+    codes = [p.wait(timeout=900) for p in started["procs"]]
+    check(codes == [0] * MESH_RANKS, f"mesh training rank exit codes {codes}")
+    rank_s = time.perf_counter() - started["t0"]
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(store, f"rank{r}.json"), encoding="utf-8") as fh:
+            ranks.append(json.load(fh))
+    for key in ("a", "b", "c", "d"):
+        check(all(rk[key]["same_on_every_rank"] == ranks[0][key]["same_on_every_rank"]
+                  for rk in ranks), f"leg {key}: the ranks disagree")
+
+    # (a) the losses and the final params against the one-card run
+    a = ranks[0]["a"]
+    got = torch.load(os.path.join(store, "a_params.pt"), map_location="cuda")
+    ref, ctl = refs["a"], refs["a control"]
+
+    def loss_gap(losses, want):
+        return max(abs(x - y) for x, y in zip(losses, want))
+
+    mesh_gaps = dict(loss=loss_gap(a["losses"], ref["losses"]),
+                     **_gaps(got, ref["params"], relative=False))
+    control_gaps = dict(loss=loss_gap(ctl["losses"], ref["losses"]),
+                        **_gaps(ctl["params"], ref["params"], relative=False))
+    print(f"leg a, mesh (2, 1) f32 ZeRO-1: losses {json.dumps(a['losses'])}, one card "
+          f"{json.dumps(ref['losses'])}, control {json.dumps(ctl['losses'])}; ms per "
+          f"step (rank 0) {json.dumps(a['ms'])} ({card})")
+    _hold_to_control("leg a: params after 3 steps (max |gap| per leaf)", mesh_gaps,
+                     control_gaps, card)
+    del got, refs["a"], refs["a control"]
+
+    # (b) the bf16 step's loss and grads at (1, 2)
+    b = ranks[0]["b"]
+    got = torch.load(os.path.join(store, "b_grads.pt"), map_location="cuda")
+    mesh_gaps = dict(loss=abs(b["loss"] - refs["b"]["loss"]),
+                     **_gaps(got, refs["b"]["grads"], relative=True))
+    control_gaps = dict(loss=abs(refs["b control"]["loss"] - refs["b"]["loss"]),
+                        **_gaps(refs["b control"]["grads"], refs["b"]["grads"],
+                                relative=True))
+    print(f"leg b, mesh (1, 2) bf16: loss {b['loss']!r}, one card {refs['b']['loss']!r}, "
+          f"control {refs['b control']['loss']!r}; value_and_grad {b['ms']:.1f} ms "
+          f"(rank 0) ({card})")
+    _hold_to_control("leg b: the first step's grads (max |gap| / max |g| per leaf)",
+                     mesh_gaps, control_gaps, card)
+    del got, refs
+
+    # (c) ZeRO-1's saving in peak memory
+    reckoned = account("large-v3", data=MESH_RANKS, model_axis=1,
+                       batch=len(MESH_TRAIN_CLIPS), layers=MESH_TRAIN_LAYERS)["per_chip_gb"]
+    half_moments = reckoned["adamw_moments_if_replicated"] / 2
+    full = account("large-v3", data=MESH_RANKS, model_axis=1,
+                   batch=len(MESH_TRAIN_CLIPS))["per_chip_gb"]
+    peaks = []
+    for r, rk in enumerate(ranks):
+        zero1, repl = rk["a"]["peak_gib"][0], rk["c"]["peak_gib"][0]
+        peaks.append(dict(zero1=zero1, replicated=repl))
+        print(f"leg c, rank {r}: peak of the first step {zero1:.3f} GiB with ZeRO-1 "
+              f"({rk['a']['peak_gib'][-1]:.3f} after {MESH_TRAIN_STEPS}), {repl:.3f} GiB "
+              f"with replicated moments: {repl - zero1:.3f} GiB saved, half the moments "
+              f"reckoned {half_moments:.3f} GiB ({card})")
+        check(abs((repl - zero1) - half_moments) <= ZERO1_PEAK_REL * half_moments,
+              f"leg c, rank {r}: ZeRO-1 saved {repl - zero1:.3f} GiB, not within "
+              f"{ZERO1_PEAK_REL} of {half_moments:.3f}")
+    print(f"memory_accounting at {MESH_TRAIN_LAYERS} + {MESH_TRAIN_LAYERS} layers, (2, 1): "
+          f"{json.dumps({k: round(v, 3) for k, v in reckoned.items()})}; at full depth: "
+          f"{json.dumps({k: round(v, 3) for k, v in full.items()})} (GiB per card, of "
+          f"the H100's 74.5 GiB)")
+
+    # (d) the Trainer's checkpoint resumed in this process
+    d = ranks[0]["d"]
+    for r, rk in enumerate(ranks):
+        print(f"leg d, rank {r}: {json.dumps(rk['d']['same_on_every_rank']['metrics'])}, "
+              f"train {rk['d']['train_s']:.1f} s, evaluate {rk['d']['evaluate_s']:.1f} s, "
+              f"B11 launches {rk['d']['b11']} ({card})")
+    t0 = time.perf_counter()
+    trainer = Trainer(init_params(cfg, seed=MESH_TRAIN_SEED + 2, device="cuda"), cfg, tok,
+                      _mesh_trainer_config(os.path.join(store, "d")))
+    check(trainer.maybe_resume() == 2, "leg d: checkpoint-2 did not resume")
+    digest = _state_digest(trainer.state.state_dict())
+    resume_s = time.perf_counter() - t0
+    check(digest == d["same_on_every_rank"]["digest"],
+          "leg d: the resumed state differs from the ranks' gathered state")
+    print(f"leg d: checkpoint-2 of the (2, 1) Trainer resumed in one process in "
+          f"{resume_s:.1f} s, its {len(digest)} tensors equal bit for bit to the ranks' "
+          f"gathered state ({card})")
+    del trainer
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 20 (fine-tuning on a mesh): {seconds:.1f} s, the one-card references "
+          f"{own:.1f} s of it; the ranks {rank_s:.1f} s from their start "
+          f"({json.dumps([rk['seconds'] for rk in ranks])} s of their own); peak memory per "
+          f"rank {json.dumps(peaks)} GiB ({card})")
+    return dict(seconds=seconds, rank_seconds=rank_s, peaks=peaks,
+                ms_per_step=ranks[0]["a"]["ms"], half_moments_gib=half_moments)
+
+
+def mesh_train_rank_main(rank: int, world: int, store: str) -> int:
+    """One rank of :func:`run_mesh_training`: legs a-d on meshes (2, 1) and
+    (1, 2) of ``world`` gloo ranks; writes ``rank<r>.json`` and, rank 0,
+    leg a's final params (``a_params.pt``) and leg b's grads
+    (``b_grads.pt``), each gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from ttasr_torch import resolve_device
+    from ttasr_torch.core.checkpoint import named_leaves
+    from ttasr_torch.models.whisper.model import init_params
+    from ttasr_torch.ops import _build
+    from ttasr_torch.parallel.distributed import initialize_distributed
+    from ttasr_torch.parallel.sharding import create_mesh, gather_leaf, shard_batch
+    from ttasr_torch.text.tokenizer import build_byte_fallback_tokenizer
+    from ttasr_torch.train.data import load_tsv_corpus
+    from ttasr_torch.train.train_step import (
+        batch_to,
+        init_train_state,
+        make_train_step,
+        mesh_value_and_grad,
+    )
+    from ttasr_torch.train.trainer import Trainer
+
+    t_rank = time.perf_counter()
+    resolve_device("cuda")
+    torch.set_num_threads(1)
+    _build.load_library()
+    initialize_distributed(f"file://{store}/pg", world_size=world, rank=rank, backend="gloo")
+    out = {}
+    try:
+        data_mesh, model_mesh = create_mesh(world, 1), create_mesh(1, world)
+        cfg = _mesh_train_config()
+        batch = batch_to(torch.load(os.path.join(store, "batch.pt")), "cuda")
+        counters = _every_counter()
+        for fn in counters:
+            fn.launches = 0
+        # (a) ZeRO-1, then (c) its first step with replicated moments (the
+        # peak comes in the first step: every tensor is live by its end)
+        for leg, zero1, steps in (("a", True, MESH_TRAIN_STEPS), ("c", False, 1)):
+            opt = _mesh_optimizer()
+            state = init_train_state(init_params(cfg, seed=MESH_TRAIN_SEED, device="cuda"),
+                                     opt, data_mesh, zero1=zero1)
+            step = make_train_step(cfg, opt, mesh=data_mesh, remat=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, peaks = [], [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, loss = step(state, batch)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            out[leg] = dict(losses=losses, ms=ms, peak_gib=peaks,
+                            same_on_every_rank=dict(losses=losses))
+            if zero1:
+                whole = named_leaves(state.whole_params())
+                if rank == 0:
+                    torch.save(whole, os.path.join(store, "a_params.pt"))
+                del whole
+            del state, step
+            torch.cuda.empty_cache()
+        # (b) the bf16 step's loss and grads on the (1, 2) model split
+        state = init_train_state(init_params(cfg, seed=MESH_TRAIN_SEED, device="cuda"),
+                                 _mesh_optimizer(), model_mesh)
+        rows, _ = shard_batch(batch, model_mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = mesh_value_and_grad(state, cfg, rows, remat=True,
+                                          compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        b_ms = 1e3 * (time.perf_counter() - t0)
+        whole = {k: gather_leaf(g, state.layout.params[k], model_mesh) for k, g in grads.items()}
+        if rank == 0:
+            torch.save(whole, os.path.join(store, "b_grads.pt"))
+        out["b"] = dict(loss=float(loss), ms=b_ms, same_on_every_rank=dict(loss=float(loss)))
+        del state, grads, whole
+        torch.cuda.empty_cache()
+        _expect(f"rank {rank}: legs a-c (training runs no kernel)",
+                {fn.__name__: fn.launches for fn in counters}, {})
+        # (d) the Trainer at (2, 1): 2 steps, the checkpoint, evaluate
+        tok = build_byte_fallback_tokenizer()
+        corpus = os.path.join(store, "corpus")
+        trainer = Trainer(init_params(cfg, seed=MESH_TRAIN_SEED + 1, device="cuda"), cfg, tok,
+                          _mesh_trainer_config(os.path.join(store, "d")), mesh=data_mesh)
+        t0 = time.perf_counter()
+        trainer.train(load_tsv_corpus(corpus, "synth", "train"))
+        train_s = time.perf_counter() - t0
+        examples = load_tsv_corpus(corpus, "synth", "test")
+        chunks = -(-len(examples) // EVAL_BATCH)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate(examples)
+        torch.cuda.synchronize()
+        evaluate_s = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in counters}
+        _expect(f"rank {rank}: Trainer.evaluate", counts,
+                {"encoder_attention_merged": MESH_TRAIN_LAYERS * chunks})
+        digest = _state_digest(trainer.state.state_dict())
+        out["d"] = dict(train_s=train_s, evaluate_s=evaluate_s,
+                        b11=counts["encoder_attention_merged"],
+                        same_on_every_rank=dict(metrics=metrics, digest=digest))
+        out["seconds"] = round(time.perf_counter() - t_rank, 1)
+        with open(os.path.join(store, f"rank{rank}.json"), "w", encoding="utf-8") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 KERNELS = [  # wrapper name, source, the TPU kernel it replaces
     ("encoder_attention_merged", "ttasr_torch/csrc/encoder_attention.cu",
      "ttasr/ops/encoder_attention_pallas.py:156"),
@@ -5218,9 +5737,13 @@ def main() -> int:
     b6_windows = measured.pop("b6_windows")
     bf16 = run_bf16_path(card)
     main_path = run_int8_path(card, act8=True)
-    int8_bf16_encoder = run_int8_path(card, act8=False)
-    training = run_training(card)
-    recognition = run_recognition(card)
+    # phase 20's ranks train beside phases 13, 17 and 18 (8.2 GiB a rank at
+    # most, beside phase 17's 37 GiB)
+    with mesh_train_ranks() as ranks:
+        int8_bf16_encoder = run_int8_path(card, act8=False)
+        training = run_training(card)
+        recognition = run_recognition(card)
+        mesh_training = run_mesh_training(card, ranks)
     launches = dict(main_path["counts"], encoder_attention_merged=bf16["launches"])
     for name, leg in BRANCH_LAUNCHES.items():
         launches[name] = main_path["branches"][leg]["counts"][name]
@@ -5259,6 +5782,9 @@ def main() -> int:
           f"(plain {sharded['b13_odd_heads']['plain_ms']:.4f}, bound "
           f"{sharded['b13_odd_heads']['bound_ms']:.4f}); phase 19 "
           f"{sharded['seconds']:.1f} s ({card})")
+    print(f"phase 20 (fine-tuning on a mesh): {mesh_training['seconds']:.1f} s, leg a "
+          f"ms per step {json.dumps(mesh_training['ms_per_step'])}, peak GiB per rank "
+          f"{json.dumps(mesh_training['peaks'])} ({card})")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches[name],
@@ -5279,6 +5805,8 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--sharded-rank"]:  # a rank of run_sharded_paths
             sys.exit(sharded_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                                        sys.argv[5]))
+        if sys.argv[1:2] == ["--train-rank"]:  # a rank of run_mesh_training
+            sys.exit(mesh_train_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)

@@ -2,8 +2,9 @@
 copies of the JAX package's host modules behave as the originals.
 
 - Every ``ttasr_torch`` module (``ttasr_torch.parallel`` included), and
-  ``chip_smoke.py`` loaded as a module, imports in a subprocess where
-  ``ttasr``, ``tools``, ``jax`` and ``jaxlib`` are blocked.
+  ``chip_smoke.py`` loaded as a module (its rank entries among its
+  functions), imports in a subprocess where ``ttasr``, ``tools``, ``jax``
+  and ``jaxlib`` are blocked.
 - No ``import ttasr`` or ``from ttasr.`` (``ttasr_torch`` aside) in the
   port's sources or ``chip_smoke.py``.
 - The copies agree with their originals: tokenizer encode and decode (BPE
@@ -23,7 +24,8 @@ copies of the JAX package's host modules behave as the originals.
   ``api/passwords.py``, ``text/filters.py`` and ``streaming/utils.py`` with
   ``ttasr.`` read as ``ttasr_torch.``, and the two test pages byte for byte.
 - The training modules (``ttasr_torch/train/``, ``cli/train.py``,
-  ``core/checkpoint.py``), the VAD model and the tools (``tools/``,
+  ``core/checkpoint.py``, the mesh's ``parallel/`` modules with
+  ``tp_train.py``), the VAD model and the tools (``tools/``,
   ``core/flops.py``) import nothing of ``jax``, ``optax``, ``orbax`` or
   ``ttasr``; ``train/data.py`` is the original's code with its
   ``device`` argument, ``get_last_checkpoint``/``_cleanup_old`` and
@@ -115,11 +117,17 @@ _ISOLATED = textwrap.dedent("""
              "ttasr_torch.tools", "ttasr_torch.tools.synth",
              "ttasr_torch.tools.train_vad", "ttasr_torch.tools.check_trained_recognition",
              "ttasr_torch.tools.check_beam_divergence",
-             "ttasr_torch.tools.profile_decode"}} <= set(names), names
+             "ttasr_torch.tools.profile_decode", "ttasr_torch.parallel.tp_train",
+             "ttasr_torch.parallel.gspmd",
+             "ttasr_torch.tools.memory_accounting"}} <= set(names), names
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
-    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    # the rank entries run in processes of their own: present, and loaded here
+    for entry in ("tp_rank_main", "sharded_rank_main", "mesh_train_rank_main"):
+        assert callable(getattr(smoke, entry)), entry
     loaded = {{m.split(".")[0] for m in sys.modules}}
     assert not loaded & set({blocked!r}), loaded & set({blocked!r})
     print(len(names))
@@ -489,7 +497,8 @@ TRAINING_MODULES = ("train/__init__.py", "train/data.py", "train/spec_augment.py
                     "core/checkpoint.py", "core/flops.py", "audio/vad_model.py",
                     "tools/__init__.py", "tools/synth.py", "tools/train_vad.py",
                     "tools/check_trained_recognition.py", "tools/check_beam_divergence.py",
-                    "tools/profile_decode.py")
+                    "tools/profile_decode.py", "tools/memory_accounting.py",
+                    "parallel/tp_train.py", "parallel/sharding.py", "parallel/distributed.py")
 
 
 def test_training_modules_import_no_jax_optax_orbax():

@@ -421,11 +421,25 @@ def test_gradient_accumulation_matches_multisteps():
 
 
 def test_a_mesh_raises():
+    """A mesh without its process groups (built by hand, no group up)
+    raises, naming ``initialize_distributed``; a batch that the data axes
+    do not divide raises, as ``jax.device_put`` does (the four-rank step:
+    ``tests/test_torch_mesh_train.py``)."""
+    from ttasr_torch.parallel import sharding
+
     opt = tts.make_optimizer()
-    with pytest.raises(NotImplementedError, match="A12"):
-        tts.make_train_step(TCFG, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        tts.init_train_state(_port_params(), opt, mesh=object())
+    shape = {"data": 2, "model": 1}
+    mesh = sharding.Mesh(shape=shape, coords=sharding.mesh_coords(shape, 1), groups={})
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        tts.make_train_step(TCFG, opt, mesh=mesh)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        tts.init_train_state(_port_params(), opt, mesh=mesh)
+    b1, _ = _batches()
+    rows, (first, total) = sharding.shard_batch(dict(b1), mesh)
+    assert (first, total) == (1, 2) and all(len(v) == 1 for v in rows.values())
+    np.testing.assert_array_equal(rows["labels"], b1["labels"][1:])
+    with pytest.raises(ValueError, match="1 rows does not split over the data axes' 2"):
+        sharding.shard_batch({k: v[:1] for k, v in b1.items()}, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -17,13 +17,19 @@ order, ``evaluate``) and ``python -m ttasr_torch.cli.train``.
   the same hypotheses as the JAX ``Trainer`` at T = 0 (greedy, beams 2,
   ``forced_decoder_ids`` with ``suppress_tokens``) and the same CER.
 - The CLI: ``--device cpu`` end to end, ``--preprocessing_only``, no run
-  without CUDA unless ``--device cpu``, and a mesh raises.
+  without CUDA unless ``--device cpu``, a mesh in one process raises, and
+  ``--mesh_data 2`` on two ``gloo`` ranks started with torchrun's
+  variables writes the checkpoint and the model of the one-process run
+  (params and moments within rtol 2e-5, atol 2e-6; the counters equal).
 """
 
 import dataclasses
 import functools
 import json
 import os
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -222,9 +228,17 @@ def test_resume_precedence(tmp_path):
 
 
 def test_trainer_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
+    """A mesh without its process groups raises, naming
+    ``initialize_distributed``; the CLI's two-rank run below trains on
+    one."""
+    from ttasr_torch.parallel import sharding
+
+    shape = {"data": 2, "model": 1}
+    mesh = sharding.Mesh(shape=shape, coords=sharding.mesh_coords(shape, 0), groups={})
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         tt.Trainer(_port_params(), T_PRESETS[NAME], TTOK,
-                   tt.TrainerConfig(output_dir=str(tmp_path)), mesh=object())
+                   tt.TrainerConfig(output_dir=str(tmp_path)), mesh=mesh)
+    assert not os.listdir(tmp_path)
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +325,76 @@ def test_cli_needs_cuda_unless_told_cpu_and_refuses_a_mesh(tmp_path, monkeypatch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(args)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(RuntimeError, match="mesh 2x1 needs 2 ranks"):
         main(args + ["--device", "cpu", "--mesh_data", "2"])
     assert not os.listdir(tmp_path)
+
+
+_RANK = """
+import importlib.abc, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ttasr", "tools"):
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+sys.argv = ["train"] + {args!r}
+runpy.run_module("ttasr_torch.cli.train", run_name="__main__")
+"""
+
+
+def test_cli_on_two_gloo_ranks_writes_the_one_process_checkpoint(tmp_path):
+    """``--device cpu --mesh_data 2`` under torchrun's variables (RANK,
+    WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) on
+    two processes: a global batch of 2, a row a rank.  Rank 0 alone writes
+    ``metrics.jsonl``, ``checkpoint-2/`` and ``model/``, and they hold what
+    the one-process run writes."""
+    from ttasr_torch.cli.train import main
+
+    args = CLI_ARGS + ["--device", "cpu", "--max_steps", "2", "--do_train",
+                       "--per_device_train_batch_size", "2", "--logging_steps", "1",
+                       "--save_steps", "1000", "--warmup_steps", "0", "--seed", "3"]
+    one, two = str(tmp_path / "one"), str(tmp_path / "two")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE="2", LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK.format(args=args + ["--output_dir", two,
+                                                         "--mesh_data", "2"])],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        want = main(args + ["--output_dir", one])
+        outputs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outputs):
+        assert p.returncode == 0, out[-3000:]
+    for out in (one, two):
+        assert sorted(os.listdir(out)) == ["checkpoint-2", "metrics.jsonl", "model", "runs"]
+    got_records, want_records = (
+        [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+        for out in (two, one))
+    assert [r["step"] for r in got_records] == [1, 2] == [r["step"] for r in want_records]
+    assert abs(got_records[-1]["loss"] - want["train_loss"]) <= 1e-4  # rounded to 4
+    got, ref = (torch.load(os.path.join(out, "checkpoint-2", ck.STATE_FILE),
+                           weights_only=True) for out in (two, one))
+    assert got.keys() == ref.keys()
+    for k in ("step", "count", "mini_step"):
+        assert int(got[k]) == int(ref[k]), k
+    for k, v in ref.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=2e-5, atol=2e-6,
+                                   err_msg=k)
+    state = got
+    got, ref = (torch.load(os.path.join(out, "model", ck.PARAMS_FILE), weights_only=True)
+                for out in (two, one))
+    assert got.keys() == ref.keys()
+    assert all(torch.equal(v, state[f"params/{k}"]) for k, v in got.items())

@@ -142,7 +142,10 @@ def test_adam_matches_optax():
     rng = np.random.default_rng(4)
     params = t_vm.init_vad_params(1)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    tp = t_tv.to_device(params, "cpu")
+    # the torch params in memory of their own: on the CPU jnp.asarray may
+    # alias a 64-byte-aligned numpy buffer, which the in-place updates
+    # below would otherwise change under JAX's asynchronous first update
+    tp = {k: t.clone() for k, t in t_tv.to_device(params, "cpu").items()}
     opt, adam = optax.adam(3e-3), t_tv.Adam(3e-3)
     jstate, tstate = opt.init(jp), adam.init(tp)
     for step in range(5):

@@ -17,9 +17,20 @@ package's, plus ``--device``:
         --gradient_checkpointing --max_duration_in_seconds 30
 
 The device is ``cuda`` unless ``--device cpu`` is asked for (micro
-models); without CUDA the default raises.  ``--mesh_data/--mesh_model``
-above 1 raise ``NotImplementedError``: data parallelism and ZeRO-1 are
-ROADMAP A12.
+models); without CUDA the default raises.
+
+``--mesh_data/--mesh_model`` above 1 train on a ``(data, model)`` mesh,
+one process per rank, under torchrun:
+
+    torchrun --nproc_per_node 4 -m ttasr_torch.cli.train \
+        --mesh_data 2 --mesh_model 2 ...
+
+Each rank joins the group from torchrun's variables
+(``initialize_distributed``: NCCL on the cards, one a rank; ``gloo`` with
+``--device cpu``, which CPU tensors need), then ``create_mesh`` and
+``Trainer(mesh=...)``.  A group that cannot start fails the run; nothing
+falls back to another backend.  ``--per_device_train_batch_size`` is the
+global batch, split over ``--mesh_data`` (the JAX CLI's meaning).
 """
 
 from __future__ import annotations
@@ -87,7 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--do_eval", action="store_true")
     p.add_argument("--resume_from_checkpoint", default=None)
     p.add_argument("--seed", type=int, default=42)
-    # device mesh: > 1 raises (ROADMAP A12)
+    # device mesh: > 1 trains on a (data, model) mesh, a process per rank
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--compute_dtype", default="float32",
@@ -107,12 +118,16 @@ def main(argv=None) -> dict:
     from ttasr_torch.models.whisper.load import load_whisper
     from ttasr_torch.text.tokenizer import load_tokenizer
     from ttasr_torch.train.data import iter_tsv_corpus, load_tsv_corpus, prepare_example
-    from ttasr_torch.train.train_step import NO_MESH
     from ttasr_torch.train.trainer import Trainer, TrainerConfig
 
-    if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError(NO_MESH)
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh_data * args.mesh_model > 1:
+        from ttasr_torch.parallel.distributed import initialize_distributed
+        from ttasr_torch.parallel.sharding import create_mesh
+
+        initialize_distributed(backend="gloo" if device.type == "cpu" else "nccl")
+        mesh = create_mesh(args.mesh_data, args.mesh_model)
     tokenizer = load_tokenizer(args.tokenizer_name or args.model_name_or_path)
 
     if args.streaming:
@@ -194,7 +209,8 @@ def main(argv=None) -> dict:
         compute_dtype=args.compute_dtype,
     )
     os.makedirs(args.output_dir, exist_ok=True)
-    trainer = Trainer(params, cfg, tokenizer, tc)
+    trainer = Trainer(params, cfg, tokenizer, tc, mesh=mesh)
+    del params  # on a mesh the trainer keeps the rank's slices
 
     metrics = {}
     if args.do_train:

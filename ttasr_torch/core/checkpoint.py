@@ -97,9 +97,10 @@ def _load(path: str, filename: str) -> Dict[str, torch.Tensor]:
 
 def save_checkpoint(output_dir: str, step: int, state: Any, keep: int = 3) -> str:
     """Save a train state (its ``state_dict()``: params, optimizer state,
-    step counters, accumulator) as ``checkpoint-{step}``."""
-    path = _save(os.path.join(output_dir, f"checkpoint-{step}"), STATE_FILE,
-                 state.state_dict())
+    step counters, accumulator; or such a flat dict itself) as
+    ``checkpoint-{step}``."""
+    flat = state if isinstance(state, dict) else state.state_dict()
+    path = _save(os.path.join(output_dir, f"checkpoint-{step}"), STATE_FILE, flat)
     _cleanup_old(output_dir, keep)
     return path
 

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -50,6 +51,14 @@ from ttasr_torch.ops.quant import (
     quant_matmul_act8,
     quantize_act,
     quantize_kv_sym,
+)
+from ttasr_torch.parallel.sharding import axis_group
+from ttasr_torch.parallel.tp_train import (
+    copy_to_model,
+    gather_cut_columns,
+    gather_vocab,
+    reduce_from_model,
+    vocab_embed,
 )
 
 Params = Dict[str, Any]
@@ -117,9 +126,10 @@ def init_params(cfg: WhisperConfig, seed: int = 0, dtype=torch.float32,
     """Random-init parameters (the JAX package's structure and scales:
     N(0, 0.02) weights, zero biases, unit LN scales, sinusoid encoder
     positions), drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device``."""
+    ``device``; on the ``meta`` device, shapes and dtypes only."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     d, ffn = cfg.d_model, cfg.ffn_dim
 
     def dense(*shape):
@@ -193,14 +203,20 @@ def _embed_lookup(dec, tokens):
     return e[tokens]
 
 
-def _unembed(x, dec):
+def _unembed(x, dec, cfg: Optional[WhisperConfig] = None):
     """Hidden states -> f32 vocab logits via the tied embedding (bf16
     values and int8 codes multiply exactly in f32, as the reference's
     f32-accumulated matmul does); a quantized embed applies its per-row
-    scale to the logits."""
+    scale to the logits.  With ``cfg``, a float ``embed`` with fewer rows
+    than the vocabulary is a training shard's vocabulary slice: each rank's
+    logits, gathered over ``"model"``."""
     e = dec["embed"]
     if is_quantized(e):
         return torch.matmul(x.float(), e["q"].float().t()) * e["s"][:, 0]
+    if cfg is not None and e.shape[0] < cfg.vocab_size:
+        group = axis_group("model")
+        local = torch.matmul(copy_to_model(x, group).float(), e.float().t())
+        return gather_vocab(local, group)
     return torch.matmul(x.float(), e.float().t())
 
 
@@ -350,6 +366,74 @@ def _encoder_block(x, blk, n_heads, fused, t_real):
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel training: a block of shard_params' slices
+# ---------------------------------------------------------------------------
+#
+# Under ``ttasr_torch.train.train_step.make_train_step(mesh=...)`` each rank
+# holds its ``shard_params`` slice, and the float path reads the layout from
+# the slices' shapes, as ``decode.py`` does for the sharded decode: q/k/v
+# (and their cross twins) with fewer columns than d_model are the rank's
+# heads, wo/wo_c their rows; w1 with fewer columns than the ffn width is the
+# rank's hidden slice, w2 its rows.  The sums and gathers over "model" are
+# ``ttasr_torch.parallel.tp_train``'s autograd Functions on the group bound
+# to the axis.  Stems, norms, positions and row biases stay whole, and every
+# rank computes the same gradient for them.
+
+def _split(blk, cfg: WhisperConfig) -> Tuple[bool, bool]:
+    """(attention split, MLP split) of a float block's slices; quantized
+    and fused-qkv blocks are whole."""
+    if "wq" not in blk or is_quantized(blk["wq"]):
+        return False, False
+    return _width(blk["wq"]) < cfg.d_model, _width(blk["w1"]) < cfg.ffn_dim
+
+
+def _tp_row_proj(x_local, w, b, group):
+    """A row-split projection: the rank's partial product in f32, summed
+    over the axis, the bias added once, one rounding to x's type."""
+    out = reduce_from_model(torch.matmul(x_local.float(), w.float()), group)
+    return (out + b.float()).to(x_local.dtype)
+
+
+def _tp_attention(hq, hkv, blk, sfx: str, n_heads: int, mask, group):
+    """Attention (``sfx`` "" self, "_c" cross) on a block whose q/k/v
+    columns and wo rows are the rank's: hq and hkv come whole through
+    :func:`copy_to_model`.  Where the slices end inside a head, q, k and v
+    are gathered whole, every rank attends on every head and keeps its
+    columns of the merged heads before its rows of wo."""
+    q = _proj(hq, blk["wq" + sfx], blk["bq" + sfx])
+    k = _proj(hkv, blk["wk" + sfx])
+    v = _proj(hkv, blk["wv" + sfx], blk["bv" + sfx])
+    dh = hq.shape[-1] // n_heads
+    wo = blk["wo" + sfx]
+    if q.shape[-1] % dh:
+        q, k, v = (gather_cut_columns(t, group) for t in (q, k, v))
+    heads = q.shape[-1] // dh
+    merged = _merge_heads(_attention(_split_heads(q, heads), _split_heads(k, heads),
+                                     _split_heads(v, heads), mask))
+    if merged.shape[-1] > wo.shape[0]:
+        rows = wo.shape[0]
+        merged = merged.narrow(-1, dist.get_rank(group) * rows, rows)
+    return _tp_row_proj(merged, wo, blk["bo" + sfx], group)
+
+
+def _tp_mlp(x, blk, group):
+    h = F.gelu(_proj(copy_to_model(x, group), blk["w1"], blk["b1"]))
+    return _tp_row_proj(h, blk["w2"], blk["b2"], group)
+
+
+def _encoder_block_tp(x, blk, n_heads, split, group):
+    attn_split, mlp_split = split
+    h = _ln(x, blk["ln1_s"], blk["ln1_b"])
+    if attn_split:
+        hf = copy_to_model(h, group)
+        x = x + _tp_attention(hf, hf, blk, "", n_heads, None, group)
+    else:
+        x = x + _self_attn(h, blk, n_heads)
+    h = _ln(x, blk["ln2_s"], blk["ln2_b"])
+    return x + (_tp_mlp(h, blk, group) if mlp_split else _mlp(h, blk))
+
+
+# ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
 
@@ -423,6 +507,9 @@ def encode(params: Params, cfg: WhisperConfig, mel, *, remat: bool = False,
             h = _ln(x, blk["ln1_s"], blk["ln1_b"])
             x = x + _self_attn_act8(h, blk, h_n, t_real)
             x = x + _mlp_act8(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+        elif any(_split(blk, cfg)):
+            x = _run_block(_encoder_block_tp, remat, x, blk, h_n, _split(blk, cfg),
+                           axis_group("model"))
         else:
             x = _run_block(_encoder_block, remat, x, blk, h_n, fused, t_real)
     if w2 is not None:
@@ -434,32 +521,66 @@ def encode(params: Params, cfg: WhisperConfig, mel, *, remat: bool = False,
 # Decoder — teacher-forced (training / prompt prefill)
 # ---------------------------------------------------------------------------
 
-def _decoder_block(x, blk, enc_out, n_heads, causal):
+def _decoder_attentions(x, blk, enc_out, n_heads, causal):
     x = x + _self_attn(_ln(x, blk["ln1_s"], blk["ln1_b"]), blk, n_heads, causal)
     h = _ln(x, blk["lnc_s"], blk["lnc_b"])
     q = _split_heads(_proj(h, blk["wq_c"], blk["bq_c"]), n_heads)
     k = _split_heads(_proj(enc_out, blk["wk_c"]), n_heads)
     v = _split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), n_heads)
-    x = x + _proj(_merge_heads(_attention(q, k, v)), blk["wo_c"], blk["bo_c"])
+    return x + _proj(_merge_heads(_attention(q, k, v)), blk["wo_c"], blk["bo_c"])
+
+
+def _decoder_block(x, blk, enc_out, n_heads, causal):
+    x = _decoder_attentions(x, blk, enc_out, n_heads, causal)
     return x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+
+
+def _decoder_block_tp(x, blk, enc_f, n_heads, causal, split, group):
+    """A decoder block of slices; ``enc_f``: the encoder states through
+    :func:`copy_to_model` once for every layer's cross k/v."""
+    attn_split, mlp_split = split
+    if attn_split:
+        hf = copy_to_model(_ln(x, blk["ln1_s"], blk["ln1_b"]), group)
+        x = x + _tp_attention(hf, hf, blk, "", n_heads, causal, group)
+        hc = copy_to_model(_ln(x, blk["lnc_s"], blk["lnc_b"]), group)
+        x = x + _tp_attention(hc, enc_f, blk, "_c", n_heads, None, group)
+    else:
+        x = _decoder_attentions(x, blk, enc_f, n_heads, causal)
+    h = _ln(x, blk["ln2_s"], blk["ln2_b"])
+    return x + (_tp_mlp(h, blk, group) if mlp_split else _mlp(h, blk))
 
 
 def decode_train(params: Params, cfg: WhisperConfig, tokens, enc_out, *,
                  remat: bool = False, positions_offset: int = 0):
     """Full-sequence decoder pass. tokens: (B, T) int -> logits (B, T, V).
-    ``remat`` recomputes each block's activations in the backward pass."""
+    ``remat`` recomputes each block's activations in the backward pass.
+    A training shard's slices (fewer columns or vocabulary rows than the
+    config's) run the tensor-parallel blocks over the bound ``"model"``
+    group."""
     dec = params["decoder"]
     b, t = tokens.shape
-    x = (_embed_lookup(dec, tokens)
-         + dec["pos"][positions_offset: positions_offset + t])
+    e = dec["embed"]
+    if not is_quantized(e) and e.shape[0] < cfg.vocab_size:
+        tok = vocab_embed(e, tokens, axis_group("model")).to(_model_dtype(dec))
+    else:
+        tok = _embed_lookup(dec, tokens)
+    x = tok + dec["pos"][positions_offset: positions_offset + t]
     x = x.to(_model_dtype(dec))
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                    device=x.device))[None, None]
-    for blk in dec["blocks"]:
-        x = _run_block(_decoder_block, remat, x, blk, enc_out, cfg.decoder_heads,
-                       causal)
+    split = _split(dec["blocks"][0], cfg)
+    if any(split):
+        group = axis_group("model")
+        enc_f = copy_to_model(enc_out, group) if split[0] else enc_out
+        for blk in dec["blocks"]:
+            x = _run_block(_decoder_block_tp, remat, x, blk, enc_f, cfg.decoder_heads,
+                           causal, split, group)
+    else:
+        for blk in dec["blocks"]:
+            x = _run_block(_decoder_block, remat, x, blk, enc_out, cfg.decoder_heads,
+                           causal)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
-    return _unembed(x, dec)
+    return _unembed(x, dec, cfg)
 
 
 # ---------------------------------------------------------------------------

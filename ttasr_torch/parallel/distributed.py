@@ -1,5 +1,5 @@
-"""Process-group initialisation (port of ``ttasr/parallel/distributed.py::
-initialize_distributed``).
+"""Process-group initialisation and the multislice mesh (port of
+``ttasr/parallel/distributed.py``).
 
 One process per rank.  The group comes from torchrun's variables
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, and
@@ -7,8 +7,13 @@ One process per rank.  The group comes from torchrun's variables
 with neither is left alone.  The backend is NCCL, for ranks on distinct
 cards, unless the caller asks for ``gloo``: the CPU tests, and two ranks
 sharing one card (NCCL refuses two ranks on one device; ``gloo`` takes CUDA
-tensors and stages them through the host).  The multislice mesh of the
-JAX package is training's and is not ported.
+tensors and stages them through the host).
+
+:func:`create_multislice_mesh` lays the ranks out as ``(dcn_data, data,
+model)``: on a TPU pod a slice is a set of chips joined by ICI, with DCN
+between slices; on GPUs a slice is a host, its cards joined by NVLink, with
+the network between hosts.  Only the outer ``dcn_data`` axis crosses
+hosts, so the data-parallel gradient sum is the only traffic there.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from ttasr_torch.parallel.sharding import Mesh, build_mesh
 
 logger = logging.getLogger("ttasr_torch.parallel")
 
@@ -58,3 +65,37 @@ def initialize_distributed(init_method: Optional[str] = None,
                             rank=rank if rank is not None else 0)
     logger.info("torch.distributed up: rank %d of %d (%s)", dist.get_rank(),
                 dist.get_world_size(), backend)
+
+
+def create_multislice_mesh(model: int = 1, force_slices: Optional[int] = None) -> Mesh:
+    """The ``(dcn_data, data, model)`` mesh over every rank of the default
+    group, in JAX's device order (``np.asarray(devices).reshape(n_slices,
+    per_slice // model, model)``).
+
+    A slice is a host: its ranks are torchrun's ``LOCAL_WORLD_SIZE`` (the
+    whole group when that is unset), so ``n_slices = WORLD_SIZE //
+    LOCAL_WORLD_SIZE``.  ``force_slices`` overrides the count, as the JAX
+    package's does for virtual devices, so a many-slice layout can be
+    exercised on one host.  Raises where the JAX package raises: slices
+    that do not divide the ranks, a model axis that does not divide a
+    slice.  Collective, as :func:`~ttasr_torch.parallel.sharding.
+    create_mesh`."""
+    if not dist.is_initialized():
+        raise RuntimeError("create_multislice_mesh needs a process group: call "
+                           "initialize_distributed first (one process per rank, "
+                           "e.g. under torchrun)")
+    world = dist.get_world_size()
+    if force_slices is not None:
+        n_slices = int(force_slices)
+        if world % n_slices != 0:
+            raise ValueError(f"force_slices={n_slices} does not divide {world} devices")
+    else:
+        local = int(os.getenv("LOCAL_WORLD_SIZE", world))
+        if world % local != 0:
+            raise ValueError(f"LOCAL_WORLD_SIZE={local} does not divide {world} ranks")
+        n_slices = world // local
+    per_slice = world // n_slices
+    if per_slice % model != 0:
+        raise ValueError(f"model={model} does not divide {per_slice} devices/slice")
+    return build_mesh({"dcn_data": n_slices, "data": per_slice // model, "model": model})
+

@@ -2,7 +2,8 @@
 checkpointing, CER evaluation (port of ``ttasr/train``).
 
 Replaces the reference's PyTorch/HF Seq2SeqTrainer stack (train_asr.py +
-run.sh) with the JAX package's loop and step semantics on one card.
+run.sh) with the JAX package's loop and step semantics, on one card or a
+mesh of them.
 """
 
 from ttasr_torch.train.data import load_tsv_corpus, CorpusExample, batch_iterator

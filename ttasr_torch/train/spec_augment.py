@@ -68,28 +68,34 @@ def _span_mask(n, starts, axis_size: int, span: int):
 
 
 def _axis_masks(gen: torch.Generator, batch: int, axis_size: int, valid_len, *,
-                prob: float, span: int, min_masks: int):
+                prob: float, span: int, min_masks: int, rows=None):
     """(batch, axis_size) bool — True where a masked span covers.
 
     ``valid_len`` (batch,) restricts spans to the real (unpadded) region,
     the role of the reference's forward_attention_mask
-    (train_asr.py:590-594).
+    (train_asr.py:590-594).  ``rows``: (first, total) where these are rows
+    ``first..`` of a global batch of ``total``: the uniforms are drawn for
+    all of it and these rows take theirs.
     """
     dev = valid_len.device
-    u = torch.rand((batch,), generator=gen, device=dev)
-    s = torch.rand((batch, max_spans(axis_size, prob, span, min_masks)),
-                   generator=gen, device=dev)
+    first, total = rows if rows is not None else (0, batch)
+    u = torch.rand((total,), generator=gen, device=dev)[first:first + batch]
+    s = torch.rand((total, max_spans(axis_size, prob, span, min_masks)),
+                   generator=gen, device=dev)[first:first + batch]
     n, starts = _spans(u, s, valid_len, prob=prob, span=span, min_masks=min_masks)
     return _span_mask(n, starts, axis_size, span)
 
 
-def spec_augment(gen: torch.Generator, mel, num_frames, cfg: SpecAugmentConfig):
+def spec_augment(gen: torch.Generator, mel, num_frames, cfg: SpecAugmentConfig,
+                 rows=None):
     """Apply SpecAugment to ``mel`` (B, n_mels, T); masked spans -> 0.
 
     ``gen``: a generator on mel's device (the train step seeds one per step).
     ``num_frames`` (B,) int: valid mel frames per row (time masks stay
     inside real audio, matching the attention-mask-guided reference).
-    Feature masks span the whole mel axis (always fully valid).
+    Feature masks span the whole mel axis (always fully valid).  ``rows``:
+    (first, total) where ``mel`` is a rank's rows of a global batch: they
+    get the masks those rows get in the whole batch.
     """
     b, n_mels, t = mel.shape
     num_frames = torch.as_tensor(num_frames, device=mel.device)
@@ -99,14 +105,14 @@ def spec_augment(gen: torch.Generator, mel, num_frames, cfg: SpecAugmentConfig):
         tmask = _axis_masks(
             gen, b, t, num_frames,
             prob=cfg.mask_time_prob, span=cfg.mask_time_length,
-            min_masks=cfg.mask_time_min_masks,
+            min_masks=cfg.mask_time_min_masks, rows=rows,
         )
         mel = mel.masked_fill(tmask[:, None, :], 0.0)
     if cfg.mask_feature_prob > 0.0:
         fmask = _axis_masks(
             gen, b, n_mels, torch.full((b,), n_mels, device=mel.device),
             prob=cfg.mask_feature_prob, span=cfg.mask_feature_length,
-            min_masks=cfg.mask_feature_min_masks,
+            min_masks=cfg.mask_feature_min_masks, rows=rows,
         )
         mel = mel.masked_fill(fmask[:, :, None], 0.0)
     return mel

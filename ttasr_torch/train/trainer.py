@@ -10,8 +10,21 @@ Replaces Seq2SeqTrainer usage in the reference (train_asr.py:697-751):
 
 Everything runs on the params' device.  As in the JAX package, ``train``
 builds a fresh batch iterator from ``seed`` on every call, so a resumed run
-replays the epoch from its first batch (ROADMAP C8).  ``mesh`` raises:
-ROADMAP A12.
+replays the epoch from its first batch (ROADMAP C8).
+
+On a mesh (``Trainer(mesh=...)``, one process per rank, every rank running
+the same loop) the trainer takes the whole params, as the JAX one takes
+global arrays, and its state holds the rank's slices
+(``init_train_state(mesh=...)``: ZeRO-1 moments).  Every rank builds the
+same batch iterator from ``seed``; ``per_device_train_batch_size`` is the
+global batch, split over the data axes (the JAX trainer's
+``batch_iterator(batch_size=...)`` then ``_shard_batch``; HF's is per
+device), and the train step keeps the rank's rows.  Checkpoints and the
+final ``model/`` hold the whole state, gathered on every rank and written
+by rank 0: the files of the one-process run, so either resumes the other.
+``evaluate`` runs on the gathered whole params (B11 on the card, as
+without a mesh) and every rank returns the same metrics.  Logs and
+TensorBoard are rank 0's.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ttasr_torch.core.checkpoint import (
     get_last_checkpoint,
@@ -54,7 +68,6 @@ from ttasr_torch.train.train_step import (
     make_optimizer,
     make_train_step,
     params_device,
-    refuse_mesh,
 )
 
 logger = logging.getLogger("ttasr_torch.train")
@@ -110,7 +123,7 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, params, cfg: WhisperConfig, tokenizer,
                  trainer_config: TrainerConfig, *, mesh=None):
-        refuse_mesh(mesh)
+        self.mesh = mesh
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.tc = trainer_config
@@ -124,7 +137,7 @@ class Trainer:
             # optax.MultiSteps in the JAX package
             self.optimizer = dataclasses.replace(
                 self.optimizer, every_k=self.tc.gradient_accumulation_steps)
-        self.state = init_train_state(params, self.optimizer)
+        self.state = init_train_state(params, self.optimizer, mesh)
         spec_aug = None
         if self.tc.apply_spec_augment:
             spec_aug = SpecAugmentConfig(
@@ -139,7 +152,7 @@ class Trainer:
         if self.tc.compute_dtype not in (None, "float32"):
             compute_dtype = getattr(torch, self.tc.compute_dtype)
         self.train_step = make_train_step(
-            cfg, self.optimizer,
+            cfg, self.optimizer, mesh=mesh,
             remat=self.tc.gradient_checkpointing,
             freeze_encoder=self.tc.freeze_encoder,
             spec_augment_cfg=spec_aug, compute_dtype=compute_dtype,
@@ -160,7 +173,22 @@ class Trainer:
             return self.state.step
         return 0
 
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes files and logs: rank 0 on a mesh."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _write(self, save, *args) -> None:
+        """``save(*args)`` in the writing process; on a mesh the others
+        wait for it."""
+        if self._writes:
+            save(*args)
+        if self.mesh is not None:
+            dist.barrier()
+
     def _log(self, record: dict) -> None:
+        if not self._writes:
+            return
         os.makedirs(self.tc.output_dir, exist_ok=True)
         with open(self.metrics_path, "a", encoding="utf-8") as fh:
             fh.write(json.dumps(record, ensure_ascii=False) + "\n")
@@ -220,13 +248,17 @@ class Trainer:
                 })
                 losses = []
             if (step + 1) % self.tc.save_steps == 0:
-                save_checkpoint(self.tc.output_dir, step + 1, self.state)
+                # state_dict gathers the whole state on a mesh: every rank
+                self._write(save_checkpoint, self.tc.output_dir, step + 1,
+                            self.state.state_dict())
             if eval_examples and (step + 1) % self.tc.eval_steps == 0:
                 metrics = self.evaluate(eval_examples)
                 self._log({"step": step + 1, **metrics})
 
-        save_checkpoint(self.tc.output_dir, self.tc.max_steps, self.state)
-        save_params(os.path.join(self.tc.output_dir, "model"), self.state.params)
+        self._write(save_checkpoint, self.tc.output_dir, self.tc.max_steps,
+                    self.state.state_dict())
+        self._write(save_params, os.path.join(self.tc.output_dir, "model"),
+                    self.state.whole_params())
         return {"train_loss": final_loss, "steps": self.tc.max_steps}
 
     # -- evaluation --------------------------------------------------------------
@@ -238,7 +270,8 @@ class Trainer:
         — reference train_asr.py:739 passes
         ``num_beams=training_args.generation_num_beams``.  The mel and the
         encoder (the port's ``encode`` at its defaults: the encoder-attention
-        kernel for 64-wide heads) run on the params' device."""
+        kernel for 64-wide heads) run on the params' device, on a mesh on
+        the whole params gathered by every rank."""
         tok = self.tokenizer
         ti = TokenizerInfo.from_tokenizer(tok, n_vocab=self.cfg.vocab_size)
         if self.tc.suppress_tokens is not None:
@@ -277,7 +310,7 @@ class Trainer:
             )
             if p is not None:
                 prepared.append(p)
-        params = self.state.params
+        params = self.state.whole_params()
         with torch.inference_mode():
             for i in range(0, len(prepared), bs):
                 chunk = prepared[i : i + bs]
