@@ -70,6 +70,12 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    writing f32, at one window, codes within the envelope and row scales
    within ``SCALE_RTOL``, the f32 residuals and the f32 qkv buffer bit for
    bit, the same bits twice, each timed beside its plain version and bound;
+   and B7's and B9's split entries (the encoder on a mesh,
+   ``_check_split_entries``) at large-v3's shard widths (D/2, D/4 on bf16
+   and f32 rows; F/2, F/4): each pass against its plain version, every
+   part's codes and scales after the MAX of the parts' absmax equal to the
+   whole-row entry's bit for bit, one rank's part timed in turns with its
+   plain version and both passes with the whole-row entry;
 6. holds the kernels of the decode's other branches against their plain
    versions at large-v3 shapes: B12 ``attnout_ln_q_fused`` at 5 and 10
    rows and B13 ``cross_attention_int8`` at (B, K) = (1, 5), (5, 1) and
@@ -306,7 +312,23 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    h = 5 and 3, K = 1..5, S = 1500 within ``DECODE_REL`` x max of its
    plain version, timed at h = 5, K = 5.  (d), the int8 engine on float32
    params, is phase 18's int8 recognition leg and phase 5's float32 rows.
-   Prints its seconds after phase 12 and the ranks' from their start.
+   Each rank also keeps only ``shard_params``' slices (its params' bytes,
+   the encoder's and its int8 codes' beside
+   ``tools/memory_accounting.engine_params``' reckoning of the slice and of
+   the whole tree, ``memory_allocated`` after construction within
+   ``RESIDENT_SLACK`` of the slices, the construction's peak) and encodes
+   the main window's audio through ``encode_windows`` on its slices, the
+   counts set to 0 before and read after: int8, exactly
+   :func:`_sharded_encoder_launches` (B5, B8, both passes of B7's and B9's
+   split entries, B11, the GEMMs) on every rank and every rank's output
+   equal bit for bit to the one-card encoder on the same unfused K-major
+   weights (``_unfused_encoder``), and the int8 ranks' greedy decode
+   (``OWN_ENCODER_MODE``) reads their own encoder output, held to the
+   one-card decode of the one-card encoder's; bf16, B11 32 times and every
+   rank's output within ``CONTROL_MARGIN`` x two one-card controls (wo and
+   W2 in 2 and 4 row blocks, ``_encoder_row_sums_in_parts``) of the (1, 1)
+   engine's encoder.  Prints its seconds after phase 12 and the ranks'
+   from their start.
 20. fine-tuning on a mesh (its ranks start before 13, its comparisons
    run after 18): large-v3's width at
    ``MESH_TRAIN_LAYERS`` + ``MESH_TRAIN_LAYERS`` layers on two ``gloo``
@@ -338,7 +360,9 @@ from the bf16 path's, B12's from the bf16 cross-KV leg's, B13's from the
 unfused beam leg's, B17's from the ``beam_indirect=False`` leg's, B14-B16's
 from the one-rank TP v2 beam leg's, B18's and B19's from phase 8's run, B8's
 bf16 entry's from one parent-route encoder pass, B9's bf16 entry's from one
-pass of the route of the bf16 entries), worst error, times, bound and
+pass of the route of the bf16 entries, B7's and B9's split entries' from
+rank 0 of phase 19's int8 (1, 4) leg's encoder pass), worst error, times,
+bound and
 library time, then
 the card line, then the contract line ``{"ok": true, "device": {...}}``
 last.
@@ -1291,6 +1315,137 @@ def _check_acc_entries(gen, ln_s, ln_b, act, card: str) -> dict:
     return res
 
 
+SPLIT_PARTS = (2, 4)  # the model axis of the mesh legs: bf16 at 2, int8 at 4
+
+
+def _split_pass_pair(absmax_fn, codes_fn, part_args):
+    """Both passes of a split entry over every part of a row (one card
+    standing in for the ranks): each part's absmax pass, the MAX of the
+    partials (the all-reduce), each part's codes pass, which takes the
+    part's arguments, the absmax pass's other output (B9's h) and the
+    reduced absmax.  Returns the codes and scales of every part and the
+    reduced absmax."""
+    import torch
+
+    first = [absmax_fn(*a) for a in part_args]
+    pairs = [f if isinstance(f, tuple) else (f, None) for f in first]
+    absmax = torch.stack([p[0] for p in pairs]).amax(0)
+    return [codes_fn(a, p[1], absmax) for a, p in zip(part_args, pairs)], absmax
+
+
+def _check_split_entries(gen, act, card: str) -> dict:
+    """B7's and B9's split entries (the encoder on a mesh: a rank's columns
+    of rows the model axis splits) at large-v3's shard widths, D/2 = 640 and
+    D/4 = 320 (B7, bf16 and f32 rows) and F/2 = 2560 and F/4 = 1280 (B9),
+    one window of rows: each pass against its plain version (the absmax
+    exact, B9's stored h equal, codes within the envelope), and the codes
+    and scales of every part, after the MAX of the parts' absmax, equal to
+    the whole-row entry's at its columns bit for bit; at each width one
+    rank's part timed in turns: each pass with its plain version, and both
+    passes with the whole-row entry on the same rows.  Returns {name:
+    measurements} for the kernels line (at model 4, the int8 leg's
+    widths)."""
+    import torch
+
+    from ttasr_torch.ops import encoder_fused as ef
+
+    t0 = time.perf_counter()
+    res = {}
+    errs = dict.fromkeys(("quant_only_absmax", "quant_only_scaled", "gelu_quant_acc_absmax",
+                          "gelu_quant_scaled"), 0.0)  # name: worst over parts and widths
+
+    def worst(name, err):
+        errs[name] = max(errs[name], err)
+
+    x16 = act(1, ENC_T, D)
+    w1 = _acc_case(gen, 1, D, FFN)
+    for n in SPLIT_PARTS:
+        for rows in (x16, x16.float()):
+            whole = ef.quant_only(rows)
+            parts = [(c.contiguous(),) for c in rows.chunk(n, -1)]
+            got, absmax = _split_pass_pair(
+                ef.quant_only_absmax, lambda a, _, m: ef.quant_only_scaled(a[0], m), parts)
+            case = f"{str(rows.dtype)[6:]} T={ENC_T} width {D // n} of {D}"
+            for (part,), g in zip(parts, got):
+                m, want_m = ef.quant_only_absmax(part), ef.quant_only_absmax_ref(part)
+                worst("quant_only_absmax", _max_err(m, want_m))
+                check(torch.equal(m, want_m),
+                      f"quant_only_absmax {case}: differs from its plain version")
+                worst("quant_only_scaled", _hold_codes(
+                    "quant_only_scaled", case, g, ef.quant_only_scaled_ref(part, absmax)))
+            same = (torch.equal(torch.cat([g[0] for g in got], -1), whole[0])
+                    and all(torch.equal(g[1], whole[1]) for g in got))
+            print(f"B7 split {case}: codes and scales equal to the whole-row entry's "
+                  f"bit for bit: {same}")
+            check(same, f"B7 split {case}: differs from the whole-row entry")
+        acc, xs, ws, b = w1
+        whole = ef.gelu_quant_acc(*w1)
+        parts = [(a.contiguous(), xs, w.contiguous(), bb.contiguous())
+                 for a, w, bb in zip(acc.chunk(n, -1), ws.chunk(n, -1), b.chunk(n))]
+        case = f"T={ENC_T} width {FFN // n} of {FFN}"
+        got, absmax = _split_pass_pair(ef.gelu_quant_acc_absmax,
+                                       lambda a, h, m: ef.gelu_quant_scaled(h, m), parts)
+        same = (torch.equal(torch.cat([g[0] for g in got], -1), whole[0])
+                and all(torch.equal(g[1], whole[1]) for g in got))
+        print(f"B9 split {case}: codes and scales equal to the whole-row entry's bit for "
+              f"bit: {same}")
+        check(same, f"B9 split {case}: differs from the whole-row entry")
+        for part in parts:
+            m, h = ef.gelu_quant_acc_absmax(*part)
+            want_m, want_h = ef.gelu_quant_acc_absmax_ref(*part)
+            worst("gelu_quant_acc_absmax", max(_max_err(m, want_m), _max_err(h, want_h)))
+            check(torch.equal(h, want_h) and torch.equal(m, want_m),
+                  f"gelu_quant_acc_absmax {case}: differs from its plain version")
+            worst("gelu_quant_scaled", _hold_codes(
+                "gelu_quant_scaled", case, ef.gelu_quant_scaled(h, absmax),
+                ef.gelu_quant_scaled_ref(h, absmax)))
+        _same_bits(f"B9 split {case}", lambda: ef.gelu_quant_scaled(
+            ef.gelu_quant_acc_absmax(*parts[0])[1], absmax))
+
+        # one rank's part, timed
+        xp = x16.chunk(n, -1)[0].contiguous()
+        m7 = ef.quant_only_absmax(xp)
+        a9 = parts[0]
+        m9, h9 = ef.gelu_quant_acc_absmax(*a9)
+        timed = {  # name: (kernel, plain, bound tensors, operations per element)
+            "quant_only_absmax": (lambda: ef.quant_only_absmax(xp),
+                                  lambda: ef.quant_only_absmax_ref(xp), [xp, m7], 2),
+            "quant_only_scaled": (lambda: ef.quant_only_scaled(xp, m7),
+                                  lambda: ef.quant_only_scaled_ref(xp, m7),
+                                  [xp, m7, *ef.quant_only_scaled(xp, m7)], 4),
+            "gelu_quant_acc_absmax": (lambda: ef.gelu_quant_acc_absmax(*a9),
+                                      lambda: ef.gelu_quant_acc_absmax_ref(*a9),
+                                      [a9[0], a9[1], a9[2], a9[3].float(), h9, m9], 28),
+            "gelu_quant_scaled": (lambda: ef.gelu_quant_scaled(h9, m9),
+                                  lambda: ef.gelu_quant_scaled_ref(h9, m9),
+                                  [h9, m9, *ef.gelu_quant_scaled(h9, m9)], 26),
+        }
+        for name, (fn, ref, tensors, per_elem) in timed.items():
+            r = dict(library_ms=None, parts=n)
+            r["ms"], r["plain_ms"] = in_turns(fn, ref)
+            r.update(bound(tensors, float(per_elem * tensors[0].numel()), "f32"))
+            print(f"{name} T={ENC_T} width {tensors[0].shape[-1]} (1/{n} of the row): "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) ({card})")
+            if n == max(SPLIT_PARTS):
+                res[name] = r
+        pair7, whole7 = in_turns(lambda: ef.quant_only_scaled(xp, ef.quant_only_absmax(xp)),
+                                 lambda: ef.quant_only(x16))
+        pair9, whole9 = in_turns(
+            lambda: ef.gelu_quant_scaled(*ef.gelu_quant_acc_absmax(*a9)[::-1]),
+            lambda: ef.gelu_quant_acc(*w1))
+        print(f"split entries at 1/{n} of the row against the whole-row entry on the same "
+              f"{ENC_T} rows, in turns: B7 both passes {pair7:.4f} ms against quant_only "
+              f"{whole7:.4f} ms; B9 both passes {pair9:.4f} ms against gelu_quant_acc "
+              f"{whole9:.4f} ms ({card})")
+        res.setdefault("turns", {})[n] = dict(
+            b7_pair_ms=pair7, quant_only_ms=whole7, b9_pair_ms=pair9, gelu_quant_acc_ms=whole9)
+    for name, err in errs.items():  # measured against the plain versions above
+        res[name]["max_abs_err"] = err
+    print(f"split entries (B7, B9): {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def check_f32_rows(card: str) -> dict:
     """The row kernels on float32 rows (the int8 engine on float32 params):
     B5 ``ln_quant``, B7 ``quant_only``, B8 ``add_ln_quant`` and B9
@@ -1404,6 +1559,9 @@ def check_encoder_kernels(card: str) -> dict:
                                float(per_elem * args[0].numel()), "f32"))
 
     res.update(_check_acc_entries(gen, ln_s, ln_b, act, card))
+    split = _check_split_entries(gen, act, card)
+    res["split_turns"] = split.pop("turns")
+    res.update(split)
 
     # B6: q/K/V straight from the fused qkv buffer, q pre-scaled
     worst = 0.0
@@ -2262,7 +2420,8 @@ def _int8_counters():
             sa.self_attn_step_int8, model.encoder_attention_merged,
             model.encoder_attention_merged_qkv, ef.ln_quant, ef.ln_quant_acc,
             ef.quant_only, ef.add_ln_quant, ef.add_ln_quant_acc, ef.gelu_quant,
-            ef.gelu_quant_acc, ef.qkv_epilogue_acc,
+            ef.gelu_quant_acc, ef.qkv_epilogue_acc, ef.quant_only_absmax,
+            ef.quant_only_scaled, ef.gelu_quant_acc_absmax, ef.gelu_quant_scaled,
             quant.quant_matmul_act8,
             blk.attnout_ln_q_fused, ca.cross_attention_int8,
             bg.gather_cache_rows, blk.matmul_int8_partial,
@@ -2597,7 +2756,8 @@ def run_branch_paths(engine, audio, card: str):
         "gather_cache_rows": s})
     # B17 copies bytes and B10 sums the rows B2 reads through the map in the
     # same order: the legs do the same arithmetic, so no near-tie may flip
-    main_leg = dict(out=main, logits=main_logits, enc=enc, prompt=prompt, pad=pad)
+    main_leg = dict(out=main, logits=main_logits, enc=enc, prompt=prompt, pad=pad,
+                    audio=audio)
     _hold_to_main(label, copied, copied_logits, main_leg)
 
     label = "bf16 cross-KV (B12)"
@@ -2661,6 +2821,9 @@ TP_RANKS = 2  # the two-rank leg: large-v3's 20 heads split into 2 x 10
 # maximum over BRANCH_STEPS steps; the legs whose arithmetic is the main leg's are
 # held to STEP_LOGIT_REL and equal tokens.
 CONTROL_MARGIN = 1.5
+# a mesh engine's resident bytes after construction beyond its reckoned
+# slices (allocator rounding, the mel's constants, small caches)
+RESIDENT_SLACK = 64 * 2 ** 20
 
 
 def _tp_launches(s: int, beam: bool, row_parallel: bool) -> dict:
@@ -3015,6 +3178,12 @@ def tp_rank_main(rank: int, tmp: str) -> int:
 SHARDED_RANK_LEGS = (("GSPMD int8 (1, 4), 4 gloo ranks", "int8", 4),
                      ("GSPMD bf16 (1, 2), 2 gloo ranks", "bfloat16", 2))
 SHARDED_MODES = (("beam 5", 5), ("greedy", 1))
+# the mode that the int8 ranks decode from their own encoder output (equal
+# to the one-card unfused encoder's bit for bit, which the one-card greedy
+# reference then decodes): encoder on the slices, then decode, end to end.
+# The bf16 ranks' encoder output is within its controls, not equal, so
+# their decodes keep the main window's encoder states
+OWN_ENCODER_MODE = "greedy"
 
 
 def _sharded_opts(compute: str, beam: int):
@@ -3026,6 +3195,156 @@ def _sharded_opts(compute: str, beam: int):
     int8 = compute == "int8"
     return DecodingOptions(beam_size=beam, sample_len=BRANCH_STEPS, kv_int8=int8,
                            cross_kv_int8=int8, cross_kv_int4=int8, kv_int4=int8)
+
+
+def _sharded_encoder_launches(compute: str) -> dict:
+    """One window's encoder pass on a rank of a mesh leg.  int8: the s8 x s8
+    blocks on the rank's slices, B5 at layer 0 (``ln_quant``) and after each
+    W2 (``ln_quant_acc``, on the summed accumulators), B8 after each wo,
+    both passes of B7's and B9's split entries, B11 on the rank's heads and
+    six int8 GEMMs a layer (q, k, v, wo, W1, W2); bf16: B11 on the rank's
+    heads, the rest eager."""
+    if compute != "int8":
+        return {"encoder_attention_merged": N_LAYERS}
+    per_layer = dict(add_ln_quant_acc=1, quant_only_absmax=1, quant_only_scaled=1,
+                     gelu_quant_acc_absmax=1, gelu_quant_scaled=1,
+                     encoder_attention_merged=1, quant_matmul_act8=6)
+    return dict({k: n * N_LAYERS for k, n in per_layer.items()}, ln_quant=1,
+                ln_quant_acc=N_LAYERS - 1)
+
+
+def _encode_leg(label, run, counters, card):
+    """``run()`` (an encoder pass) with the counts set to 0 just before and
+    read just after; returns (output, {ms, counts})."""
+    import torch
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = {c.__name__: c.launches for c in counters}
+    check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite encoder output")
+    print(f"{label}: one window in {ms:.1f} ms ({card})")
+    return out, dict(ms=ms, counts=counts)
+
+
+def _unfused_encoder(params):
+    """The encoder's fused q/k/v leaves split back into wq/wk/wv (codes
+    K-major) and bq/bv: the mesh engine's encoder weights on one card
+    (``quantize_params`` without ``fuse_qkv``; the scales are per output
+    column, so the split is exact)."""
+    from ttasr_torch.ops.quant import kmajor
+
+    enc = params["encoder"]
+    blocks = []
+    for blk in enc["blocks"]:
+        out = {k: v for k, v in blk.items() if k not in ("wqkv", "bqkv")}
+        d = blk["wqkv"]["q"].shape[0]
+        for j, name in enumerate(("wq", "wk", "wv")):
+            cols = slice(j * d, (j + 1) * d)
+            out[name] = {"q": kmajor(blk["wqkv"]["q"][:, cols]),
+                         "s": blk["wqkv"]["s"][..., cols].contiguous()}
+        out["bq"], out["bv"] = blk["bqkv"][:d].contiguous(), blk["bqkv"][2 * d:].contiguous()
+        blocks.append(out)
+    return dict(params, encoder=dict(enc, blocks=blocks))
+
+
+def _encode_on_params(engine, params, audio):
+    """``engine.encode_windows`` of one window of ``audio`` on ``params``,
+    off any mesh: the engine's own mel and encoder route on other weights."""
+    import copy
+
+    view = copy.copy(engine)
+    view.params, view.mesh = params, None
+    view.decode_stats = dict(engine.decode_stats)
+    return view.encode_windows(audio[None])
+
+
+def _sum_in_row_blocks(x, w, b, n: int):
+    """``x @ w + b`` as ``n`` partial products of w's row blocks (x's column
+    blocks), summed in f32, the bias added once, one rounding to x's type:
+    the arithmetic of an n-way row split without the collective."""
+    import torch
+
+    from ttasr_torch.models.whisper import decode as dm
+    from ttasr_torch.ops.quant import is_quantized, quant_matmul
+
+    k = dm._in_rows(w) // n
+    total = None
+    for i in range(n):
+        xi = x[..., i * k:(i + 1) * k]
+        if is_quantized(w):
+            part = quant_matmul(xi, {"q": w["q"][i * k:(i + 1) * k], "s": w["s"]})
+        else:
+            part = torch.matmul(xi.float(), w[i * k:(i + 1) * k].float())
+        total = part if total is None else total + part
+    return (total + b.float()).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _encoder_row_sums_in_parts(n: int):
+    """The one-card float encoder's wo and W2 as ``n`` row blocks
+    (:func:`_sum_in_row_blocks`): a control that only reorders the sums the
+    n-way shard's all-reduce adds."""
+    import torch.nn.functional as F
+
+    from ttasr_torch.models.whisper import model as tm
+
+    real_attn, real_mlp = tm._self_attn, tm._mlp
+
+    def self_attn(x, blk, n_heads, mask=None, fused=False, t_real=None):
+        qm, km, vm = tm._enc_qkv(x, blk)
+        out = tm.encoder_attention_merged(qm * (x.shape[-1] // n_heads) ** -0.5,
+                                          km.contiguous(), vm.contiguous(),
+                                          t_real if t_real is not None else x.shape[1])
+        return _sum_in_row_blocks(out, blk["wo"], blk["bo"], n)
+
+    def mlp(x, blk):
+        return _sum_in_row_blocks(F.gelu(tm._proj(x, blk["w1"], blk["b1"])), blk["w2"],
+                                  blk["b2"], n)
+
+    tm._self_attn, tm._mlp = self_attn, mlp
+    try:
+        yield
+    finally:
+        tm._self_attn, tm._mlp = real_attn, real_mlp
+
+
+def _encoder_gap(ref, got) -> dict:
+    """Worst and mean |got - ref| relative to max |ref|."""
+    d = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    return dict(worst=d.max().item() / scale, mean=d.mean().item() / scale)
+
+
+def _hold_rank_encoder(label, compute, ref, got, leg: dict, card: str) -> None:
+    """One mesh rank's encoder output of the main window against the
+    one-card reference: int8 bit for bit (``ref`` the one-card encoder on
+    the same unfused weights), bf16 within CONTROL_MARGIN x the larger gap
+    of its two controls (``ref`` {out, controls}); the gap and its limit
+    go into ``leg``."""
+    import torch
+
+    if compute == "int8":
+        same = torch.equal(got, ref)
+        leg["equal"] = same
+        print(f"{label} encoder: output equal to the one-card encoder on the same unfused "
+              f"weights bit for bit: {same}; {leg['ms']:.1f} ms a window (the card shared "
+              f"by the ranks) ({card})")
+        check(same, f"{label}: the sharded s8 x s8 encoder differs from the one-card one")
+        return
+    gap = _encoder_gap(ref["out"], got)
+    limit = {k: CONTROL_MARGIN * max(c[k] for c in ref["controls"].values())
+             for k in ("worst", "mean")}
+    leg["gap"], leg["limit"] = gap, limit
+    print(f"{label} encoder: to the one-card encoder worst {gap['worst']:.3e} (limit "
+          f"{limit['worst']:.3e}), mean {gap['mean']:.3e} (limit {limit['mean']:.3e}) "
+          f"relative to its largest value; {leg['ms']:.1f} ms a window ({card})")
+    check(all(gap[k] <= limit[k] for k in limit),
+          f"{label}: the sharded encoder is further from the one-card one than its controls")
 
 
 def _sharded_launches(compute: str, steps: int) -> dict:
@@ -3040,25 +3359,14 @@ def _row_sums_in_parts(n: int):
     """The one-card plain layer loop's wo, wo_c and w2 as ``n`` partial
     products of their row blocks, summed in f32 with the bias added once
     after: the arithmetic of an n-way row split without the collective."""
-    import torch
     import torch.nn.functional as F
 
     from ttasr_torch.models.whisper import decode as dm
-    from ttasr_torch.ops.quant import is_quantized, quant_matmul
 
     real_out, real_mlp = dm._out_proj, dm._block_mlp
 
     def parts(x, w, b):
-        k = dm._in_rows(w) // n
-        total = None
-        for i in range(n):
-            xi = x[..., i * k:(i + 1) * k]
-            if is_quantized(w):
-                part = quant_matmul(xi, {"q": w["q"][i * k:(i + 1) * k], "s": w["s"]})
-            else:
-                part = torch.matmul(xi.float(), w[i * k:(i + 1) * k].float())
-            total = part if total is None else total + part
-        return (total + b.float()).to(x.dtype)
+        return _sum_in_row_blocks(x, w, b, n)
 
     def out_proj(merged, w, b, group, whole, row_parallel):
         if group is None and merged.shape[-1] == whole:
@@ -3078,20 +3386,21 @@ def _row_sums_in_parts(n: int):
 
 
 def _one_card_legs(label, compute, params, cfg, window, counters, card, n: int,
-                   known=None) -> dict:
+                   known=None, windows=None) -> dict:
     """The one-card unfused graph on ``window`` (beam 5 and greedy; a mode
-    in ``known``, {mode: {out, logits}}, was decoded already), then each
+    in ``known``, {mode: {out, logits}}, was decoded already; a mode in
+    ``windows``, {mode: window}, decodes that window instead), then each
     mode under two controls that only reorder sums: wo, wo_c and w2 summed
     in ``n`` row blocks, as the n-way shard's all-reduce adds them, and in
     2n (:func:`_row_sums_in_parts`).  Returns {mode: {out, logits,
     controls: {label: gap summary}}}."""
     from ttasr_torch.models.whisper.decode import beam_decode, greedy_decode
 
-    enc, prompt, pad, ti = window
     res = {}
     for mode, beam in SHARDED_MODES:
         fn = beam_decode if beam > 1 else greedy_decode
         extra = () if beam > 1 else (None, 0.0)
+        enc, prompt, pad, ti = (windows or {}).get(mode, window)
 
         def run():
             return fn(params, cfg, enc, prompt, pad, *extra,
@@ -3129,7 +3438,7 @@ def sharded_ranks(engine, main):
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(dict(enc=main["enc"], prompt=main["prompt"], pad=main["pad"],
-                        ti=engine.ti), os.path.join(tmp, "window.pt"))
+                        ti=engine.ti, audio=main["audio"]), os.path.join(tmp, "window.pt"))
         procs = []
         try:
             for i, (_, compute, world) in enumerate(SHARDED_RANK_LEGS):
@@ -3174,9 +3483,15 @@ def run_sharded_paths(engine, main, card: str, ranks=None) -> dict:
     counters = _int8_counters()
     legs = {}
     window = (main["enc"], main["prompt"], main["pad"], engine.ti)
+    # the int8 ranks' encoder is held to the one-card encoder on the same
+    # unfused K-major weights, bit for bit, and their OWN_ENCODER_MODE
+    # decode, from their own encoder output, to the one-card decode of it
+    enc_refs = {"int8": _encode_on_params(engine, _unfused_encoder(engine.params),
+                                          main["audio"])}
     refs = {"int8": _one_card_legs(
         "int8", "int8", _unfused_decoder(engine.params), engine.cfg, window, counters,
-        card, 4, known={"beam 5": main["unfused_beam"]} if "unfused_beam" in main else None)}
+        card, 4, known={"beam 5": main["unfused_beam"]} if "unfused_beam" in main else None,
+        windows={OWN_ENCODER_MODE: (enc_refs["int8"], *window[1:])})}
     b13 = check_b13_odd_heads(card)
     with tempfile.TemporaryDirectory() as store:
         initialize_distributed(f"file://{store}/store", world_size=1, rank=0)
@@ -3187,6 +3502,14 @@ def run_sharded_paths(engine, main, card: str, ranks=None) -> dict:
                   "the bf16 engine at (1, 1) must take the GSPMD path")
             refs["bfloat16"] = _one_card_legs(
                 "bf16", "bfloat16", bf16.params, bf16.cfg, window, counters, card, 2)
+            ref = bf16.encode_windows(main["audio"][None])
+            controls = {}
+            for n in (2, 4):
+                with _encoder_row_sums_in_parts(n):
+                    controls[f"wo, w2 summed in {n} row blocks"] = _encoder_gap(
+                        ref, bf16.encode_windows(main["audio"][None]))
+            print(f"bf16 one-card encoder controls: {json.dumps(controls)} ({card})")
+            enc_refs["bfloat16"] = dict(out=ref, controls=controls)
             for mode, beam in SHARDED_MODES:
                 label = f"GSPMD bf16 (1, 1), one NCCL rank, {mode}"
                 run = (functools.partial(bf16.run_beam_decode, *window[:3], None)
@@ -3202,6 +3525,7 @@ def run_sharded_paths(engine, main, card: str, ranks=None) -> dict:
         finally:
             dist.destroy_process_group()
     own = time.perf_counter() - t0
+    encoders = {}
     codes = [p.wait(timeout=900) for p in ranks["procs"]]
     check(codes == [0] * len(codes), f"sharded rank exit codes {codes}")
     rank_s = time.perf_counter() - ranks["t0"]
@@ -3209,11 +3533,32 @@ def run_sharded_paths(engine, main, card: str, ranks=None) -> dict:
         store = os.path.join(ranks["tmp"], f"leg{i}")
         for r in range(world):
             with open(os.path.join(store, f"rank{r}.json"), encoding="utf-8") as fh:
-                for mode, leg in json.load(fh).items():
-                    _expect(f"{label} {mode} rank {r}", leg["counts"],
-                            _sharded_launches(compute, leg["steps"]))
-                    if r == 0:
-                        legs[f"{label} {mode}"] = leg
+                got = json.load(fh)
+            for mode, leg in got["decode"].items():
+                _expect(f"{label} {mode} rank {r}", leg["counts"],
+                        _sharded_launches(compute, leg["steps"]))
+                if r == 0:
+                    legs[f"{label} {mode}"] = leg
+            _expect(f"{label} encoder rank {r}", got["encoder"]["counts"],
+                    _sharded_encoder_launches(compute))
+            mem, gib = got["memory"], 2 ** 30
+            print(f"{label} rank {r} params: {mem['param_bytes']['total'] / gib:.3f} GiB "
+                  f"(encoder {mem['param_bytes']['encoder'] / gib:.3f}, its int8 codes "
+                  f"{mem['param_bytes']['encoder_codes'] / gib:.3f}); reckoned slice "
+                  f"{mem['reckoned']['total'] / gib:.3f} (encoder "
+                  f"{mem['reckoned']['encoder'] / gib:.3f}, codes "
+                  f"{mem['reckoned'].get('encoder_codes', 0) / gib:.3f}) of the whole "
+                  f"{mem['whole']['total'] / gib:.3f} (encoder {mem['whole']['encoder'] / gib:.3f}, "
+                  f"codes {mem['whole'].get('encoder_codes', 0) / gib:.3f}); "
+                  f"memory_allocated {mem['allocated'] / gib:.3f} GiB after construction, "
+                  f"peak {mem['construction_peak'] / gib:.3f} GiB during it ({card})")
+            check(mem["allocated"] < mem["reckoned"]["total"] + RESIDENT_SLACK,
+                  f"{label} rank {r}: {mem['allocated']} bytes resident after construction, "
+                  f"the slices are {mem['reckoned']['total']}")
+            _hold_rank_encoder(f"{label} rank {r}", compute, enc_refs[compute], torch.load(
+                os.path.join(store, f"encoder{r}.pt")).cuda(), got["encoder"], card)
+            if r == 0:
+                encoders[compute] = dict(got["encoder"], memory=mem)
         for mode, _ in SHARDED_MODES:
             ref = refs[compute][mode]
             got = torch.load(os.path.join(store, f"{mode}.pt"), weights_only=False)
@@ -3239,15 +3584,19 @@ def run_sharded_paths(engine, main, card: str, ranks=None) -> dict:
     print(f"phase 19 (the GSPMD mesh path): {seconds:.1f} s after phase 12 ({own:.1f} s of "
           f"this process's legs, then the ranks' end); the ranks ran {rank_s:.1f} s from "
           f"their start before phase 12")
-    return dict(legs=legs, b13_odd_heads=b13, seconds=seconds, rank_seconds=rank_s)
+    return dict(legs=legs, b13_odd_heads=b13, seconds=seconds, rank_seconds=rank_s,
+                encoders=encoders)
 
 
 def sharded_rank_main(rank: int, world: int, compute: str, store: str) -> int:
     """One rank of :func:`run_sharded_paths`: ``WhisperEngine("large-v3",
     compute_type=compute, mesh=create_mesh(1, world))`` (the seeded weights
-    of the main engine), the saved window decoded beam 5 and greedy through
-    the engine's ``run_*_decode``; writes its legs to ``rank<r>.json`` and,
-    rank 0, each mode's tokens and step logits to ``<mode>.pt``."""
+    of the main engine), the saved window's audio encoded on the slices
+    (``encode_windows``), the saved window decoded beam 5 and greedy through
+    the engine's ``run_*_decode`` (int8's OWN_ENCODER_MODE from the rank's
+    own encoder output); writes its legs to ``rank<r>.json``, its encoder
+    output to ``encoder<r>.pt`` and, rank 0, each mode's tokens and step
+    logits to ``<mode>.pt``."""
     import torch
     import torch.distributed as dist
 
@@ -3263,23 +3612,31 @@ def sharded_rank_main(rank: int, world: int, compute: str, store: str) -> int:
     initialize_distributed(f"file://{store}/store", world_size=world, rank=rank,
                            backend="gloo")
     try:
+        torch.cuda.reset_peak_memory_stats()
         engine = WhisperEngine("large-v3", compute_type=compute, device="cuda",
                                mesh=create_mesh(1, world))
+        torch.cuda.synchronize()
+        memory = _rank_memory(engine, compute, world)
         check(engine._tp is None and engine._sharded is not None,
               f"rank {rank}: the {compute} engine at (1, {world}) must take the GSPMD path")
         ref = torch.load(os.path.join(os.path.dirname(store), "window.pt"),
                          map_location="cuda", weights_only=False)
         window = (ref["enc"], ref["prompt"], ref["pad"], None)
         counters = _int8_counters()
+        enc, encoder = _encode_leg(f"{compute} (1, {world}) encoder", lambda: engine.encode_windows(
+            ref["audio"][None]), counters, f"rank {rank}")
+        torch.save(enc.cpu(), os.path.join(store, f"encoder{rank}.pt"))
         legs = {}
         for mode, beam in SHARDED_MODES:
             opts = _sharded_opts(compute, beam)
+            src = ((enc, *window[1:]) if compute == "int8" and mode == OWN_ENCODER_MODE
+                   else window)
             if beam > 1:
                 def run():
-                    return engine.run_beam_decode(*window, opts)
+                    return engine.run_beam_decode(*src, opts)
             else:
                 def run():
-                    return engine.run_greedy_decode(*window, 0.0, opts)
+                    return engine.run_greedy_decode(*src, 0.0, opts)
             out, logits, legs[mode] = _decode_leg(f"{compute} (1, {world}) {mode}", run,
                                                   counters, f"rank {rank}")
             if rank == 0:
@@ -3287,10 +3644,42 @@ def sharded_rank_main(rank: int, world: int, compute: str, store: str) -> int:
                                 out={k: out[k] for k in ("tokens", "lengths", "steps")}),
                            os.path.join(store, f"{mode}.pt"))
         with open(os.path.join(store, f"rank{rank}.json"), "w", encoding="utf-8") as fh:
-            json.dump(legs, fh)
+            json.dump(dict(decode=legs, encoder=encoder, memory=memory), fh)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _rank_memory(engine, compute: str, world: int) -> dict:
+    """A mesh engine's resident bytes after its construction: its params'
+    bytes (every leaf of ``engine.params``, the encoder's, its int8 codes'),
+    ``torch.cuda.memory_allocated`` and the construction's peak, beside
+    ``ttasr_torch.tools.memory_accounting.engine_params``' reckoning of a
+    rank's slices and of the whole tree; the encoder's codes must be
+    K-major and its bytes the reckoned slice's."""
+    import torch
+
+    from ttasr_torch.core.checkpoint import named_leaves
+    from ttasr_torch.tools.memory_accounting import engine_params
+
+    mine = {"total": 0, "encoder": 0, "encoder_codes": 0}
+    for path, leaf in named_leaves(engine.params).items():
+        n = leaf.numel() * leaf.element_size()
+        mine["total"] += n
+        if path.startswith("encoder."):
+            mine["encoder"] += n
+            if leaf.dtype == torch.int8:
+                check(leaf.stride() == (1, leaf.shape[0]), f"{path}: codes not K-major")
+                mine["encoder_codes"] += n
+    reckoned = engine_params("large-v3", compute, 1, world)
+    out = dict(param_bytes=mine, reckoned=reckoned["per_rank"], whole=reckoned["whole"],
+               allocated=torch.cuda.memory_allocated(),
+               construction_peak=torch.cuda.max_memory_allocated())
+    for key in ("encoder", "encoder_codes"):
+        check(mine[key] <= reckoned["per_rank"].get(key, 0),
+              f"{compute} (1, {world}): {mine[key]} {key} bytes resident, the slice is "
+              f"{reckoned['per_rank'].get(key, 0)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4055,8 +4444,8 @@ class _AlignCalls:
         self._saved = (transcriber.alignment_heads_qk, transcriber.token_timings)
         heads_qk, timings = self._saved
 
-        def heads(params, cfg, tok, text_tokens, enc_out):
-            qk = heads_qk(params, cfg, tok, text_tokens, enc_out)
+        def heads(params, cfg, tok, text_tokens, enc_out, **kw):
+            qk = heads_qk(params, cfg, tok, text_tokens, enc_out, **kw)
             self.first.setdefault("enc", enc_out)
             self.last.update(text=list(text_tokens), enc=enc_out)
             return qk
@@ -5687,7 +6076,20 @@ KERNELS = [  # wrapper name, source, the TPU kernel it replaces
      "ttasr/ops/mel_pallas.py:114"),
     ("encoder_self_attention", "ttasr_torch/csrc/encoder_attention.cu",
      "ttasr/ops/encoder_attention_pallas.py:23"),
+    # B7 and B9 on a rank's columns of rows the model axis splits (the
+    # encoder on a mesh): the absmax pass and the codes pass of each
+    ("quant_only_absmax", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/encoder_fused_pallas.py:204"),
+    ("quant_only_scaled", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/encoder_fused_pallas.py:204"),
+    ("gelu_quant_acc_absmax", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/encoder_fused_pallas.py:177"),
+    ("gelu_quant_scaled", "ttasr_torch/csrc/encoder_fused.cu",
+     "ttasr/ops/encoder_fused_pallas.py:177"),
 ]
+# the split entries' launches: rank 0 of phase 19's int8 mesh leg
+SPLIT_ENTRIES = ("quant_only_absmax", "quant_only_scaled", "gelu_quant_acc_absmax",
+                 "gelu_quant_scaled")
 # the branch leg whose run gives each new kernel's launches
 BRANCH_LAUNCHES = {
     "attnout_ln_q_fused": "bf16 cross-KV (B12)",
@@ -5750,6 +6152,9 @@ def main() -> int:
     for name in ("matmul_int8_partial", "ln_q_cross_int8", "mlp_int8_fused"):
         launches[name] = main_path["tp"][TP_LEG]["counts"][name]
     launches.update(standalone_launches)  # phase 8's run: no engine path calls them
+    mesh_encoder = main_path["sharded"]["encoders"]["int8"]
+    for name in SPLIT_ENTRIES:
+        launches[name] = mesh_encoder["counts"][name]
     # B8's and B9's bf16 entries left the main path: their launches are one
     # encoder pass's of the parent route and of the route of the bf16
     # entries (compare_encoder_routes)
@@ -5782,6 +6187,14 @@ def main() -> int:
           f"(plain {sharded['b13_odd_heads']['plain_ms']:.4f}, bound "
           f"{sharded['b13_odd_heads']['bound_ms']:.4f}); phase 19 "
           f"{sharded['seconds']:.1f} s ({card})")
+    print("split entries at 1/n of the row beside the whole-row entry, ms in turns: "
+          + json.dumps(measured.pop("split_turns")) + f" ({card})")
+    print("mesh legs' encoders: " + json.dumps(
+        {k: dict(ms=v["ms"], params=v["memory"]["param_bytes"],
+                 reckoned=v["memory"]["reckoned"], allocated=v["memory"]["allocated"],
+                 construction_peak=v["memory"]["construction_peak"],
+                 **{g: v[g] for g in ("gap", "limit") if g in v})
+         for k, v in sharded["encoders"].items()}) + f" ({card})")
     print(f"phase 20 (fine-tuning on a mesh): {mesh_training['seconds']:.1f} s, leg a "
           f"ms per step {json.dumps(mesh_training['ms_per_step'])}, peak GiB per rank "
           f"{json.dumps(mesh_training['peaks'])} ({card})")

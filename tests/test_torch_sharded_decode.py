@@ -187,8 +187,8 @@ def _rank_main(rank: int, tmp: str) -> None:
     res = {}
     for case in CASES:
         mesh, cfg, dtype, mode = case
-        dec = ShardedDecoder(_port_params(trees, cfg, dtype), TConfig(name=cfg, **CFGS[cfg]),
-                             meshes[mesh])
+        dec = ShardedDecoder(sharding.shard_params(_port_params(trees, cfg, dtype), meshes[mesh]),
+                             TConfig(name=cfg, **CFGS[cfg]), meshes[mesh])
         enc, prompt, pad = _inputs(cfg)
         b13["calls"] = 0
         if mode == "beam":
@@ -561,8 +561,9 @@ def test_the_sharded_decoder_takes_unfused_weights_only():
     mesh = sharding.Mesh(shape={"data": 1, "model": 2}, coords={"data": 0, "model": 1},
                          groups={})
     with pytest.raises(ValueError, match="fuse_qkv"):
-        ShardedDecoder(fuse_qkv(quantize_params(init_params(cfg))), cfg, mesh)
-    dec = ShardedDecoder(quantize_params(init_params(cfg)), cfg, mesh)
+        ShardedDecoder(sharding.shard_params(fuse_qkv(quantize_params(init_params(cfg))), mesh),
+                       cfg, mesh)
+    dec = ShardedDecoder(sharding.shard_params(quantize_params(init_params(cfg)), mesh), cfg, mesh)
     assert set(dec.params) == {"decoder"}
     assert dec.params["decoder"]["embed"]["q"].shape == (128, 64)
     assert dec.params["decoder"]["blocks"][0]["wo"]["q"].shape == (32, 64)

@@ -87,6 +87,21 @@
 // pass of lookups and codes with rare fix-ups after (spills at 128
 // registers, twice as slow), __frcp_rn in gelu_as (1 %).
 //
+// The split entries (the encoder on a mesh, B7 and B9 on a rank's columns of
+// rows that the model axis splits): each row's scale needs the absmax of the
+// whole row, so the template runs in two passes around a MAX all-reduce of
+// the (rows,) partials over the axis (ttasr_torch/models/whisper/model.py).
+// The absmax pass (kAbsmax) computes the producer exactly as the whole-row
+// entry does and writes the absmax of its columns; the codes pass (kCodes)
+// computes it again and takes its scale, max(absmax, 1e-8) * f32(1/127),
+// from the reduced absmax instead of its own, so the codes and scales of a
+// rank's columns are the whole-row entry's bit for bit.  B9's absmax pass
+// also writes h (W1's epilogue, rounded to bf16: the value the GELU reads),
+// which the codes pass reads back through the kGelu mode, with the same
+// shared-memory table: 2 bytes a value where reading the accumulators again
+// takes 4 and the epilogue (H100 80GB HBM3 at 700 W, phase 5 of
+// chip_smoke.py: 0.0107 ms against 0.0127 at 1500 x 1280, PERF.md §6).
+//
 // Built by ttasr_torch/ops/_build.py (nvcc -gencode arch=compute_90a,
 // code=sm_90a) and called through ctypes.
 
@@ -105,6 +120,9 @@ constexpr float kInv127 = 1.f / 127.f;
 // kAccAddLn: ln_quant_acc (LN of the rounded x'); kAccAddLnSum:
 // add_ln_quant_acc (LN of the f32 sum); kAccOut: the qkv epilogue
 enum Mode { kLn, kAddLn, kGelu, kIdentity, kAccGelu, kAccAddLn, kAccAddLnSum, kAccOut };
+// the pass of a mode: the whole row's codes, or the split entries' absmax
+// pass and codes pass (scale from the reduced absmax)
+enum Split { kWhole, kAbsmax, kCodes };
 
 // what each mode reads and computes (host and device)
 __host__ __device__ constexpr bool reads_acc(int m) { return m >= kAccGelu; }
@@ -140,6 +158,7 @@ struct RowArgs {
   void* resid;              // two inputs: the residual; qkv epilogue: its output (row type)
   int8_t* codes;            // (rows, W)
   float* scales;            // (rows,)
+  float* absmax;            // split entries: (rows,), out of kAbsmax, into kCodes
 };
 
 __device__ __forceinline__ uint32_t word(const uint4& q, int i) {
@@ -294,12 +313,13 @@ __device__ __forceinline__ float team_reduce(float v, float* part, int& half, in
 // One row's raw inputs in a lane's registers: 8 values per chunk, as 8 bf16
 // (a[c][0]) or 8 int32 or f32 (a[c][0..1]), and the second input (b[c], bf16
 // or, with kF32, f32 rows).
-template <int M, bool kF32>
+template <int M, bool kF32, int S>
 struct RowRaw {
   static constexpr int kRowWords = kF32 ? 2 : 1;  // uint4 per chunk of a row input
   uint4 a[kChunks][reads_acc(M) ? 2 : kRowWords];
   uint4 b[kChunks][kRowWords];
   float xs;
+  float amax;  // kCodes: the whole row's absmax
 
   // 8 row values at element e: one 16-byte load (bf16) or two (f32)
   __device__ __forceinline__ static void load_row(uint4* dst, const void* src, size_t e) {
@@ -316,6 +336,7 @@ struct RowRaw {
   __device__ __forceinline__ void load(const RowArgs& p, int r, int W, int t, int team_threads) {
     const size_t off = (size_t)r * W;
     if (reads_acc(M)) xs = p.xs[r];
+    if (S == kCodes) amax = p.absmax[r];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int col = (c * team_threads + t) * kVec;
@@ -353,7 +374,7 @@ __device__ __forceinline__ void store_row(void* dst, size_t e, const float* v,
 // kF32: the row inputs (x, h, y and the residual x) and the row outputs (the
 // residual, the qkv epilogue's output) are f32, else bf16.  The producer
 // runs in f32 either way; only the roundings to the row type drop out.
-template <int M, bool kF32>
+template <int M, bool kF32, int S>
 __global__ void __launch_bounds__(kThreads, 2)
 row_quant_kernel(const RowArgs p, int rows, int W, int G) {
   extern __shared__ float cols[];  // col_vectors(M) x W, then the GELU table
@@ -365,7 +386,7 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
   const bool live_team = team < teams;
 
   // the team's first row in flight while the block fills its column vectors
-  RowRaw<M, kF32> raw;
+  RowRaw<M, kF32, S> raw;
   if (live_team && r < rows) raw.load(p, r, W, t, team_threads);
   constexpr int kLnCols = reads_acc(M) ? 2 : 0;
   if (reads_acc(M)) {
@@ -441,6 +462,9 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
         res[i >> 1] = w;
       }
       if (two_inputs(M)) store_row<kF32>(p.resid, off + col, v[c], res);
+      if constexpr (S == kAbsmax && M == kAccGelu) {  // h for the codes pass
+        if (p.resid) store_row<false>(p.resid, off + col, nullptr, res);
+      }
       if constexpr (M == kAccOut) {
         if constexpr (kF32) {
 #pragma unroll
@@ -514,14 +538,23 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
     }
 
     float am = 0.f;
+    if constexpr (S != kCodes) {
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      if ((c * team_threads + t) * kVec >= W) continue;
+      for (int c = 0; c < kChunks; ++c) {
+        if ((c * team_threads + t) * kVec >= W) continue;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) am = fmaxf(am, fabsf(v[c][i]));
+        for (int i = 0; i < kVec; ++i) am = fmaxf(am, fabsf(v[c][i]));
+      }
+      am = team_reduce<true>(am, part, half, G, team, warp);
+    } else {
+      am = raw.amax;
     }
-    const float scale =
-        __fmul_rn(fmaxf(team_reduce<true>(am, part, half, G, team, warp), 1e-8f), kInv127);
+    if constexpr (S == kAbsmax) {
+      if (r + stride < rows) raw.load(p, r + stride, W, t, team_threads);
+      if (t == 0) p.absmax[r] = am;
+      continue;
+    }
+    const float scale = __fmul_rn(fmaxf(am, 1e-8f), kInv127);
     const float inv = __frcp_rn(scale);
     // the next row's loads go out before this row's stores
     if (r + stride < rows) raw.load(p, r + stride, W, t, team_threads);
@@ -539,7 +572,7 @@ row_quant_kernel(const RowArgs p, int rows, int W, int G) {
   }
 }
 
-template <int M, bool kF32>
+template <int M, bool kF32, int S>
 int launch_rows_as(const RowArgs& args, int rows, int W, void* stream) {
   if (W % kVec || W < kVec || W > kMaxWidth || rows < 1 || args.q_cols < 0 ||
       args.q_cols > W)
@@ -548,29 +581,30 @@ int launch_rows_as(const RowArgs& args, int rows, int W, void* stream) {
   const size_t smem =
       ((size_t)col_vectors(M) * W + (gelu_table_used(M, kF32) ? kGeluTable : 0)) * sizeof(float);
   static size_t smem_limit = 48 * 1024;
-  cudaError_t err = ttasr::reserve_smem(row_quant_kernel<M, kF32>, smem, &smem_limit);
+  cudaError_t err = ttasr::reserve_smem(row_quant_kernel<M, kF32, S>, smem, &smem_limit);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_quant_kernel<M, kF32>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_quant_kernel<M, kF32, S>,
                                                         kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = std::min((rows + teams - 1) / teams, std::max(per_sm, 1) * sms);
-  row_quant_kernel<M, kF32><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  row_quant_kernel<M, kF32, S><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       args, rows, W, G);
   return (int)cudaGetLastError();
 }
 
 // The instantiation for the row type: f32 rows or bf16 rows.
-template <int M>
+template <int M, int S = kWhole>
 int launch_rows(const RowArgs& args, int rows, int W, bool f32, void* stream) {
+  if (S != kWhole && !args.absmax) return (int)cudaErrorInvalidValue;
   if constexpr (M == kAccGelu) {  // no row input: its h is the GEMM's bf16 output
     if (f32) return (int)cudaErrorInvalidValue;
   } else {
-    if (f32) return launch_rows_as<M, true>(args, rows, W, stream);
+    if (f32) return launch_rows_as<M, true, S>(args, rows, W, stream);
   }
-  return launch_rows_as<M, false>(args, rows, W, stream);
+  return launch_rows_as<M, false, S>(args, rows, W, stream);
 }
 
 }  // namespace
@@ -729,6 +763,61 @@ TTASR_ROW_ENTRY(qkv_epilogue_acc, qkv_epilogue_rows,
                 (const void* acc, const void* xs, const void* w_scale, const void* b, void* out,
                  int rows, int W, int q_cols, float q_scale, int vec_bf16, void* stream),
                 TTASR_ARGS(acc, xs, w_scale, b, out, rows, W, q_cols, q_scale, vec_bf16))
+
+// The split entries.  absmax (rows,) f32: written by the absmax passes,
+// read by the codes passes (the MAX over the model axis of every rank's).
+namespace {
+
+// B7: the absmax of x's columns (kIdentity, kAbsmax), or x's codes and row
+// scales at the given absmax (kCodes)
+template <int S>
+int quant_only_split_rows(const void* x, void* absmax, void* codes, void* scales, int rows,
+                          int W, bool f32, void* stream) {
+  RowArgs a = {};
+  a.a = x;
+  a.absmax = static_cast<float*>(absmax);
+  a.codes = static_cast<int8_t*>(codes);
+  a.scales = static_cast<float*>(scales);
+  return launch_rows<kIdentity, S>(a, rows, W, f32, stream);
+}
+
+}  // namespace
+
+TTASR_ROW_ENTRY(quant_only_absmax, quant_only_split_rows<kAbsmax>,
+                (const void* x, void* absmax, int rows, int D, void* stream),
+                TTASR_ARGS(x, absmax, nullptr, nullptr, rows, D))
+TTASR_ROW_ENTRY(quant_only_scaled, quant_only_split_rows<kCodes>,
+                (const void* x, const void* absmax, void* codes, void* scales, int rows, int D,
+                 void* stream),
+                TTASR_ARGS(x, const_cast<void*>(absmax), codes, scales, rows, D))
+
+// B9 from W1's accumulators of the rank's columns: the absmax of GELU(h) and,
+// where h is not NULL, h (rows, F) bf16 for ttasr_gelu_quant_scaled
+extern "C" int ttasr_gelu_quant_acc_absmax(const void* acc, const void* xs, const void* w_scale,
+                                           const void* b, void* h, void* absmax, int rows, int F,
+                                           int vec_bf16, void* stream) {
+  RowArgs a = {};
+  a.a = acc;
+  a.xs = static_cast<const float*>(xs);
+  a.ws = static_cast<const float*>(w_scale);
+  a.b = b;
+  a.vec_bf16 = vec_bf16;
+  a.resid = h;
+  a.absmax = static_cast<float*>(absmax);
+  return launch_rows<kAccGelu, kAbsmax>(a, rows, F, false, stream);
+}
+
+// B9's codes pass from the stored bf16 h: codes and row scales of GELU(h)
+// at the given absmax
+extern "C" int ttasr_gelu_quant_scaled(const void* h, const void* absmax, void* codes,
+                                       void* scales, int rows, int F, void* stream) {
+  RowArgs a = {};
+  a.a = h;
+  a.absmax = static_cast<float*>(const_cast<void*>(absmax));
+  a.codes = static_cast<int8_t*>(codes);
+  a.scales = static_cast<float*>(scales);
+  return launch_rows<kGelu, kCodes>(a, rows, F, false, stream);
+}
 
 #undef TTASR_ROW_ENTRY
 #undef TTASR_ARGS

@@ -24,17 +24,22 @@ a float engine the 5-D int8 self-KV of the unfused graph
 (:mod:`ttasr_torch.models.whisper.decode`).
 
 ``mesh=`` (a :func:`ttasr_torch.parallel.sharding.create_mesh` mesh, one
-engine per rank) follows the reference's rule.  ``compute_type="int8"``
-quantizes without fusing q/k/v, as the reference does under a mesh (the
-encoder takes the unfused s8 x s8 branch: three GEMMs and B11).  Where
+engine per rank) follows the reference's rule and placement
+(``ttasr/engine/transcriber.py:208-238``).  ``compute_type="int8"``
+quantizes without fusing q/k/v, as the reference does under a mesh.  Where
 ``tp_eligible`` holds the decodes go to a
 :class:`ttasr_torch.parallel.tp.TPDecoder` (the fused int8 kernels, heads
-split over the model axis, the batch over the data axis); on every other
-mesh, for float32, bfloat16 and int8 alike, to a
-:class:`ttasr_torch.parallel.gspmd.ShardedDecoder` (``shard_params``' slices
-and the unfused graph, the reference's GSPMD path).  Each rank runs the
-whole encoder on its own card, where the JAX engine shards the encoder's
-weights under GSPMD; the results are the same (ROADMAP C2).
+split over the model axis, the batch over the data axis), built from the
+whole params first; then the engine keeps only ``shard_params``' slices of
+the whole tree, as the reference does, and on every other mesh, for
+float32, bfloat16 and int8 alike, a
+:class:`ttasr_torch.parallel.gspmd.ShardedDecoder` decodes on those slices
+(the unfused graph, the reference's GSPMD path).  The encoder, the language
+detection and the word alignment run on the slices too, with the model axis
+bound: the encoder on the rank's heads and hidden slice (the s8 x s8
+encoder's split-scale row kernels, its output the one-card encoder's bit
+for bit), every data rank on the whole batch, as the reference's jit
+leaves it.
 
 The continuous-batching path is the reference's too:
 :meth:`WhisperEngine.transcribe_with_server` runs the same seek loop with
@@ -50,14 +55,16 @@ so ``decode_stats`` is updated under a lock.
 ``word_timestamps=True`` aligns each window's text on all three routes
 (``transcribe``, ``transcribe_with_server`` and the batched pipeline) with
 :mod:`ttasr_torch.models.whisper.align`, on the window's encoder row and
-the full ``self.params`` (unsharded under a mesh too).  As in the
-reference, word times stay on the VAD-collected timeline when
-``vad_filter`` maps the segments' times back (ROADMAP C7).
+``self.params`` (under a mesh the slices, each rank's cross-attention
+heads gathered over the model axis).  As in the reference, word times stay
+on the VAD-collected timeline when ``vad_filter`` maps the segments' times
+back (ROADMAP C7).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -105,6 +112,7 @@ from ttasr_torch.ops.mel import (
 )
 from ttasr_torch.ops.quant import fuse_qkv, kmajor_encoder_codes, quantize_params
 from ttasr_torch.parallel.gspmd import ShardedDecoder
+from ttasr_torch.parallel.sharding import bind_axes, shard_params
 from ttasr_torch.parallel.tp import TPDecoder, tp_eligible
 from ttasr_torch.text.tokenizer import WhisperTokenizer, load_tokenizer
 
@@ -290,16 +298,19 @@ class WhisperEngine:
             self.params = quantize_params(self.params)
             if mesh is None:
                 self.params = fuse_qkv(self.params)
-            self.params = kmajor_encoder_codes(self.params)
         if mesh is not None:
-            # the fused TP decode where it applies, else the GSPMD layout
-            # (as the reference falls back to shard_params and the unfused
-            # graph); self.params stays whole for the encoder, the language
-            # detection and the word alignment
+            # the reference's order: the fused TP decode (where it applies)
+            # from the whole params, then only shard_params' slices stay;
+            # the GSPMD decode (where TP does not apply), the language
+            # detection and the word alignment read the decoder's slices
+            # through one view
             if tp_eligible(self.params, self.cfg, mesh):
                 self._tp = TPDecoder(self.params, self.cfg, mesh)
-            else:
-                self._sharded = ShardedDecoder(self.params, self.cfg, mesh)
+            self.params = shard_params(self.params, mesh)
+            self._sharded = ShardedDecoder(self.params, self.cfg, mesh)
+        if compute_type == "int8":
+            # after the slicing: a row slice of K-major codes is not K-major
+            self.params = kmajor_encoder_codes(self.params)
         # s8 x s8 encoder: None = the encoder's auto rule (on for quantized
         # weights), False forces it off; likewise its fused quantize kernels
         self._act8 = None if encoder_act_int8 else False
@@ -339,7 +350,7 @@ class WhisperEngine:
             a = np.pad(a, ((0, 0), (0, w - a.shape[-1])))
         elif a.shape[-1] > w:
             a = a[..., :w]
-        with self._device_lock:
+        with self._device_lock, self._model_axis():
             mel = log_mel_spectrogram(a, n_mels=self.cfg.num_mel_bins,
                                       pad_to_chunk=False, device=self.device)
             out = encode(self.params, self.cfg, mel, act_int8=self._act8,
@@ -347,6 +358,25 @@ class WhisperEngine:
         with self._stats_lock:
             self.decode_stats["encoder_passes"] += 1
         return out[0] if squeeze else out
+
+    def _model_axis(self):
+        """The mesh's model axis bound for the block (a pass over the
+        slices sums and gathers over it); nothing off a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return bind_axes({"model": self.mesh.groups["model"]})
+
+    @contextlib.contextmanager
+    def _decoder_slices(self):
+        """(params, model group) of a teacher-forced decoder pass, with the
+        axis bound: the whole params and None off a mesh, else the
+        decoder's slices (attention columns gathered where the axis cuts a
+        head, as the GSPMD decode reads them)."""
+        if self.mesh is None:
+            yield self.params, None
+            return
+        with self._model_axis():
+            yield self._sharded._decode_params(), self.mesh.groups["model"]
 
     # -- low-level window decode ------------------------------------------
 
@@ -484,12 +514,15 @@ class WhisperEngine:
         audio = _as_master(audio)[:N_SAMPLES]
         enc_out = self.encode_windows(audio[None])
         prompt, pad = pad_prompts([[self.tokenizer.sot]], self.ti.eot, width=16)
-        cache = init_cache(self.params, self.cfg, enc_out, max_len=17)
-        hidden, _ = _prefill(
-            self.params, self.cfg,
-            torch.as_tensor(prompt, dtype=torch.long, device=self.device),
-            torch.as_tensor(pad, dtype=torch.long, device=self.device), cache)
-        logits = _logits_at(self.params, hidden[:, -1])[0].cpu().numpy()
+        with self._device_lock, self._decoder_slices() as (params, group):
+            cache = init_cache(params, self.cfg, enc_out, max_len=17)
+            hidden, _ = _prefill(
+                params, self.cfg,
+                torch.as_tensor(prompt, dtype=torch.long, device=self.device),
+                torch.as_tensor(pad, dtype=torch.long, device=self.device), cache,
+                tp_group=group)
+            logits = _logits_at(params, hidden[:, -1], self.cfg,
+                                tp_group=group)[0].cpu().numpy()
 
         lang_ids = self.tokenizer.language_ids
         ids = np.asarray(list(lang_ids.values()))
@@ -732,9 +765,9 @@ class WhisperEngine:
         logged and gives no words, as in the reference.  The teacher-forced
         pass holds the engine's device lock; the host DTW does not."""
         try:
-            with self._device_lock:
-                qk = alignment_heads_qk(self.params, self.cfg, self.tokenizer,
-                                        text_tokens, enc_out)
+            with self._device_lock, self._decoder_slices() as (params, group):
+                qk = alignment_heads_qk(params, self.cfg, self.tokenizer,
+                                        text_tokens, enc_out, tp_group=group)
             words = merge_tokens_to_words(
                 self.tokenizer, token_timings(self.tokenizer, text_tokens, qk))
         except Exception:

@@ -17,6 +17,14 @@ jit buckets only to bound its compiles, and the pad rows are causal-masked
 history that no real row reads.  The host half (z-norm, median filter,
 head mean, :func:`dtw_path`, token and word timings) is the reference's
 numpy code unchanged.
+
+On a mesh (an engine's ``shard_params`` slices, ``tp_group`` the model
+axis's group) the pass runs on the rank's heads and hidden slice, the
+row-split projections summed over the axis (``decode._out_proj``,
+``decode._block_mlp``, ``decode._embed_tokens``), and each rank's
+cross-attention probabilities are gathered over the axis in rank order
+before the host half, so every rank aligns on every head, as the
+reference's GSPMD program returns them.
 """
 
 from __future__ import annotations
@@ -28,22 +36,28 @@ import numpy as np
 import torch
 
 from ttasr_torch.models.whisper.config import WhisperConfig
-from ttasr_torch.models.whisper.decode import _qkv_proj
+from ttasr_torch.models.whisper.decode import (
+    _block_mlp,
+    _embed_tokens,
+    _out_proj,
+    _qkv_proj,
+)
 from ttasr_torch.models.whisper.model import (
     _attention,
-    _embed_lookup,
     _ln,
     _merge_heads,
-    _mlp,
     _model_dtype,
     _proj,
     _split_heads,
+    _width,
 )
+from ttasr_torch.parallel.collectives import gather_last
 
 TIME_PER_FRAME = 0.02
 
 
-def decode_with_cross_attn(params, cfg: WhisperConfig, tokens, enc_out):
+def decode_with_cross_attn(params, cfg: WhisperConfig, tokens, enc_out,
+                           tp_group=None):
     """Teacher-forced pass returning (hidden, cross_qk).
 
     tokens: (B, T) int; enc_out: (B, S, d).  hidden is the last block's
@@ -51,27 +65,33 @@ def decode_with_cross_attn(params, cfg: WhisperConfig, tokens, enc_out):
     attention probabilities in float32 (float64 for float64 inputs).
     Rounding as the reference: ``q * scale`` in q's type, the scores
     accumulated in float32, softmax in float32, the probabilities cast
-    back to q's type before P.V."""
+    back to q's type before P.V.  ``tp_group``: the params are a mesh
+    rank's slices (see the module docstring); cross_qk holds the rank's
+    heads."""
     dec = params["decoder"]
     b, t = tokens.shape
-    x = _embed_lookup(dec, tokens) + dec["pos"][:t]
+    x = _embed_tokens(dec, cfg, tokens, tp_group) + dec["pos"][:t]
     x = x.to(_model_dtype(dec))
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                    device=x.device))[None, None]
+    dh = cfg.d_model // cfg.decoder_heads
     probs_per_layer = []
     for blk in dec["blocks"]:
         h1 = _ln(x, blk["ln1_s"], blk["ln1_b"])
         q1, k1, v1 = _qkv_proj(h1, blk, cfg)
-        x = x + _proj(_merge_heads(_attention(q1, k1, v1, causal)),
-                      blk["wo"], blk["bo"])
+        x = x + _out_proj(_merge_heads(_attention(q1, k1, v1, causal)),
+                          blk["wo"], blk["bo"], tp_group, cfg.d_model, False)
         hc = _ln(x, blk["lnc_s"], blk["lnc_b"])
-        q = _split_heads(_proj(hc, blk["wq_c"], blk["bq_c"]), cfg.decoder_heads)
-        k = _split_heads(_proj(enc_out, blk["wk_c"]), cfg.decoder_heads)
-        v = _split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), cfg.decoder_heads)
+        heads = _width(blk["wq_c"]) // dh
+        q = _split_heads(_proj(hc, blk["wq_c"], blk["bq_c"]), heads)
+        k = _split_heads(_proj(enc_out, blk["wk_c"]), heads)
+        v = _split_heads(_proj(enc_out, blk["wv_c"], blk["bv_c"]), heads)
         probs = _cross_attn_probs(q, k)                       # (B, H, T, S)
         out = torch.matmul(probs.to(q.dtype), v.transpose(1, 2).to(q.dtype))
-        x = x + _proj(_merge_heads(out.transpose(1, 2)), blk["wo_c"], blk["bo_c"])
-        x = x + _mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
+        x = x + _out_proj(_merge_heads(out.transpose(1, 2)), blk["wo_c"], blk["bo_c"],
+                          tp_group, cfg.d_model, False)
+        x = x + _block_mlp(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk, tp_group,
+                           cfg.ffn_dim, False)
         probs_per_layer.append(probs)
     return x, torch.stack(probs_per_layer)
 
@@ -147,16 +167,22 @@ def _teacher_tokens(tokenizer, text_tokens: Sequence[int]) -> Tuple[List[int], i
 
 @torch.inference_mode()
 def alignment_heads_qk(params, cfg: WhisperConfig, tokenizer,
-                       text_tokens: Sequence[int], enc_out) -> np.ndarray:
+                       text_tokens: Sequence[int], enc_out,
+                       tp_group=None) -> np.ndarray:
     """The device half of :func:`align_tokens`: the teacher-forced pass over
     one window's text, and the alignment layers' (the upper half's)
-    cross-attention of its first row on the host, (L', H, T, S)."""
+    cross-attention of its first row on the host, (L', H, T, S).  With
+    ``tp_group`` (a mesh rank's slices) the ranks' heads are gathered over
+    the axis in rank order, so the (layer, head) indices are global."""
     tokens, _ = _teacher_tokens(tokenizer, text_tokens)
     arr = torch.tensor([tokens], dtype=torch.long, device=enc_out.device)
-    _hidden, cross_qk = decode_with_cross_attn(params, cfg, arr, enc_out)
+    _hidden, cross_qk = decode_with_cross_attn(params, cfg, arr, enc_out, tp_group)
     n_layers = cross_qk.shape[0]
     use_layers = list(range(n_layers // 2, n_layers)) or [n_layers - 1]
-    return cross_qk[use_layers, 0].cpu().numpy()
+    qk = cross_qk[use_layers, 0]                              # (L', H, T, S)
+    if tp_group is not None and qk.shape[1] < cfg.decoder_heads:
+        qk = gather_last(qk.movedim(1, -1), tp_group).movedim(-1, 1)
+    return qk.cpu().numpy()
 
 
 def token_timings(tokenizer, text_tokens: Sequence[int], w: np.ndarray, *,

@@ -84,6 +84,7 @@ from ttasr_torch.models.whisper.model import (
     _attention,
     _cross_attention,
     _embed_lookup,
+    _in_rows,
     _ln,
     _merge_heads,
     _mlp,
@@ -111,6 +112,7 @@ from ttasr_torch.ops.decoder_blocks import (
 from ttasr_torch.ops.decoder_mlp import mlp_int8_fused, mlp_with_crossout_int8
 from ttasr_torch.ops.int4 import pack_int4_lanes, quantize_kv4, unpack_int4
 from ttasr_torch.ops.quant import is_quantized, quant_matmul
+from ttasr_torch.parallel.collectives import all_reduce_sum, gather_last
 from ttasr_torch.ops.self_attention import (
     self_attn_step_indirect_int8,
     self_attn_step_int8,
@@ -264,11 +266,6 @@ def _qkv_proj(h, blk, cfg: WhisperConfig):
             _split_heads(_proj(h, blk["wv"], blk["bv"]), n))
 
 
-def _in_rows(w) -> int:
-    """Input rows of a weight leaf (float or quantized)."""
-    return (w["q"] if is_quantized(w) else w).shape[-2]
-
-
 def _sum_proj(x_local, w, b, group):
     """A row-split projection of the GSPMD layout: the shard's partial
     product of its input slice and its rows in f32, summed over the ranks,
@@ -363,18 +360,13 @@ def _tp_gather(x, group):
     """Concatenate the ranks' head blocks along the last axis, in rank
     order (rank i holds heads [i * h_loc, (i + 1) * h_loc)); identity
     without tensor parallelism."""
-    if group is None:
-        return x
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=-1)
+    return x if group is None else gather_last(x, group)
 
 
 def _psum(x, group):
     """Sum of the ranks' partial sums ``x`` (a fresh f32 tensor, reduced
     in place)."""
-    dist.all_reduce(x, group=group)
-    return x
+    return all_reduce_sum(x, group)
 
 
 def _rp_proj(x_local, w, b, group):

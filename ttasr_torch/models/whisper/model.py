@@ -32,7 +32,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -51,6 +50,14 @@ from ttasr_torch.ops.quant import (
     quant_matmul_act8,
     quantize_act,
     quantize_kv_sym,
+    quantize_rows_at,
+    row_absmax,
+)
+from ttasr_torch.parallel.collectives import (
+    all_reduce_max,
+    all_reduce_sum,
+    gather_last,
+    own_columns,
 )
 from ttasr_torch.parallel.sharding import axis_group
 from ttasr_torch.parallel.tp_train import (
@@ -253,20 +260,21 @@ def _enc_qkv(x, blk):
             _proj(x, blk["wv"], blk["bv"]))
 
 
+def _merged_attention(q, k, v, dh: int, t_real=None):
+    """B11 on merged-layout (B, T, heads * dh) q/k/v: the merged-layout
+    kernel, whose scores never reach device memory and whose output is
+    already in the layout the out-projection consumes.  The dh**-0.5
+    query scale is folded into q here; k and v may be column slices (of
+    the fused wqkv leaf), and the kernel reads contiguous operands."""
+    return encoder_attention_merged(q * (dh ** -0.5), k.contiguous(), v.contiguous(),
+                                    t_real if t_real is not None else q.shape[1])
+
+
 def _self_attn(x, blk, n_heads, mask=None, fused: bool = False,
                t_real=None):
     dh = x.shape[-1] // n_heads
     if fused and mask is None and dh == 64:
-        # merged-layout kernel: scores never reach device memory and the
-        # output is already in the layout the out-projection consumes
-        qm, km, vm = _enc_qkv(x, blk)
-        qm = qm * (dh ** -0.5)
-        # the fused wqkv leaf yields column slices; the kernel reads
-        # contiguous (B, T, D) operands
-        out_m = encoder_attention_merged(
-            qm, km.contiguous(), vm.contiguous(),
-            t_real if t_real is not None else x.shape[1])
-        return _proj(out_m, blk["wo"], blk["bo"])
+        return _proj(_merged_attention(*_enc_qkv(x, blk), dh, t_real), blk["wo"], blk["bo"])
     q, k, v = _enc_qkv(x, blk)
     out = _attention(_split_heads(q, n_heads), _split_heads(k, n_heads),
                      _split_heads(v, n_heads), mask)
@@ -278,9 +286,48 @@ def _mlp(x, blk):
     return _proj(h, blk["w2"], blk["b2"])
 
 
+def _quant_only_split(x, group):
+    """B7 on a rank's columns of rows the model axis splits: the absmax
+    pass, the MAX over the axis, the codes pass."""
+    absmax = all_reduce_max(encoder_fused.quant_only_absmax(x), group)
+    return encoder_fused.quant_only_scaled(x, absmax)
+
+
+def _gelu_quant_acc_split(acc, xs, w_scale, b, group):
+    """B9 from W1's accumulators of a rank's hidden columns: the absmax
+    pass (which keeps h), the MAX over the axis, the codes pass on h."""
+    absmax, h = encoder_fused.gelu_quant_acc_absmax(acc, xs, w_scale, b)
+    return encoder_fused.gelu_quant_scaled(h, all_reduce_max(absmax, group))
+
+
+def _quantize_act(x, group=None):
+    """``quantize_act``; with ``group``, of a rank's columns of rows the
+    model axis splits, at the whole row's absmax (the plain chains' split
+    scale)."""
+    if group is None:
+        return quantize_act(x)
+    xf = x.float()
+    return quantize_rows_at(xf, all_reduce_max(row_absmax(xf), group))
+
+
+def _row_split_acc(xq, w, group=None):
+    """The int32 accumulators of a row-split weight: this rank's partial
+    product, with ``group`` summed over the axis (exact in int32:
+    |acc| <= 127**2 * K < 2**31)."""
+    acc = int8_accumulators(xq, w)
+    return acc if group is None else all_reduce_sum(acc, group)
+
+
+def _own_heads(merged, w, group):
+    """The rank's columns of merged heads that every rank holds whole (the
+    axis cut a head and q/k/v were gathered): as many as w has rows."""
+    rows = _in_rows(w)
+    return merged if merged.shape[-1] == rows else own_columns(merged, group, rows)
+
+
 def _self_attn_act8(x, blk, n_heads, t_real, *, x_quant=None,
                     fused_quant: bool = False, qkv_direct: bool = True,
-                    wo_acc: bool = False):
+                    wo_acc: bool = False, group=None):
     """Merged-layout encoder attention with s8 x s8 projections.
 
     Activations are quantized per row, the projections run int8 x int8 ->
@@ -294,6 +341,13 @@ def _self_attn_act8(x, blk, n_heads, t_real, *, x_quant=None,
     with ``quant_only`` instead of ``quantize_act``.  ``wo_acc`` returns
     wo's int32 accumulators and the operands of its epilogue, ``(acc, os,
     w_scale, b)``, for ``add_ln_quant_acc``, instead of its output.
+
+    ``group``: q/k/v are a rank's column slices, its heads, and wo its row
+    slice (``shard_params`` on a mesh, unfused).  B11 runs on the rank's
+    heads (every head, where the axis cuts one: q/k/v gathered whole, then
+    the rank's columns kept), the attention output is quantized at the
+    whole row's scale (B7's split entries, or the plain chain's), and wo's
+    partial accumulators are summed over the axis before its epilogue.
     """
     dh = x.shape[-1] // n_heads
     qs = dh ** -0.5
@@ -318,36 +372,50 @@ def _self_attn_act8(x, blk, n_heads, t_real, *, x_quant=None,
             km = quant_matmul_act8(xq, xs, blk["wk"], out_dtype=x.dtype)
             vm = quant_matmul_act8(xq, xs, blk["wv"], blk["bv"],
                                    out_dtype=x.dtype)
+            if group is not None and qm.shape[-1] % dh:  # the axis cuts a head
+                qm, km, vm = (gather_last(t, group) for t in (qm, km, vm))
         out_m = encoder_attention_merged(qm, km, vm, t_real)
+        if group is not None:
+            out_m = _own_heads(out_m, blk["wo"], group)
     if fused_quant:
-        oq, os_ = encoder_fused.quant_only(out_m)
+        oq, os_ = (encoder_fused.quant_only(out_m) if group is None
+                   else _quant_only_split(out_m, group))
     else:
-        oq, os_ = quantize_act(out_m)
+        oq, os_ = _quantize_act(out_m, group)
     wo = blk["wo"]
+    acc = _row_split_acc(oq, wo, group)
     if wo_acc:
-        return int8_accumulators(oq, wo), os_, wo["s"], blk["bo"]
-    return quant_matmul_act8(oq, os_, wo, blk["bo"], out_dtype=x.dtype)
+        return acc, os_, wo["s"], blk["bo"]
+    return act8_epilogue(acc, os_, wo["s"], blk["bo"], x.dtype)
 
 
-def _mlp_act8(x, blk):
-    """Encoder MLP with s8 x s8 matmuls and plain quantize chains."""
+def _mlp_act8(x, blk, group=None):
+    """Encoder MLP with s8 x s8 matmuls and plain quantize chains; with
+    ``group``, on a rank's hidden slice (W1's columns, W2's rows)."""
     xq, xs = quantize_act(x)
     h = quant_matmul_act8(xq, xs, blk["w1"], blk["b1"], out_dtype=x.dtype)
-    hq, hs = quantize_act(F.gelu(h))
-    return quant_matmul_act8(hq, hs, blk["w2"], blk["b2"], out_dtype=h.dtype)
+    hq, hs = _quantize_act(F.gelu(h), group)
+    w2 = blk["w2"]
+    return act8_epilogue(_row_split_acc(hq, w2, group), hs, w2["s"], blk["b2"],
+                         h.dtype)
 
 
-def _mlp_act8_acc(blk, x_quant):
+def _mlp_act8_acc(blk, x_quant, group=None):
     """The fused-quant encoder MLP up to W2's int32 accumulators: W1's
     accumulators go to ``gelu_quant_acc`` (W1's epilogue, the GELU and the
     hidden's quantize in one kernel).  Returns ``(acc, hs, w_scale, b)``,
     the operands of W2's epilogue, which the next layer's ``ln_quant_acc``
-    (or, after the last layer, :func:`act8_epilogue`) applies."""
+    (or, after the last layer, :func:`act8_epilogue`) applies.  With
+    ``group``, on a rank's hidden slice: B9's split entries, and W2's
+    partial accumulators summed over the axis."""
     xq, xs = x_quant
     w1, w2 = blk["w1"], blk["w2"]
-    hq, hs = encoder_fused.gelu_quant_acc(int8_accumulators(xq, w1), xs,
-                                          w1["s"], blk["b1"])
-    return int8_accumulators(hq, w2), hs, w2["s"], blk["b2"]
+    acc = int8_accumulators(xq, w1)
+    if group is None:
+        hq, hs = encoder_fused.gelu_quant_acc(acc, xs, w1["s"], blk["b1"])
+    else:
+        hq, hs = _gelu_quant_acc_split(acc, xs, w1["s"], blk["b1"], group)
+    return _row_split_acc(hq, w2, group), hs, w2["s"], blk["b2"]
 
 
 def _run_block(block, remat: bool, x, *args):
@@ -380,26 +448,33 @@ def _encoder_block(x, blk, n_heads, fused, t_real):
 # rank computes the same gradient for them.
 
 def _split(blk, cfg: WhisperConfig) -> Tuple[bool, bool]:
-    """(attention split, MLP split) of a float block's slices; quantized
-    and fused-qkv blocks are whole."""
-    if "wq" not in blk or is_quantized(blk["wq"]):
+    """(attention split, MLP split) of a block's slices, float or
+    quantized; fused-qkv blocks are whole."""
+    if "wq" not in blk:
         return False, False
     return _width(blk["wq"]) < cfg.d_model, _width(blk["w1"]) < cfg.ffn_dim
 
 
 def _tp_row_proj(x_local, w, b, group):
-    """A row-split projection: the rank's partial product in f32, summed
-    over the axis, the bias added once, one rounding to x's type."""
-    out = reduce_from_model(torch.matmul(x_local.float(), w.float()), group)
+    """A row-split projection: the rank's partial product in f32 (a
+    quantized leaf's times its column scales), summed over the axis, the
+    bias added once, one rounding to x's type."""
+    part = (quant_matmul(x_local, w) if is_quantized(w)
+            else torch.matmul(x_local.float(), w.float()))
+    out = reduce_from_model(part, group)
     return (out + b.float()).to(x_local.dtype)
 
 
-def _tp_attention(hq, hkv, blk, sfx: str, n_heads: int, mask, group):
+def _tp_attention(hq, hkv, blk, sfx: str, n_heads: int, mask, group,
+                  fused: bool = False, t_real=None):
     """Attention (``sfx`` "" self, "_c" cross) on a block whose q/k/v
     columns and wo rows are the rank's: hq and hkv come whole through
     :func:`copy_to_model`.  Where the slices end inside a head, q, k and v
     are gathered whole, every rank attends on every head and keeps its
-    columns of the merged heads before its rows of wo."""
+    columns of the merged heads before its rows of wo.  ``fused`` (the
+    encoder's inference path: no mask, 64-wide heads) runs B11 on the
+    heads the rank holds; training keeps the plain attention, whose
+    backward it needs."""
     q = _proj(hq, blk["wq" + sfx], blk["bq" + sfx])
     k = _proj(hkv, blk["wk" + sfx])
     v = _proj(hkv, blk["wv" + sfx], blk["bv" + sfx])
@@ -408,12 +483,12 @@ def _tp_attention(hq, hkv, blk, sfx: str, n_heads: int, mask, group):
     if q.shape[-1] % dh:
         q, k, v = (gather_cut_columns(t, group) for t in (q, k, v))
     heads = q.shape[-1] // dh
-    merged = _merge_heads(_attention(_split_heads(q, heads), _split_heads(k, heads),
-                                     _split_heads(v, heads), mask))
-    if merged.shape[-1] > wo.shape[0]:
-        rows = wo.shape[0]
-        merged = merged.narrow(-1, dist.get_rank(group) * rows, rows)
-    return _tp_row_proj(merged, wo, blk["bo" + sfx], group)
+    if fused and mask is None and dh == 64:
+        merged = _merged_attention(q, k, v, dh, t_real)
+    else:
+        merged = _merge_heads(_attention(_split_heads(q, heads), _split_heads(k, heads),
+                                         _split_heads(v, heads), mask))
+    return _tp_row_proj(_own_heads(merged, wo, group), wo, blk["bo" + sfx], group)
 
 
 def _tp_mlp(x, blk, group):
@@ -421,14 +496,14 @@ def _tp_mlp(x, blk, group):
     return _tp_row_proj(h, blk["w2"], blk["b2"], group)
 
 
-def _encoder_block_tp(x, blk, n_heads, split, group):
+def _encoder_block_tp(x, blk, n_heads, split, group, fused=False, t_real=None):
     attn_split, mlp_split = split
     h = _ln(x, blk["ln1_s"], blk["ln1_b"])
     if attn_split:
         hf = copy_to_model(h, group)
-        x = x + _tp_attention(hf, hf, blk, "", n_heads, None, group)
+        x = x + _tp_attention(hf, hf, blk, "", n_heads, None, group, fused, t_real)
     else:
-        x = x + _self_attn(h, blk, n_heads)
+        x = x + _self_attn(h, blk, n_heads, fused=fused, t_real=t_real)
     h = _ln(x, blk["ln2_s"], blk["ln2_b"])
     return x + (_tp_mlp(h, blk, group) if mlp_split else _mlp(h, blk))
 
@@ -465,6 +540,17 @@ def encode(params: Params, cfg: WhisperConfig, mel, *, remat: bool = False,
     pass (training's gradient checkpointing); the quantized blocks train
     nothing, so it leaves them alone.  Training passes
     ``fused_attention=False``: the kernel has no backward.
+
+    ``shard_params``' slices of the encoder (an engine or a training step
+    on a mesh, the ``"model"`` axis bound) run on the rank's heads and
+    hidden slice, the layout read from the q projection's and W1's widths:
+    the s8 x s8 blocks sum wo's and W2's partial int32 accumulators over
+    the axis and quantize the split rows at the whole row's scale (B7's and
+    B9's split entries), so their output is the one-card encoder's bit for
+    bit; the float blocks (and quantized weights with ``act_int8`` off) sum
+    the row-split projections' partial products in f32.  Every rank takes
+    the whole batch, as the JAX engine's jit leaves an unplaced batch whole
+    on every device of the data axis.
     """
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
@@ -477,7 +563,6 @@ def encode(params: Params, cfg: WhisperConfig, mel, *, remat: bool = False,
     # pos slices to the mel length (short windows encode a prefix)
     x = x.to(enc["pos"].dtype) + enc["pos"][: x.shape[1]]
     fused = True if fused_attention is None else fused_attention
-    t_real = x.shape[1]
     dh = cfg.d_model // cfg.encoder_heads
     use_merged = fused and dh == 64 and cfg.encoder_heads % 2 == 0
     quantized = is_quantized(enc["blocks"][0].get("w1"))
@@ -486,11 +571,28 @@ def encode(params: Params, cfg: WhisperConfig, mel, *, remat: bool = False,
         raise ValueError("act_int8 needs quantized weights and the merged "
                          "attention kernel")
     fq = act8 if fused_quant is None else (fused_quant and act8)
+    x = _encoder_blocks(x, enc["blocks"], cfg, act8=act8, fused_quant=fq, fused=fused,
+                        remat=remat, qkv_direct=qkv_direct)
+    return _ln(x, enc["ln_s"], enc["ln_b"])
+
+
+def _encoder_blocks(x, blocks, cfg: WhisperConfig, *, act8: bool, fused_quant: bool,
+                    fused: bool, remat: bool = False, qkv_direct: bool = True):
+    """The encoder's layers on the stem's output x (B, T, D), by the
+    branches :func:`encode` chose (``act8``: the s8 x s8 blocks,
+    ``fused_quant`` their row kernels; else the float blocks, ``fused``
+    with the attention kernel), each on a rank's slices where the layer's
+    widths are a shard's; up to the final LayerNorm."""
+    t_real = x.shape[1]
+    fq = fused_quant
     if act8:
         x = x.contiguous()  # the row kernels read contiguous (B, T, D) rows
     h_n = cfg.encoder_heads
     w2 = None  # fused quant: the last W2's epilogue operands, not yet added
-    for blk in enc["blocks"]:
+    for blk in blocks:
+        split = _split(blk, cfg)
+        # the model axis's group where it splits the attention, the MLP
+        g_att, g_mlp = (axis_group("model") if s else None for s in split)
         if fq:
             if w2 is None:
                 q1, s1 = encoder_fused.ln_quant(x, blk["ln1_s"], blk["ln1_b"])
@@ -499,22 +601,22 @@ def encode(params: Params, cfg: WhisperConfig, mel, *, remat: bool = False,
                                                        blk["ln1_b"])
             wo = _self_attn_act8(x, blk, h_n, t_real, x_quant=(q1, s1),
                                  fused_quant=True, qkv_direct=qkv_direct,
-                                 wo_acc=True)
+                                 wo_acc=True, group=g_att)
             x, q2, s2 = encoder_fused.add_ln_quant_acc(x, *wo, blk["ln2_s"],
                                                        blk["ln2_b"])
-            w2 = _mlp_act8_acc(blk, (q2, s2))
+            w2 = _mlp_act8_acc(blk, (q2, s2), group=g_mlp)
         elif act8:
             h = _ln(x, blk["ln1_s"], blk["ln1_b"])
-            x = x + _self_attn_act8(h, blk, h_n, t_real)
-            x = x + _mlp_act8(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk)
-        elif any(_split(blk, cfg)):
-            x = _run_block(_encoder_block_tp, remat, x, blk, h_n, _split(blk, cfg),
-                           axis_group("model"))
+            x = x + _self_attn_act8(h, blk, h_n, t_real, group=g_att)
+            x = x + _mlp_act8(_ln(x, blk["ln2_s"], blk["ln2_b"]), blk, group=g_mlp)
+        elif any(split):
+            x = _run_block(_encoder_block_tp, remat, x, blk, h_n, split,
+                           axis_group("model"), fused, t_real)
         else:
             x = _run_block(_encoder_block, remat, x, blk, h_n, fused, t_real)
     if w2 is not None:
         x = x + act8_epilogue(*w2, out_dtype=torch.bfloat16)
-    return _ln(x, enc["ln_s"], enc["ln_b"])
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -658,6 +760,11 @@ def _quantized_cross_kv(enc_out, blk, h: int, int4: bool):
 def _width(w) -> int:
     """Output width of a weight leaf (float or quantized)."""
     return (w["q"] if is_quantized(w) else w).shape[-1]
+
+
+def _in_rows(w) -> int:
+    """Input rows of a weight leaf (float or quantized)."""
+    return (w["q"] if is_quantized(w) else w).shape[-2]
 
 
 def local_heads(blk: dict, cfg: WhisperConfig) -> int:

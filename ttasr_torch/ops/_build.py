@@ -79,6 +79,16 @@ ARGTYPES = {
     # acc, xs, w_scale, b (NULL: none), out; rows, W, q_cols; q_scale;
     # vec_bf16; stream
     "ttasr_qkv_epilogue_acc": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
+    # the split entries (a row split over the model axis): x, absmax; rows,
+    # D; stream
+    "ttasr_quant_only_absmax": [_P] * 2 + [_I] * 2 + [_P],
+    # x, absmax, codes, scales; rows, D; stream
+    "ttasr_quant_only_scaled": [_P] * 4 + [_I] * 2 + [_P],
+    # acc, xs, w_scale, b (NULL: none), h (NULL: not stored), absmax; rows,
+    # F, vec_bf16; stream
+    "ttasr_gelu_quant_acc_absmax": [_P] * 6 + [_I] * 3 + [_P],
+    # h, absmax, codes, scales; rows, F; stream
+    "ttasr_gelu_quant_scaled": [_P] * 4 + [_I] * 2 + [_P],
     # x, ln_s, ln_b, w, w_scale, bias, out; R, D, M; stream
     "ttasr_qkv_int8": [_P] * 7 + [_I] * 3 + [_P],
     # x, attn, wo, wo_s, bo, lnc_s, lnc_b, wqc, wqc_s, bqc, xo, qc; R, D, DC;
@@ -112,7 +122,8 @@ ARGTYPES = {
 # the row kernels on float32 rows: the same signatures
 ARGTYPES.update({name + "_f32": ARGTYPES[name] for name in (
     "ttasr_ln_quant", "ttasr_add_ln_quant", "ttasr_gelu_quant", "ttasr_quant_only",
-    "ttasr_ln_quant_acc", "ttasr_add_ln_quant_acc", "ttasr_qkv_epilogue_acc")})
+    "ttasr_ln_quant_acc", "ttasr_add_ln_quant_acc", "ttasr_qkv_epilogue_acc",
+    "ttasr_quant_only_absmax", "ttasr_quant_only_scaled")})
 
 
 def _nvcc() -> str:

@@ -36,7 +36,24 @@ epilogue's output) comes back in the rows' own type, so on float32 rows the
 roundings to bf16 drop out (not the bf16 rounding of W1's and W2's GEMM
 output, which the plain versions keep for any x).
 
-All eight run one kernel template, instantiated for bf16 and for f32 rows
+On a mesh the model axis splits the columns of two rows these kernels
+quantize, B7's (the attention output: a rank's heads) and B9's (W1's
+output: a rank's hidden slice), and a row's scale needs the whole row's
+absmax.  Their split entries run in two passes around a MAX all-reduce of
+the (rows,) absmax over the axis (``models/whisper/model.py``):
+
+- B7 :func:`quant_only_absmax` (the absmax of x's columns), then
+  :func:`quant_only_scaled` (codes and scales at the reduced absmax);
+- B9 :func:`gelu_quant_acc_absmax` (W1's epilogue, the GELU and the
+  absmax of the rank's columns, and h, W1's bf16 output), then
+  :func:`gelu_quant_scaled` (the GELU of h again, codes and scales at the
+  reduced absmax; reading the 2-byte h beat reading the 4-byte
+  accumulators again, PERF.md §6).
+
+A rank's codes and scales are then the whole-row entry's at its columns,
+bit for bit.
+
+All run one kernel template, instantiated for bf16 and for f32 rows
 (the ``..._f32`` entry points).  Each wrapper runs its plain PyTorch
 version (``*_ref``) for CPU tensors and
 launches the CUDA kernel (``ttasr_torch/csrc/encoder_fused.cu``) for CUDA
@@ -50,7 +67,12 @@ import torch
 from ttasr_torch.ops._build import count_launch
 from ttasr_torch.ops.decoder_blocks import _dispatch
 from ttasr_torch.ops.decoder_mlp import gelu_as
-from ttasr_torch.ops.quant import act8_epilogue, quantize_rows
+from ttasr_torch.ops.quant import (
+    act8_epilogue,
+    quantize_rows,
+    quantize_rows_at,
+    row_absmax,
+)
 
 LN_EPS = 1e-5
 
@@ -94,6 +116,23 @@ def ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias):
 
 def add_ln_quant_acc_ref(x, acc, xs, w_scale, b, scale, bias):
     return add_ln_quant_ref(x, act8_epilogue(acc, xs, w_scale, b, x.dtype), scale, bias)
+
+
+def quant_only_absmax_ref(x):
+    return row_absmax(x.float())
+
+
+def quant_only_scaled_ref(x, absmax):
+    return quantize_rows_at(x.float(), absmax)
+
+
+def gelu_quant_acc_absmax_ref(acc, xs, w_scale, b):
+    h = act8_epilogue(acc, xs, w_scale, b, torch.bfloat16)
+    return row_absmax(gelu_as(h.float())), h
+
+
+def gelu_quant_scaled_ref(h, absmax):
+    return quantize_rows_at(gelu_as(h.float()), absmax)
 
 
 def qkv_epilogue_acc_ref(acc, xs, w_scale, b, q_scale, out_dtype=torch.bfloat16):
@@ -330,6 +369,83 @@ def qkv_epilogue_acc(acc, xs, w_scale, b, q_scale, out_dtype=torch.bfloat16):
     return out
 
 
+def _row_absmax_out(x):
+    """The (..., 1) f32 absmax buffer of rows like x's."""
+    return torch.empty(tuple(x.shape[:-1]) + (1,), dtype=torch.float32, device=x.device)
+
+
+def _absmax_in(absmax, rows, device):
+    if (absmax.numel() != rows or absmax.dtype != torch.float32
+            or absmax.device != device or not absmax.is_contiguous()):
+        raise ValueError(f"absmax must hold {rows} contiguous f32 values on {device}")
+    return absmax
+
+
+def quant_only_absmax(x):
+    """B7's absmax pass: the absmax of each row of x (..., D) over its
+    columns, (..., 1) f32."""
+    if not _dispatch(x):
+        return quant_only_absmax_ref(x)
+    rows, d = _rows(x, "x")
+    absmax = _row_absmax_out(x)
+    from ttasr_torch.ops._build import launch
+
+    launch(_entry("ttasr_quant_only_absmax", x), x.device, x, absmax, rows, d)
+    count_launch(quant_only_absmax)
+    return absmax
+
+
+def quant_only_scaled(x, absmax):
+    """B7's codes pass: x's codes and row scales (..., 1) at the given row
+    absmax (the whole row's, where x holds a rank's columns)."""
+    if not _dispatch(x):
+        return quant_only_scaled_ref(x, absmax)
+    rows, d = _rows(x, "x")
+    absmax = _absmax_in(absmax, rows, x.device)
+    _, codes, scales = _outputs(x)
+    from ttasr_torch.ops._build import launch
+
+    launch(_entry("ttasr_quant_only_scaled", x), x.device, x, absmax, codes, scales,
+           rows, d)
+    count_launch(quant_only_scaled)
+    return codes, scales
+
+
+def gelu_quant_acc_absmax(acc, xs, w_scale, b):
+    """B9's absmax pass from W1's int32 accumulators of a rank's columns:
+    ``(absmax (..., 1) of GELU(h), h)``, h = bf16(acc * xs * w_scale + b),
+    the input of :func:`gelu_quant_scaled`."""
+    if not _dispatch(acc):
+        return gelu_quant_acc_absmax_ref(acc, xs, w_scale, b)
+    rows, f, xs, ws = _acc_rows(acc, xs, w_scale)
+    b, mask = _vecs(f, b=b)
+    absmax = _row_absmax_out(acc)
+    h = torch.empty(acc.shape, dtype=torch.bfloat16, device=acc.device)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_gelu_quant_acc_absmax", acc.device, acc, xs, ws, b, h, absmax, rows,
+           f, mask)
+    count_launch(gelu_quant_acc_absmax)
+    return absmax, h
+
+
+def gelu_quant_scaled(h, absmax):
+    """B9's codes pass: codes and row scales of GELU(h) for bf16 h (...,
+    F) at the given row absmax, the GELU by the table the absmax pass
+    used."""
+    if not _dispatch(h):
+        return gelu_quant_scaled_ref(h, absmax)
+    rows, f = _rows(h, "h", (torch.bfloat16,))
+    absmax = _absmax_in(absmax, rows, h.device)
+    _, codes, scales = _outputs(h)
+    from ttasr_torch.ops._build import launch
+
+    launch("ttasr_gelu_quant_scaled", h.device, h, absmax, codes, scales, rows, f)
+    count_launch(gelu_quant_scaled)
+    return codes, scales
+
+
 for _fn in (ln_quant, add_ln_quant, gelu_quant, quant_only, gelu_quant_acc,
-            ln_quant_acc, add_ln_quant_acc, qkv_epilogue_acc):
+            ln_quant_acc, add_ln_quant_acc, qkv_epilogue_acc, quant_only_absmax,
+            quant_only_scaled, gelu_quant_acc_absmax, gelu_quant_scaled):
     _fn.launches = 0

@@ -133,15 +133,29 @@ def quant_matmul(x, leaf):
     return out * leaf["s"].reshape(leaf["s"].shape[-1])
 
 
+def row_absmax(xf):
+    """The absmax of each row of f32 (..., K), (..., 1)."""
+    return xf.abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_rows_at(xf, absmax):
+    """f32 (..., K) -> (int8 codes, f32 row scales (..., 1)) at the given
+    row absmax (..., 1): ``scale = max(absmax, 1e-8) * f32(1/127)``, codes
+    ``round(x / scale)`` half to even.  With the absmax of a whole row whose
+    columns a mesh axis splits (the MAX over the axis of each rank's
+    :func:`row_absmax`), a rank's codes are the whole row's at its columns."""
+    scale = torch.clamp(absmax, min=1e-8) * (1.0 / 127.0)
+    return torch.round(xf / scale).to(torch.int8), scale
+
+
 def quantize_rows(xf):
     """f32 (..., K) -> (int8 codes, f32 row scales (..., 1)): per-row
-    symmetric absmax, ``scale = max(absmax, 1e-8) * f32(1/127)``, codes
-    ``round(x / scale)`` half to even.  The multiply by the reciprocal is
-    what the JAX package computes wherever it quantizes activations (the
-    encoder's Pallas kernels, and ``quantize_act`` under jit: XLA rewrites
-    the division by the constant)."""
-    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
-    return torch.round(xf / scale).to(torch.int8), scale
+    symmetric absmax (:func:`quantize_rows_at` of the row's own absmax).
+    The multiply by the reciprocal is what the JAX package computes
+    wherever it quantizes activations (the encoder's Pallas kernels, and
+    ``quantize_act`` under jit: XLA rewrites the division by the
+    constant)."""
+    return quantize_rows_at(xf, row_absmax(xf))
 
 
 def quantize_act(x):

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 from ttasr_torch.models.whisper.decode import _tp_gather
 from ttasr_torch.ops.quant import is_quantized
-from ttasr_torch.parallel.sharding import axis_group, shard_params
+from ttasr_torch.parallel.sharding import axis_group
 from ttasr_torch.parallel.tp import MeshDecoder
 
 # the attention's column-split leaves: where the model axis divides the
@@ -36,6 +36,8 @@ _HEAD_COLUMNS = ("wq", "wk", "wv", "bq", "bv", "wq_c", "wk_c", "wv_c", "bq_c", "
 class ShardedDecoder(MeshDecoder):
     """This rank's ``shard_params`` slice of the decoder (float, or
     quantized without ``fuse_qkv``) and the mesh it decodes on.
+    ``params``: ``shard_params(tree, mesh)``, the slices a mesh engine
+    keeps; the decoder's are held as they are (no second copy).
 
     Where the model axis divides d_model but not the heads (large-v3 at 8,
     tiny at 4), a shard's q/k/v columns end inside a head: each decode then
@@ -49,7 +51,7 @@ class ShardedDecoder(MeshDecoder):
         if "wqkv" in params["decoder"]["blocks"][0]:
             raise ValueError("the sharded decode runs the unfused graph: give it "
                              "params without fuse_qkv")
-        self.params = shard_params({"decoder": params["decoder"]}, mesh)
+        self.params = {"decoder": params["decoder"]}
         self.cfg = cfg
         self.mesh = mesh
         n = mesh.shape["model"]

@@ -283,8 +283,13 @@ def slice_view(x, spec: Spec, mesh: Mesh):
 
 def slice_leaf(x, spec: Spec, mesh: Mesh):
     """:func:`slice_view`, contiguous (the kernels read contiguous
-    operands)."""
-    return slice_view(x, spec, mesh).contiguous()
+    operands) and, where it is smaller than x, in storage of its own: a
+    row block of a contiguous leaf is itself contiguous, and as a view it
+    would keep the whole leaf's storage alive."""
+    view = slice_view(x, spec, mesh)
+    if view.numel() < x.numel():
+        return view.clone(memory_format=torch.contiguous_format)
+    return view.contiguous()
 
 
 def gather_leaf(x, spec: Spec, mesh: Mesh):

@@ -40,22 +40,15 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ttasr_torch.parallel.collectives import all_reduce_sum, gather_last, own_columns
+
 
 def _all_reduce(x, group):
-    out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
-    return out
-
-
-def _all_gather_last(x, group):
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=-1)
+    return all_reduce_sum(x.contiguous().clone(), group)
 
 
 def _own_columns(x, group):
-    width = x.shape[-1] // dist.get_world_size(group)
-    return x.narrow(-1, dist.get_rank(group) * width, width).contiguous()
+    return own_columns(x, group, x.shape[-1] // dist.get_world_size(group))
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -83,7 +76,7 @@ class _GatherVocab(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _all_gather_last(x, group)
+        return gather_last(x, group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -94,7 +87,7 @@ class _GatherCutColumns(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _all_gather_last(x, group)
+        return gather_last(x, group)
 
     @staticmethod
     def backward(ctx, grad):

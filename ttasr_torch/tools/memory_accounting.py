@@ -94,6 +94,44 @@ def account(model: str = "large-v3", data: int = 4, model_axis: int = 2,
     }
 
 
+def engine_params(model: str = "large-v3", compute_type: str = "int8", data: int = 1,
+                  model_axis: int = 4) -> dict:
+    """The bytes of params one rank of ``WhisperEngine(mesh=create_mesh(data,
+    model_axis))`` keeps: ``shard_params``' slices of the tree the engine
+    quantizes (int8: ``quantize_params`` of the bfloat16 weights, unfused;
+    bfloat16, float32: the weights), reckoned from the shapes on the meta
+    device.  {"per_rank": {...}, "whole": {...}}, each with ``encoder``,
+    ``decoder``, ``total`` and, int8, ``encoder_codes`` (the encoder's int8
+    codes alone), in bytes."""
+    import torch
+
+    from ttasr_torch.core.checkpoint import named_leaves
+    from ttasr_torch.models.whisper.config import get_config
+    from ttasr_torch.models.whisper.model import init_params
+    from ttasr_torch.ops.quant import quantize_params
+    from ttasr_torch.parallel.sharding import Mesh, leaf_specs, mesh_coords, slice_shape
+
+    dtype = {"int8": torch.bfloat16, "bfloat16": torch.bfloat16,
+             "float32": torch.float32}[compute_type]
+    shape = {"data": data, "model": model_axis}
+    mesh = Mesh(shape=shape, coords=mesh_coords(shape, 0), groups={})
+    params = init_params(get_config(model), dtype=dtype, device="meta")
+    if compute_type == "int8":
+        params = quantize_params(params)
+    specs = leaf_specs(params, mesh)
+    out = {"per_rank": {}, "whole": {}}
+    for path, leaf in named_leaves(params).items():
+        whole = leaf.numel() * leaf.element_size()
+        mine = int(np.prod(slice_shape(leaf.shape, specs[path], mesh))) * leaf.element_size()
+        keys = [path.split(".")[0], "total"]
+        if path.startswith("encoder.") and leaf.dtype == torch.int8:
+            keys.append("encoder_codes")
+        for key in keys:
+            out["whole"][key] = out["whole"].get(key, 0) + whole
+            out["per_rank"][key] = out["per_rank"].get(key, 0) + mine
+    return out
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", default="large-v3")
